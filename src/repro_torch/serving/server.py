@@ -1,0 +1,456 @@
+"""Paged serving front-end: ``submit`` / ``step`` / ``drain`` (port of
+``repro/serving/server.py``, vanilla GRIFFIN serving).
+
+Execution model per ``step()`` (one scheduler tick):
+
+  0. copy-on-write page forks planned by the scheduler are applied to
+     the device pools (``decoder.copy_pool_pages``) — shared prefix
+     pages are read-only, so a writer first gets a private copy,
+  1. at most one prefill chunk of the highest-priority admitted request
+     runs through the full model (GRIFFIN stats streamed per chunk; the
+     ``expert_stat`` kernel on the card) — with the prefix cache a
+     request whose prompt prefix is cached starts at the first divergent
+     token with the cached ``s_sq`` partial pre-loaded,
+  2. the decode batch advances every DECODING request by one token in a
+     single call over ``n_slots`` padded slots, on per-slot compacted FF
+     weights selected at the request's first decode.
+
+All host state (block tables, positions, tokens) lives in the
+scheduler's request objects; the model, pools, statistics and compacted
+weights live on ``device`` (the card unless ``device="cpu"``).  Block
+tables are narrowed to the tick's live context (the widest request's
+page count, rounded up to a power of two).  The pools and the per-slot
+compacted buffers are updated in place.
+
+Attention backends (``kernel_backend``): ``fused`` runs the paged
+attention kernel (``kernels/paged_attn.py``), ``gather`` the
+gather-then-attend path (``paged_gather`` kernel on the card), ``auto``
+fused on CUDA and gather on the CPU.  Greedy tokens come from
+``torch.argmax`` on the device, which picks the first maximum like the
+reference's ``np.argmax``.
+
+Not in this slice (each raises ``NotImplementedError``): speculative
+decoding (``spec_k``), tensor parallelism (``mesh``), flocking telemetry
+(``flocking_every``) and quantized pools (``kv_dtype`` int8/fp8).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import griffin as griffin_lib
+from repro_torch.kernels import backend as backend_lib
+from repro_torch.kernels import kv_quant
+from repro_torch.models import decoder
+from repro_torch.models.layers.attention import resolve_attn_backend
+from repro_torch.obs.stragglers import StepTimeMonitor
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.paged import PagedConfig
+from repro_torch.serving.scheduler import (
+    DECODING,
+    PrefillWork,
+    ScheduledRequest,
+    Scheduler,
+)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch server yet (ROADMAP {item})"
+    )
+
+
+class PagedServer:
+    def __init__(
+        self,
+        cfg,
+        params: Dict,
+        gcfg: Optional[griffin_lib.GriffinConfig] = None,
+        *,
+        page_size: int = 16,
+        num_pages: int = 96,
+        n_slots: int = 4,
+        prefill_chunk: int = 32,
+        max_len: int = 256,
+        spec_k: int = 0,
+        prefix_cache: bool = True,
+        kernel_backend: str = "auto",
+        kv_dtype: str = "fp32",
+        metrics: Optional[ServingMetrics] = None,
+        mesh=None,
+        tracer: Optional[Tracer] = None,
+        flocking_every: int = 0,
+        profile: Optional[griffin_lib.SparsityProfile] = None,
+        default_tier: Optional[float] = None,
+        device=None,
+    ):
+        assert decoder.supports_paged(cfg), (
+            f"{cfg.name}: paged serving covers attention families only"
+        )
+        if spec_k:
+            raise _not_ported("speculative decoding (spec_k > 0)",
+                              "Queue A: speculative rounds")
+        if mesh is not None:
+            raise _not_ported("tensor parallelism (mesh)",
+                              "Queue A: tensor parallelism")
+        if flocking_every:
+            raise _not_ported("flocking telemetry (flocking_every)",
+                              "Queue A: off-path modules, obs/flocking.py")
+        self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
+        if kv_quant.is_quantized(self.kv_dtype):
+            raise NotImplementedError(kv_quant.QUANTIZED_TODO)
+        self.device = backend_lib.resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(
+                f"params live on {table.device}, the server on {self.device}"
+            )
+        self.cfg, self.params = cfg, params
+        self.gcfg = gcfg if (gcfg is not None and cfg.griffin and cfg.has_ffn) \
+            else None
+        self.pcfg = PagedConfig(
+            page_size=page_size, num_pages=num_pages,
+            max_pages_per_request=-(-max_len // page_size),
+        )
+        self.n_slots = n_slots
+        self.backend = resolve_attn_backend(kernel_backend, self.device)
+        # per-layer profiles + request tiers
+        self.profile = profile
+        self.default_tier = griffin_lib.resolve_tier(default_tier)
+        if (profile is not None or self.default_tier is not None) \
+                and self.gcfg is None:
+            raise ValueError(
+                "sparsity profile/tier needs gcfg: tiers scale the "
+                "GRIFFIN per-layer expert budgets"
+            )
+        self._k_trees: Dict[float, Dict[int, int]] = {}  # tier -> plan_k_tree
+        self._ffn_F = griffin_lib.ffn_widths(cfg) if self.gcfg is not None \
+            else {}
+        # tick bucketing state: the widths signature the installed slot
+        # buffers were padded to, and which request each slot holds
+        self._bucket_sig = None
+        self._slot_rid: Dict[int, int] = {}
+        self.sched = Scheduler(self.pcfg, n_slots, prefill_chunk,
+                               metrics=metrics, prefix_cache=prefix_cache)
+        self.sched.needs_stats = self.gcfg is not None
+        self.pools = decoder.init_paged_pools(cfg, num_pages, page_size,
+                                              self.kv_dtype, self.device)
+        # per-slot compacted FF: {li: {leaf: [n_slots, ...]}}
+        self.pruned_slots: Optional[Dict[int, Dict]] = None
+        self._next_rid = 0
+        self._tick_attn_bytes = 0.0  # modeled KV read bytes, this tick
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.sched.metrics.tracer = self.tracer
+        self.steps_mon = StepTimeMonitor(self.sched.metrics.registry)
+        self._tick_no = 0
+
+    # -- device calls --------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _step_model(self, bt, toks, pos, mask, pruned, collect=False):
+        return decoder.decode_step_paged(
+            self.params, self.cfg, self.pools, self._tensor(bt),
+            self._tensor(toks), self._tensor(pos), write_mask=self._tensor(mask),
+            pruned=pruned, collect_stats=collect, backend=self.backend,
+            kv_dtype=self.kv_dtype,
+        )
+
+    # -- API ---------------------------------------------------------------
+    @property
+    def metrics(self) -> ServingMetrics:
+        return self.sched.metrics
+
+    def submit(self, prompt: np.ndarray, max_new: int,
+               rid: Optional[int] = None, priority: int = 0,
+               deadline: Optional[float] = None,
+               tier: Optional[float] = None) -> int:
+        """``tier`` (one of ``griffin.TIERS``): the fraction of FF experts
+        this request keeps — 1.0 decodes dense.  None falls back to the
+        server's ``default_tier`` (itself None -> the global ``gcfg``
+        budget)."""
+        tier = griffin_lib.resolve_tier(tier)
+        if tier is not None and self.gcfg is None:
+            raise ValueError(
+                f"request tier {tier} needs gcfg: tiers scale the "
+                f"GRIFFIN per-layer expert budgets"
+            )
+        if rid is None:
+            rid = self._next_rid
+        self._next_rid = max(self._next_rid, rid + 1)
+        self.sched.submit(prompt, max_new, rid, priority, deadline=deadline,
+                          tier=tier)
+        return rid
+
+    def step(self) -> bool:
+        """One scheduler tick; returns True while work remains."""
+        tr = self.tracer
+        metrics = self.sched.metrics
+        t0 = metrics.clock()
+        self._tick_no += 1
+        with tr.span("tick", tick=self._tick_no):
+            with tr.span("plan"):
+                plan = self.sched.plan_step()
+            if plan.cow:
+                # copy-on-write forks: duplicate shared page bits into the
+                # writers' fresh pages before any of this tick's writes
+                with tr.span("cow_copy", pairs=len(plan.cow)):
+                    decoder.copy_pool_pages(
+                        self.cfg, self.pools,
+                        self._tensor(np.asarray([s for s, _ in plan.cow], np.int64)),
+                        self._tensor(np.asarray([d for _, d in plan.cow], np.int64)),
+                    )
+            if plan.prefill is not None:
+                with tr.span("prefill_chunk", rid=plan.prefill.req.rid,
+                             start=plan.prefill.start,
+                             tokens=len(plan.prefill.tokens)):
+                    self._run_prefill(plan.prefill)
+            if plan.decode:
+                with tr.span("decode", batch=len(plan.decode)):
+                    self._run_decode(plan.decode)
+            metrics.on_step(self.sched.pool_in_use_frac(),
+                            len(plan.decode),
+                            shared_pages=self.sched.alloc.num_shared,
+                            attn_bytes_read=self._tick_attn_bytes)
+        self._tick_attn_bytes = 0.0
+        self.steps_mon.on_tick(metrics.clock() - t0, None)
+        tr.counter("pool", occupancy=self.sched.pool_in_use_frac(),
+                   decode_batch=len(plan.decode),
+                   shared_pages=self.sched.alloc.num_shared)
+        return self.sched.has_work
+
+    def drain(self) -> Dict[int, List[int]]:
+        """Run until idle; returns generated tokens per finished request."""
+        while self.step():
+            pass
+        self.sync_prefix_gauges()
+        return {rid: r.generated for rid, r in self.sched.finished.items()
+                if not r.aborted}
+
+    def sync_prefix_gauges(self) -> None:
+        """Mirror the prefix trie's shape onto registry gauges."""
+        if self.sched.prefix is None:
+            return
+        for k, v in self.sched.prefix.stats().items():
+            self.metrics.registry.gauge(
+                f"serving_prefix_{k}",
+                help="Prefix-trie shape gauge (see PrefixCache.stats)",
+            ).set(v)
+
+    # -- live-context narrowing + modeled attention traffic ----------------
+    def _live_width(self, reqs: List[ScheduledRequest]) -> int:
+        """Block-table width for this call: the widest request's page
+        count, rounded up to a power of two, capped at
+        ``max_pages_per_request``."""
+        W = self.pcfg.max_pages_per_request
+        n = max((len(r.table.pages) for r in reqs), default=1)
+        w = 1
+        while w < max(n, 1):
+            w *= 2
+        return min(w, W)
+
+    def _count_attn_bytes(self, pos: List[int], S: int, width: int,
+                          rows: int) -> None:
+        """Accumulate this call's modeled bytes of KV read by attention
+        (the ``attn_bytes_read`` per-tick gauge): the fused kernel streams
+        ``ceil((pos+S)/page)`` owned pages per live request; the gather
+        path materializes ``width`` pages for every row."""
+        page = self.pcfg.page_size
+        per_page = kv_quant.page_bytes(
+            page, self.cfg.num_kv_heads, self.cfg.head_dim,
+            self.kv_dtype, self.cfg.dtype,
+        )
+        if self.backend == "fused":
+            pages = sum(-(-(p + S) // page) for p in pos)
+        else:
+            pages = rows * width
+        self._tick_attn_bytes += float(
+            self.cfg.num_layers * pages * per_page
+        )
+
+    # -- phases ------------------------------------------------------------
+    def _run_prefill(self, work: PrefillWork) -> None:
+        req, chunk = work.req, self.sched.prefill_chunk
+        Lc = len(work.tokens)
+        toks = np.zeros((1, chunk), np.int32)
+        toks[0, :Lc] = work.tokens
+        mask = np.zeros((1, chunk), bool)
+        mask[0, :Lc] = True
+        Wl = self._live_width([req])
+        bt = req.table.as_array(Wl)[None]
+        pos = np.array([work.start], np.int32)
+        self._count_attn_bytes([work.start], Lc, Wl, rows=1)
+        collect = work.collect_stats and self.gcfg is not None
+        # resume of a compacted request: generated-token positions must
+        # rebuild their KV with the same FF weights that decoded them
+        use_pruned = work.use_pruned and req.pruned_host is not None
+        pruned = self._expand_b1(req.pruned_host) if use_pruned else None
+        with self.tracer.annotation("prefill_chunk"):
+            logits, _, stats = self._step_model(bt, toks, pos, mask, pruned,
+                                                collect)
+        if collect:
+            part = decoder.prune_stats_tree(stats, self.cfg)
+            # a fresh tree, never an in-place add: the prefix cache may
+            # hold the previous accumulator
+            req.s_sq_acc = part if req.s_sq_acc is None else {
+                li: {k: req.s_sq_acc[li][k] + v for k, v in st.items()}
+                for li, st in part.items()
+            }
+        first_token = None
+        if work.is_last and not req.generated:
+            first_token = int(torch.argmax(logits[0, Lc - 1]))
+        self.sched.finish_prefill_chunk(work, first_token)
+        if work.is_last and req.state == DECODING and self.gcfg is not None:
+            if not req.compacted:
+                tier = req.tier if req.tier is not None else self.default_tier
+                if tier == 1.0:
+                    # dense tier: no selection, no compacted buffers
+                    req.pruned_host = None
+                    req.k_widths = None
+                else:
+                    ffn_tree = decoder.extract_ffn_tree(self.params, self.cfg)
+                    ks = None if tier is None else self._k_tree(tier)
+                    req.pruned_host, req.k_widths = \
+                        griffin_lib.select_and_compact(
+                            req.s_sq_acc, ffn_tree, self.gcfg, ks=ks)
+                req.compacted = True
+                req.s_sq_acc = None
+            # slot install is deferred to the decode tick
+            # (_sync_pruned_slots): the buffer width every request pads
+            # to depends on which tiers share that tick
+
+    def _decode_inputs(self, reqs: List[ScheduledRequest]):
+        """Padded one-token decode inputs for the batch: each request's
+        newest token at its ``cache_len`` position."""
+        B, W = self.n_slots, self._live_width(reqs)
+        toks = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B,), np.int32)
+        mask = np.zeros((B, 1), bool)
+        bts = np.full((B, W), -1, np.int32)
+        for req in reqs:
+            s = req.slot
+            toks[s, 0] = req.generated[-1]
+            pos[s] = req.cache_len
+            mask[s, 0] = True
+            bts[s] = req.table.as_array(W)
+        return toks, pos, mask, bts, W
+
+    def _run_decode(self, reqs: List[ScheduledRequest]) -> None:
+        B = self.n_slots
+        toks, pos, mask, bts, W = self._decode_inputs(reqs)
+        use_griffin = self.gcfg is not None
+        pruned = self._sync_pruned_slots(reqs) if use_griffin else None
+        dense_rows = [r for r in reqs if r.pruned_host is None] \
+            if use_griffin else list(reqs)
+        pruned_rows = [r for r in reqs if r.pruned_host is not None] \
+            if use_griffin else []
+        if pruned is None:
+            groups = [(None, list(reqs))]
+        elif not dense_rows:
+            groups = [(pruned, list(reqs))]
+        else:
+            # mixed tick: compacted tiers share one padded-width pruned
+            # call; tier-1.0 rows run the unmodified dense model in a
+            # second call.  Each call masks the other group's rows, so KV
+            # writes and committed tokens never mix.
+            groups = [(pruned, pruned_rows), (None, dense_rows)]
+        next_tok: Dict[int, int] = {}
+        for pr, group in groups:
+            gmask = mask
+            if len(group) != len(reqs):
+                gmask = np.zeros_like(mask)
+                for r in group:
+                    gmask[r.slot] = mask[r.slot]
+            self._count_attn_bytes([r.cache_len for r in group], 1, W,
+                                   rows=B)
+            with self.tracer.annotation("decode_step"):
+                logits, _, _ = self._step_model(bts, toks, pos, gmask, pr)
+            best = torch.argmax(logits[:, 0], dim=-1).tolist()  # [slots]
+            for r in group:
+                next_tok[r.slot] = best[r.slot]
+        for req in reqs:
+            self.sched.finish_decode_token(req, next_tok[req.slot])
+
+    # -- per-slot GRIFFIN weights ------------------------------------------
+    def _k_tree(self, tier: float) -> Dict[int, int]:
+        """Per-layer expert budgets for a tier (cached per server)."""
+        if tier not in self._k_trees:
+            self._k_trees[tier] = griffin_lib.plan_k_tree(
+                self.cfg, self.gcfg, tier=tier, profile=self.profile)
+        return self._k_trees[tier]
+
+    def _tick_widths(self, reqs: List[ScheduledRequest]) -> Dict[int, int]:
+        """Buffer width per FF layer for this tick's compacted batch.
+
+        A single-width batch keeps its natural widths.  Mixed widths
+        bucket to the next power of two above the tick's max (rounded to
+        a ``tp_shards`` multiple, capped at ``d_ff``); padding is
+        bit-exact (zero ``w2`` rows)."""
+        sigs = {tuple(sorted(r.k_widths.items())) for r in reqs}
+        if len(sigs) == 1:
+            return dict(next(iter(sigs)))
+        sh = self.gcfg.tp_shards
+        out = {}
+        for li, F in self._ffn_F.items():
+            m = max(r.k_widths[li] for r in reqs)
+            w = 1 << (m - 1).bit_length()
+            if sh > 1:
+                w = -(-w // sh) * sh
+            out[li] = min(F, w)
+        return out
+
+    def _sync_pruned_slots(self, reqs: List[ScheduledRequest]
+                           ) -> Optional[Dict[int, Dict]]:
+        """Bring ``self.pruned_slots`` up to date for this tick's batch
+        and return it (None when nobody needs compacted weights).
+
+        Buffers are installed lazily per (slot, rid): while the tick's
+        width signature is stable only requests that newly entered (or
+        moved) a slot are written; a width change rebuilds every live
+        slot at the new bucket."""
+        pruned_reqs = [r for r in reqs if r.pruned_host is not None]
+        if not pruned_reqs:
+            return None
+        widths = self._tick_widths(pruned_reqs)
+        sig = tuple(sorted(widths.items()))
+        if sig != self._bucket_sig:
+            self._bucket_sig = sig
+            self.pruned_slots = None
+            self._slot_rid = {}
+        shards = self.gcfg.tp_shards
+        for r in pruned_reqs:
+            if self._slot_rid.get(r.slot) != r.rid:
+                self._install_pruned(
+                    r.slot,
+                    griffin_lib.pad_pruned_tree(r.pruned_host, widths,
+                                                shards=shards),
+                )
+                self._slot_rid[r.slot] = r.rid
+        return self.pruned_slots
+
+    @staticmethod
+    def _expand_b1(pruned1: Dict[int, Dict]) -> Dict[int, Dict]:
+        """A request's compacted FF tree in the batch-of-1 slot layout
+        ``decode_step_paged`` expects (leading slot axis)."""
+        return {li: {k: v[None] for k, v in ffn.items()}
+                for li, ffn in pruned1.items()}
+
+    def _install_pruned(self, slot: int, pruned1: Dict[int, Dict]) -> None:
+        """Write one request's compacted FF tree into its decode slot, in
+        place.  The first install of a width allocates the
+        ``[n_slots, ...]`` buffers (every slot starts as a copy of this
+        request's weights, as the reference's broadcast does)."""
+        if self.pruned_slots is None:
+            self.pruned_slots = {
+                li: {k: v[None].expand((self.n_slots,) + v.shape).clone()
+                     for k, v in ffn.items()}
+                for li, ffn in pruned1.items()
+            }
+            return
+        for li, ffn in pruned1.items():
+            buf = self.pruned_slots[li]
+            for k, v in ffn.items():
+                buf[k][slot].copy_(v)
