@@ -1,7 +1,8 @@
 """Expert-neuron selection (port of ``repro/core/selector.py``: the
 deterministic selectors; the sampling ablations wait for a later slice).
 
-All selectors return **sorted** int64 indices.  Ties break toward the
+All selectors return **sorted** int64 indices (``select_block_ids``:
+int32 block ids, the kernel's input).  Ties break toward the
 lower index, as ``jax.lax.top_k`` does: the top-k is a *stable*
 descending sort, never a bare ``torch.topk`` (whose tie order on CUDA is
 unspecified).
@@ -38,15 +39,21 @@ def select_topk_per_shard(s: torch.Tensor, k: int, shards: int) -> torch.Tensor:
 
 def select_blocks(s: torch.Tensor, k: int, block: int) -> torch.Tensor:
     """Block-aligned selection: sum-pool s^2 over contiguous blocks of
-    ``block`` neurons, keep the top-(k//block) blocks."""
+    ``block`` neurons, keep the top-(k//block) blocks' neurons."""
+    assert s.shape[-1] % block == 0, (s.shape[-1], block)
+    bidx = select_block_ids(s, k, block).long()
+    idx = bidx[:, None] * block + torch.arange(block, device=s.device)[None, :]
+    return idx.reshape(-1)
+
+
+def select_block_ids(s: torch.Tensor, k: int, block: int) -> torch.Tensor:
+    """Block ids only, sorted, int32: the ``block_ids`` input of the
+    pruned decode FF kernel (``ops.griffin_ffn_decode``)."""
     F = s.shape[-1]
-    assert F % block == 0, (F, block)
     nb = F // block
     kb = max(1, k // block)
     pooled = s.reshape(nb, block).square().sum(dim=-1)
-    bidx = torch.sort(_top_k_idx(pooled, kb)).values
-    idx = bidx[:, None] * block + torch.arange(block, device=s.device)[None, :]
-    return idx.reshape(-1)
+    return torch.sort(_top_k_idx(pooled, kb)).values.to(torch.int32)
 
 
 def selected_width(mode: str, k: int, d_ff: int, block: int = 128) -> int:

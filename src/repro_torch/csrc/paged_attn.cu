@@ -2,8 +2,9 @@
 // attention over the pages each request owns.
 //
 // Replaces: repro/kernels/paged_attn.py::paged_attn / _kernel (Pallas,
-// TPU), fp32 and bf16 pools.  Every attention layer of every prefill
-// chunk and decode tick runs it.
+// TPU), fp32 and bf16 pools, and its quantized body (int8 / fp8 e4m3
+// pools behind per-(page, kv-head) fp32 scales).  Every attention layer
+// of every prefill chunk and decode tick runs it.
 //
 // Bound on the H100: bytes at decode.  Each (b, kv) reads its live pages
 // once, sum_b ceil((pos_b+S)/page) * page * KV * hd * 2 * itemsize per
@@ -47,6 +48,19 @@
 // * Shared-memory rows of K and Q are padded by one float so the score
 //   loop, where a warp walks page slots at a fixed feature, does not hit
 //   one bank 16 or 32 times.
+// * Quantized pools (int8, fp8) take another order, because a page is
+//   re-encoded as a whole when its scale grows: old rows change, and a
+//   CTA of another row tile or split reading that page while it is
+//   rewritten would see bits and a scale torn between old and new.  So
+//   a first launch (kv_quant_scatter), one CTA per (b, page touched this
+//   step, kv), does the whole scatter: amax over the page's new rows,
+//   s_new = max(s_old, amax * (1/qmax)), every slot re-encoded as
+//   q(bits * s_old / max(s_new, EPS)) or, for a new row,
+//   q(row / max(s_new, EPS)), then s_new stored.  Pages that receive no
+//   row keep bits and scale (the re-encode would be the identity).  The
+//   attention launch that follows on the stream reads bits * s_new in
+//   fp32 and merges and writes nothing.  IEEE division and no fast math
+//   keep the bits those of kernels/kv_quant.py.
 // This version uses plain FMA loops, no tensor cores or TMA.
 
 #include "common.cuh"
@@ -70,13 +84,15 @@ __device__ __forceinline__ bool is_valid(int kpos, int qpos, int window) {
   return kpos <= qpos && (window == 0 || kpos > qpos - window);
 }
 
-template <typename TIn, typename T>
+template <typename TIn, typename T, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const TIn* __restrict__ q,      // [B, S, H, hd]
                   const TIn* __restrict__ k_new,  // [B, S, KV, hd]
                   const TIn* __restrict__ v_new,  // [B, S, KV, hd]
                   T* __restrict__ pool_k,         // [P+1, page, KV, hd]
                   T* __restrict__ pool_v,
+                  const float* __restrict__ scale_k,  // [P+1, KV] (kQuant)
+                  const float* __restrict__ scale_v,
                   const int* __restrict__ bt,     // [B, W]
                   const int* __restrict__ pos,    // [B]
                   const unsigned char* __restrict__ wm,  // [B, S]
@@ -137,37 +153,50 @@ paged_attn_kernel(const TIn* __restrict__ q,      // [B, S, H, hd]
     const long long pid = bt[(long long)b * W + j];
 
     // -- stage the page, merging the step's new rows (loads only) ---------
-    for (int i = tid; i < page * hd; i += kThreads) {
-      const int t = i / hd, d = i % hd;
-      const int s = j * page + t - posb;
-      float kval, vval;
-      if (s >= 0 && s < S && wm[(long long)b * S + s]) {
-        const long long n_idx = (((long long)b * S + s) * KV + kv) * hd + d;
-        kval = griffin::to_f32(
-            griffin::from_f32<T>(griffin::to_f32(k_new[n_idx])));
-        vval = griffin::to_f32(
-            griffin::from_f32<T>(griffin::to_f32(v_new[n_idx])));
-      } else {
-        const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
-        kval = griffin::to_f32(pool_k[g_idx]);
-        vval = griffin::to_f32(pool_v[g_idx]);
+    if constexpr (!kQuant) {
+      for (int i = tid; i < page * hd; i += kThreads) {
+        const int t = i / hd, d = i % hd;
+        const int s = j * page + t - posb;
+        float kval, vval;
+        if (s >= 0 && s < S && wm[(long long)b * S + s]) {
+          const long long n_idx = (((long long)b * S + s) * KV + kv) * hd + d;
+          kval = griffin::to_f32(
+              griffin::from_f32<T>(griffin::to_f32(k_new[n_idx])));
+          vval = griffin::to_f32(
+              griffin::from_f32<T>(griffin::to_f32(v_new[n_idx])));
+        } else {
+          const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
+          kval = griffin::to_f32(pool_k[g_idx]);
+          vval = griffin::to_f32(pool_v[g_idx]);
+        }
+        ks[t * hdp + d] = kval;
+        vs[t * hd + d] = vval;
       }
-      ks[t * hdp + d] = kval;
-      vs[t * hd + d] = vval;
+    } else {
+      // kv_quant_scatter already wrote this step's rows and scales
+      const float sk = scale_k[pid * KV + kv], sv = scale_v[pid * KV + kv];
+      for (int i = tid; i < page * hd; i += kThreads) {
+        const int t = i / hd, d = i % hd;
+        const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
+        ks[t * hdp + d] = griffin::to_f32(pool_k[g_idx]) * sk;
+        vs[t * hd + d] = griffin::to_f32(pool_v[g_idx]) * sv;
+      }
     }
     __syncthreads();
 
     // -- write the new rows of this page back (one CTA per page) ----------
     // ks/vs hold them rounded to T, so the casts back are exact
-    if (tile == 0) {
-      const int t_lo = max(posb - j * page, 0);
-      const int t_hi = min(posb + S - j * page, page);
-      for (int i = tid; i < (t_hi - t_lo) * hd; i += kThreads) {
-        const int t = t_lo + i / hd, d = i % hd;
-        if (wm[(long long)b * S + j * page + t - posb]) {
-          const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
-          pool_k[g_idx] = griffin::from_f32<T>(ks[t * hdp + d]);
-          pool_v[g_idx] = griffin::from_f32<T>(vs[t * hd + d]);
+    if constexpr (!kQuant) {
+      if (tile == 0) {
+        const int t_lo = max(posb - j * page, 0);
+        const int t_hi = min(posb + S - j * page, page);
+        for (int i = tid; i < (t_hi - t_lo) * hd; i += kThreads) {
+          const int t = t_lo + i / hd, d = i % hd;
+          if (wm[(long long)b * S + j * page + t - posb]) {
+            const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
+            pool_k[g_idx] = griffin::from_f32<T>(ks[t * hdp + d]);
+            pool_v[g_idx] = griffin::from_f32<T>(vs[t * hd + d]);
+          }
         }
       }
     }
@@ -242,6 +271,91 @@ paged_attn_kernel(const TIn* __restrict__ q,      // [B, S, H, hd]
   }
 }
 
+// threads of a scatter CTA: a (page, kv) slice is page * hd elements
+// (2048 at Yi-9B shapes), and the few CTAs of a decode step need many
+// warps each to hide the latency of their per-element work
+constexpr int kScatterThreads = 512;
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // red may still be read from an earlier call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < kScatterThreads / 32; ++w) v = fmaxf(v, red[w]);
+  return v;
+}
+
+// The quantized scatter: one CTA per (b, page j touched this step, kv),
+// grid (touched-page slots, KV, B); page j = pos[b] / page + blockIdx.x.
+template <typename TIn, typename T>
+__global__ void __launch_bounds__(kScatterThreads)
+kv_quant_scatter(const TIn* __restrict__ k_new,  // [B, S, KV, hd]
+                 const TIn* __restrict__ v_new,
+                 T* __restrict__ pool_k,         // [P+1, page, KV, hd]
+                 T* __restrict__ pool_v,
+                 float* __restrict__ scale_k,    // [P+1, KV]
+                 float* __restrict__ scale_v,
+                 const int* __restrict__ bt, const int* __restrict__ pos,
+                 const unsigned char* __restrict__ wm, int S, int KV, int hd,
+                 int page, int W, float inv_qmax, float eps) {
+  __shared__ float red[kScatterThreads / 32];
+  const int kv = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int posb = pos[b];
+  const int j = posb / page + blockIdx.x;
+  if (j >= W) return;
+  const long long pid = bt[(long long)b * W + j];
+  if (pid < 0) return;  // unallocated: the plain version sends these rows to the trash page
+  const int t_lo = max(posb - j * page, 0);
+  const int t_hi = min(posb + S - j * page, page);
+  if (t_lo >= t_hi) return;
+  const long long sidx = pid * KV + kv;
+  const float sk_old = scale_k[sidx], sv_old = scale_v[sidx];
+
+  // amax of the page's new rows (rows with write_mask unset are not written)
+  float ak = 0.f, av = 0.f;
+  int any = 0;
+  for (int i = tid; i < (t_hi - t_lo) * hd; i += kScatterThreads) {
+    const int t = t_lo + i / hd, d = i % hd;
+    const int s = j * page + t - posb;
+    if (wm[(long long)b * S + s]) {
+      const long long n_idx = (((long long)b * S + s) * KV + kv) * hd + d;
+      ak = fmaxf(ak, fabsf(griffin::to_f32(k_new[n_idx])));
+      av = fmaxf(av, fabsf(griffin::to_f32(v_new[n_idx])));
+      any = 1;
+    }
+  }
+  if (!__syncthreads_or(any)) return;  // no row: scale and bits unchanged
+  ak = block_max(ak, red);
+  av = block_max(av, red);
+  const float sk_new = fmaxf(sk_old, ak * inv_qmax);
+  const float sv_new = fmaxf(sv_old, av * inv_qmax);
+  const float sk_eff = fmaxf(sk_new, eps), sv_eff = fmaxf(sv_new, eps);
+
+  // re-encode the whole (page, kv) slice; new rows replace their slots
+  for (int i = tid; i < page * hd; i += kScatterThreads) {
+    const int t = i / hd, d = i % hd;
+    const int s = j * page + t - posb;
+    const long long g_idx = ((pid * page + t) * KV + kv) * hd + d;
+    float kf, vf;
+    if (s >= 0 && s < S && wm[(long long)b * S + s]) {
+      const long long n_idx = (((long long)b * S + s) * KV + kv) * hd + d;
+      kf = griffin::to_f32(k_new[n_idx]);
+      vf = griffin::to_f32(v_new[n_idx]);
+    } else {
+      kf = griffin::to_f32(pool_k[g_idx]) * sk_old;
+      vf = griffin::to_f32(pool_v[g_idx]) * sv_old;
+    }
+    pool_k[g_idx] = griffin::quantize<T>(kf / sk_eff);
+    pool_v[g_idx] = griffin::quantize<T>(vf / sv_eff);
+  }
+  if (tid == 0) {  // every thread read the old scales before the first barrier
+    scale_k[sidx] = sk_new;
+    scale_v[sidx] = sv_new;
+  }
+}
+
 // ctx[b, s, kv*G + g, d] from the splits of row R = s*G + g, in split order
 __global__ void __launch_bounds__(kThreads)
 paged_attn_merge(const float* __restrict__ part_acc,
@@ -267,27 +381,41 @@ paged_attn_merge(const float* __restrict__ part_acc,
   ctx[(((long long)b * S + s) * H + kv * G + g) * hd + d] = l > 0.f ? a / l : 0.f;
 }
 
-template <typename TIn, typename T>
+template <typename TIn, typename T, bool kQuant>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   void* pool_k, void* pool_v, const int* bt, const int* pos,
-                   const unsigned char* wm, float* ctx, float* part_acc,
-                   float* part_ml, int B, int S, int H, int KV, int hd,
-                   int page, int W, int window, float scale,
-                   int pages_per_split, int splits, cudaStream_t stream) {
+                   void* pool_k, void* pool_v, float* scale_k, float* scale_v,
+                   const int* bt, const int* pos, const unsigned char* wm,
+                   float* ctx, float* part_acc, float* part_ml, int B, int S,
+                   int H, int KV, int hd, int page, int W, int window,
+                   float scale, int pages_per_split, int splits,
+                   float inv_qmax, float eps, cudaStream_t stream) {
+  if constexpr (kQuant) {
+    // pages one request's S new rows can touch: at most (S-1)/page + 2
+    const int touched = min(W, (S + page - 2) / page + 1);
+    if (touched > 0) {
+      dim3 sgrid(touched, KV, B);
+      kv_quant_scatter<TIn, T><<<sgrid, kScatterThreads, 0, stream>>>(
+          static_cast<const TIn*>(k_new), static_cast<const TIn*>(v_new),
+          static_cast<T*>(pool_k), static_cast<T*>(pool_v), scale_k, scale_v,
+          bt, pos, wm, S, KV, hd, page, W, inv_qmax, eps);
+      cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
   const size_t smem = sizeof(float) * smem_floats(page, hd);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<TIn, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        paged_attn_kernel<TIn, T, kQuant>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int SG = S * (H / KV);
   dim3 grid(((SG + kRows - 1) / kRows) * splits, KV, B);
-  paged_attn_kernel<TIn, T><<<grid, kThreads, smem, stream>>>(
+  paged_attn_kernel<TIn, T, kQuant><<<grid, kThreads, smem, stream>>>(
       static_cast<const TIn*>(q), static_cast<const TIn*>(k_new),
       static_cast<const TIn*>(v_new), static_cast<T*>(pool_k),
-      static_cast<T*>(pool_v), bt, pos, wm, ctx, part_acc, part_ml, S, H, KV,
-      hd, page, W, window, scale, pages_per_split, splits);
+      static_cast<T*>(pool_v), scale_k, scale_v, bt, pos, wm, ctx, part_acc,
+      part_ml, S, H, KV, hd, page, W, window, scale, pages_per_split, splits);
   if (splits > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -319,21 +447,57 @@ extern "C" int paged_attn(const void* q, const void* k_new, const void* v_new,
   auto* pa = static_cast<float*>(part_acc);
   auto* pml = static_cast<float*>(part_ml);
   cudaError_t e;
+#define PAGED_ATTN_LAUNCH(TIn, T)                                              \
+  launch<TIn, T, false>(q, k_new, v_new, pool_k, pool_v, nullptr, nullptr,    \
+                        btp, posp, wmp, out, pa, pml, B, S, H, KV, hd, page, \
+                        W, window, scale, pages_per_split, splits, 0.f, 0.f, \
+                        st)
   if (in_is_bf16 && pool_is_bf16)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_new, v_new, pool_k, pool_v, btp, posp, wmp, out, pa, pml, B, S, H,
-        KV, hd, page, W, window, scale, pages_per_split, splits, st);
+    e = PAGED_ATTN_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   else if (in_is_bf16)
-    e = launch<__nv_bfloat16, float>(
-        q, k_new, v_new, pool_k, pool_v, btp, posp, wmp, out, pa, pml, B, S, H,
-        KV, hd, page, W, window, scale, pages_per_split, splits, st);
+    e = PAGED_ATTN_LAUNCH(__nv_bfloat16, float);
   else if (pool_is_bf16)
-    e = launch<float, __nv_bfloat16>(
-        q, k_new, v_new, pool_k, pool_v, btp, posp, wmp, out, pa, pml, B, S, H,
-        KV, hd, page, W, window, scale, pages_per_split, splits, st);
+    e = PAGED_ATTN_LAUNCH(float, __nv_bfloat16);
   else
-    e = launch<float, float>(
-        q, k_new, v_new, pool_k, pool_v, btp, posp, wmp, out, pa, pml, B, S, H,
-        KV, hd, page, W, window, scale, pages_per_split, splits, st);
+    e = PAGED_ATTN_LAUNCH(float, float);
+#undef PAGED_ATTN_LAUNCH
+  return static_cast<int>(e);
+}
+
+// The same over quantized pools: int8 (pool_is_fp8 = 0) or fp8 e4m3 bits,
+// scale pools [P+1, 1, KV, 1] fp32 updated in place; inv_qmax = 1/qmax and
+// eps = kv_quant.EPS, both already rounded to fp32 by the caller.
+extern "C" int paged_attn_quant(const void* q, const void* k_new,
+                                const void* v_new, void* pool_k, void* pool_v,
+                                void* scale_k, void* scale_v, const void* bt,
+                                const void* pos, const void* wm, void* ctx,
+                                void* part_acc, void* part_ml, int B, int S,
+                                int H, int KV, int hd, int page, int W,
+                                int window, float scale, int pages_per_split,
+                                int splits, int in_is_bf16, int pool_is_fp8,
+                                float inv_qmax, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* sk = static_cast<float*>(scale_k);
+  auto* sv = static_cast<float*>(scale_v);
+  auto* btp = static_cast<const int*>(bt);
+  auto* posp = static_cast<const int*>(pos);
+  auto* wmp = static_cast<const unsigned char*>(wm);
+  auto* out = static_cast<float*>(ctx);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* pml = static_cast<float*>(part_ml);
+  cudaError_t e;
+#define PAGED_ATTN_LAUNCH(TIn, T)                                             \
+  launch<TIn, T, true>(q, k_new, v_new, pool_k, pool_v, sk, sv, btp, posp,   \
+                       wmp, out, pa, pml, B, S, H, KV, hd, page, W, window, \
+                       scale, pages_per_split, splits, inv_qmax, eps, st)
+  if (in_is_bf16 && pool_is_fp8)
+    e = PAGED_ATTN_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
+  else if (in_is_bf16)
+    e = PAGED_ATTN_LAUNCH(__nv_bfloat16, int8_t);
+  else if (pool_is_fp8)
+    e = PAGED_ATTN_LAUNCH(float, __nv_fp8_e4m3);
+  else
+    e = PAGED_ATTN_LAUNCH(float, int8_t);
+#undef PAGED_ATTN_LAUNCH
   return static_cast<int>(e);
 }

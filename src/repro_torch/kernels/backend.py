@@ -8,8 +8,9 @@
   version (``kernels/ref.py``), anything else raises.  There is no
   fallback from the kernel to the plain version.
 * ``lib`` — the ``ctypes`` handle of ``build/libgriffin_kernels.so``,
-  built on first use (``kernels/build.py``).  Every C entry point
-  returns ``cudaGetLastError()`` and ``check`` raises on non-zero.
+  built on first use (``kernels/build.py``).  Every C entry point that
+  launches returns ``cudaGetLastError()`` and ``check`` raises on
+  non-zero; ``ffn_down_splits`` returns a count.
 """
 from __future__ import annotations
 
@@ -32,6 +33,20 @@ _SIGNATURES = {
     # in_is_bf16, pool_is_bf16, stream
     "paged_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    # q, k_new, v_new, pool_k, pool_v, scale_k, scale_v, bt, pos, wm, ctx,
+    # part_acc, part_ml, B, S, H, KV, hd, page, W, window, scale,
+    # pages_per_split, splits, in_is_bf16, pool_is_fp8, inv_qmax, eps, stream
+    "paged_attn_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                         _F, _F, _P],
+    # x, wg, w1, w2, block_ids, z, part, y, M, D, n_sel, block_size, act,
+    # vec, n_sm, is_bf16, stream
+    "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wg, w1, w2, z, part, y, M, D, F, act, n_sm, is_bf16, stream
+    "glu_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # M, N, D, n_sm -> splits of the FF down projection's N rows
+    "ffn_down_splits": [_I, _I, _I, _I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
-"""KV page byte formats (the part of ``repro/kernels/kv_quant.py`` this
-slice needs: dtype resolution and byte accounting).
+"""Page-boundary KV quantization (port of ``repro/kernels/kv_quant.py``):
+the quantize/dequantize program and the byte accounting.
 
 ``kv_dtype`` picks how the paged KV pools hold their bytes:
 
@@ -7,11 +7,33 @@ slice needs: dtype resolution and byte accounting).
   bfloat16 for Yi-9B): the unquantized pools.
 * ``bf16`` — bfloat16 pages, no scales: the scatter rounds rows to bf16
   (round to nearest even), attention upcasts to fp32.
-* ``int8`` / ``fp8`` — quantized pages behind per-page-per-head fp32
-  scale pools.  The names resolve (so byte accounting can quote them),
-  but the port does not serve them yet: ``pool_torch_dtype`` raises.
+* ``int8`` / ``fp8`` (``float8_e4m3fn``) — quantized pages behind a
+  parallel fp32 *scale pool* per data pool, one scale per page per KV
+  head, shape ``[P+1, 1, KV, 1]``, addressed by the same block table.
+
+Only the attention kernel and its plain version see quantized bytes:
+the allocator, the prefix cache and copy-on-write treat pages as opaque,
+and ``decoder.copy_pool_pages`` copies the scale leaves with their pages.
+
+The program (identical float ops in the CUDA kernel, the gather path and
+``kernels/ref.py``, so all three agree bit for bit on pool contents):
+
+* per (page, kv head) absmax scale, **monotone**: on scatter
+  ``s_new = max(s_old, absmax(new rows) * (1/qmax))`` — a reciprocal
+  multiply, as the reference writes it — so old rows re-encode by
+  dividing by a larger scale and never clip;
+* the page's old rows are re-encoded under the new scale,
+  ``quantize(bits * s_old / max(s_new, EPS))``: exact when the scale did
+  not change, one extra rounding when it grew;
+* attention runs in fp32 over ``bits * scale``.
+
+A page's scale is never reset when the page is reallocated: the new
+owner's rows are encoded under ``max(previous scale, amax/qmax)``, as in
+the reference server.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -19,10 +41,17 @@ from repro_torch.models.param import torch_dtype
 
 KV_DTYPES = ("fp32", "bf16", "int8", "fp8")
 
-QUANTIZED_TODO = (
-    "kv_dtype int8/fp8 is not ported yet (ROADMAP Queue B: paged_attn "
-    "int8/fp8 with kv_quant's scatter codec)"
-)
+#: guards division by a zero scale (page never written); kernel and
+#: plain version use the same constant for bit parity
+EPS = 1e-8
+
+#: documented max absolute context error vs the fp32 plain version for
+#: quantized pools on unit-Gaussian K/V
+ERROR_BUDGET = {"int8": 0.05, "fp8": 0.12}
+
+#: committed floor for the greedy token-match rate vs an fp32-pool server
+#: on the reference's trained tiny model
+TOKEN_MATCH_FLOOR = {"int8": 0.85, "fp8": 0.80}
 
 
 def resolve_kv_dtype(kv_dtype: str) -> str:
@@ -40,9 +69,80 @@ def pool_torch_dtype(kv_dtype: str, model_dtype) -> torch.dtype:
     resolve_kv_dtype(kv_dtype)
     if kv_dtype == "fp32":
         return torch_dtype(model_dtype)
-    if kv_dtype == "bf16":
-        return torch.bfloat16
-    raise NotImplementedError(QUANTIZED_TODO)
+    return {"bf16": torch.bfloat16, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn}[kv_dtype]
+
+
+def qmax(kv_dtype: str) -> float:
+    """Largest representable quantized magnitude (scale denominator)."""
+    return {"int8": 127.0, "fp8": 448.0}[kv_dtype]
+
+
+def quantize(x: torch.Tensor, s_eff: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """fp32 values -> quantized bits under the (EPS-guarded) scale.
+
+    int8 rounds half to even and clips to +-127; fp8 rounds to nearest
+    even.  ``s_eff >= absmax(x)/qmax`` by the monotone construction, so
+    the clip only pins float round-off at the boundary."""
+    v = x.float() / s_eff
+    if kv_dtype == "int8":
+        return torch.clamp(torch.round(v), -127.0, 127.0).to(torch.int8)
+    return v.to(torch.float8_e4m3fn)
+
+
+def dequantize(bits: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return bits.float() * s
+
+
+def new_scale(s_old: torch.Tensor, amax_new: torch.Tensor,
+              kv_dtype: str) -> torch.Tensor:
+    """Monotone per-(page, head) scale update.  Multiplies by the
+    reciprocal (rounded to fp32, as the reference's weakly typed
+    constant is) rather than dividing."""
+    return torch.maximum(s_old, amax_new * (1.0 / qmax(kv_dtype)))
+
+
+def quantize_scatter_ref(
+    pool: torch.Tensor,    # [P+1, page, KV, hd] quantized bits
+    scale: torch.Tensor,   # [P+1, 1, KV, 1] fp32
+    gp: torch.Tensor,      # [N] destination page per new row
+    offset: torch.Tensor,  # [N] slot within the page
+    rows: torch.Tensor,    # [N, KV, hd] new rows (any float dtype)
+    kv_dtype: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain quantized scatter (the plain version's and the gather
+    path's side of the kernel's program).  Re-encodes the whole pool
+    under the updated scales — a no-op wherever a scale did not change —
+    then writes the new rows.  Returns new ``(bits, scales)``; the
+    inputs are left as they were."""
+    rows_f = rows.float()
+    P1, _, KV, _ = pool.shape
+    gp, offset = gp.long(), offset.long()
+    amax = torch.zeros((P1, KV), dtype=torch.float32, device=pool.device)
+    amax.scatter_reduce_(0, gp[:, None].expand(-1, KV),
+                         rows_f.abs().amax(dim=-1), "amax", include_self=True)
+    s_new = new_scale(scale[:, 0, :, 0], amax, kv_dtype)  # [P+1, KV]
+    s_eff = torch.clamp_min(s_new, EPS)
+    requant = quantize(dequantize(pool, scale), s_eff[:, None, :, None],
+                       kv_dtype)
+    new_bits = quantize(rows_f, s_eff[gp][:, :, None], kv_dtype)
+    as_bytes(requant)[gp, offset] = as_bytes(new_bits)
+    return requant, s_new[:, None, :, None]
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """fp8 tensors viewed as uint8 (same bits) for indexing and
+    comparison, which PyTorch does not implement for every float8 op;
+    other dtypes as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def gather_scales(scale: torch.Tensor, block_tables: torch.Tensor,
+                  page_size: int) -> torch.Tensor:
+    """[P+1, 1, KV, 1] scales -> [B, n*page, KV, 1] aligned with the
+    gathered page view (one scale repeated across a page's slots)."""
+    s = scale[:, 0, :, 0][block_tables.clamp(min=0).long()]  # [B, n, KV]
+    return s.repeat_interleave(page_size, dim=1)[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -50,9 +150,6 @@ def pool_torch_dtype(kv_dtype: str, model_dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def kv_itemsize(kv_dtype: str, model_dtype) -> int:
-    resolve_kv_dtype(kv_dtype)
-    if is_quantized(kv_dtype):
-        return 1
     return torch.empty((), dtype=pool_torch_dtype(kv_dtype, model_dtype)
                        ).element_size()
 

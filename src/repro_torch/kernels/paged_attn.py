@@ -1,6 +1,6 @@
 """Wrapper of the fused paged-attention kernel (``csrc/paged_attn.cu``),
 which replaces the TPU kernel ``repro/kernels/paged_attn.py::paged_attn``
-for fp32/bf16 pools.
+for fp32/bf16 pools and for quantized (int8 / fp8 e4m3) pools.
 
 One call per attention layer and step: the step's new K/V rows are
 merged into the pages they land in (positions ``pos[b] + s`` with
@@ -21,19 +21,29 @@ writing request alone; read-only shared pages and the trash page are
 never written.  Masked rows are not written at all (the plain version
 sends them to the trash page, which no reader attends).
 
+Quantized pools (``kv_dtype`` int8/fp8, scale pools ``[P+1, 1, KV, 1]``
+fp32) take two launches in this order on the stream: the scatter, one
+CTA per (request, page receiving rows, kv head), grows the page's scale
+and re-encodes the whole page (``kernels/kv_quant.py``), and only then
+does attention read ``bits * scale``, so no CTA reads a page while it is
+re-encoded.
+
 CUDA tensors only; ``ops.paged_attention`` dispatches CPU tensors to
 ``ref.paged_attn_ref``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import backend
+from repro_torch.kernels import backend, kv_quant
 
-#: launches of the kernel since the last reset (one per wrapper call)
+#: launches since the last reset (one per wrapper call): fp32/bf16
+#: pools, and quantized (int8/fp8) pools
 launches = 0
+launches_quant = 0
 
 #: largest head_dim the kernel's shared-memory tiles are sized for
 MAX_HEAD_DIM = 256
@@ -50,22 +60,27 @@ def paged_attn(
     q: torch.Tensor,             # [B, S, H, hd] (rope applied)
     k_new: torch.Tensor,         # [B, S, KV, hd]
     v_new: torch.Tensor,         # [B, S, KV, hd]
-    pool_k: torch.Tensor,        # [P+1, page, KV, hd] fp32 or bf16
+    pool_k: torch.Tensor,        # [P+1, page, KV, hd] fp32/bf16/int8/fp8
     pool_v: torch.Tensor,        # [P+1, page, KV, hd]
     block_tables: torch.Tensor,  # [B, W] int32 page ids, -1 = unallocated
     pos: torch.Tensor,           # [B] int32 tokens already cached
     write_mask: torch.Tensor,    # [B, S] bool
     *,
     window: int = 0,
+    scale_k: Optional[torch.Tensor] = None,  # [P+1, 1, KV, 1] fp32
+    scale_v: Optional[torch.Tensor] = None,
+    kv_dtype: str = "fp32",
 ):
     """Fused scatter + paged attention.  Returns ``(ctx [B,S,H,hd] fp32,
-    pool_k, pool_v)``; the pools are updated in place.
+    pool_k, pool_v)`` and, for ``kv_dtype`` int8/fp8, ``scale_k,
+    scale_v`` after them; pools and scale pools are updated in place.
 
     Contract (the server's block tables satisfy both): tables are
     prefix-allocated, and a page written this step is owned by its
     request alone."""
-    global launches
+    global launches, launches_quant
     what = "paged_attn"
+    quantized = kv_quant.is_quantized(kv_dtype)
     dev = backend.same_cuda_device(what, q, k_new, v_new, pool_k, pool_v,
                                    block_tables, pos, write_mask)
     backend.require(q.ndim == 4 and k_new.ndim == 4 and v_new.ndim == 4,
@@ -82,9 +97,24 @@ def paged_attn(
     P1, page, KVp, hdp = pool_k.shape
     backend.require((KVp, hdp) == (KV, hd), what,
                     f"pool heads {(KVp, hdp)} != {(KV, hd)}")
-    backend.require(pool_k.dtype == pool_v.dtype
-                    and pool_k.dtype in (torch.float32, torch.bfloat16), what,
-                    f"pools must be float32 or bfloat16, got {pool_k.dtype}")
+    if quantized:
+        want = kv_quant.pool_torch_dtype(kv_dtype, "float32")
+        backend.require(pool_k.dtype == pool_v.dtype == want, what,
+                        f"{kv_dtype} pools must be {want}, got {pool_k.dtype}")
+        backend.require(scale_k is not None and scale_v is not None, what,
+                        f"kv_dtype={kv_dtype} needs scale_k and scale_v")
+        backend.same_cuda_device(what, q, scale_k, scale_v)
+        for sc in (scale_k, scale_v):
+            backend.require(tuple(sc.shape) == (P1, 1, KV, 1)
+                            and sc.dtype == torch.float32
+                            and sc.is_contiguous(), what,
+                            f"scale pools must be contiguous float32 "
+                            f"{(P1, 1, KV, 1)}")
+    else:
+        backend.require(pool_k.dtype == pool_v.dtype
+                        and pool_k.dtype in (torch.float32, torch.bfloat16),
+                        what, f"pools must be float32 or bfloat16, got "
+                        f"{pool_k.dtype}")
     backend.require(pool_k.is_contiguous() and pool_v.is_contiguous(), what,
                     "pools must be contiguous (they are written in place)")
     backend.require(block_tables.ndim == 2 and block_tables.shape[0] == B,
@@ -103,8 +133,9 @@ def paged_attn(
     pos32 = pos.to(torch.int32).contiguous()
     wm = write_mask.contiguous().view(torch.uint8)
     ctx = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
+    outs = (ctx, pool_k, pool_v) + ((scale_k, scale_v) if quantized else ())
     if B * S * H == 0:
-        return ctx, pool_k, pool_v
+        return outs
     SG = S * (H // KV)
     pps, splits = page_splits(
         W, B * KV * -(-SG // ROWS_PER_CTA),
@@ -115,21 +146,29 @@ def paged_attn(
                                device=dev)
         part_ml = torch.empty((B, KV, splits, SG, 2), dtype=torch.float32,
                               device=dev)
-    with torch.cuda.device(dev):
-        err = backend.lib().paged_attn(
-            qc.data_ptr(), knc.data_ptr(), vnc.data_ptr(),
-            pool_k.data_ptr(), pool_v.data_ptr(), bt.data_ptr(),
-            pos32.data_ptr(), wm.data_ptr(), ctx.data_ptr(),
+    common = (B, S, H, KV, hd, page, W, int(window), 1.0 / math.sqrt(hd),
+              pps, splits, int(q.dtype == torch.bfloat16))
+    ptrs = (qc.data_ptr(), knc.data_ptr(), vnc.data_ptr(), pool_k.data_ptr(),
+            pool_v.data_ptr())
+    tail = (bt.data_ptr(), pos32.data_ptr(), wm.data_ptr(), ctx.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(),
-            B, S, H, KV, hd, page, W, int(window), 1.0 / math.sqrt(hd),
-            pps, splits,
-            int(q.dtype == torch.bfloat16), int(pool_k.dtype == torch.bfloat16),
-            backend.stream_of(q),
-        )
+            None if part_ml is None else part_ml.data_ptr())
+    with torch.cuda.device(dev):
+        if quantized:
+            err = backend.lib().paged_attn_quant(
+                *ptrs, scale_k.data_ptr(), scale_v.data_ptr(), *tail, *common,
+                int(kv_dtype == "fp8"), 1.0 / kv_quant.qmax(kv_dtype),
+                kv_quant.EPS, backend.stream_of(q))
+        else:
+            err = backend.lib().paged_attn(
+                *ptrs, *tail, *common, int(pool_k.dtype == torch.bfloat16),
+                backend.stream_of(q))
     backend.check(err, what)
-    launches += 1
-    return ctx, pool_k, pool_v
+    if quantized:
+        launches_quant += 1
+    else:
+        launches += 1
+    return outs
 
 
 def page_splits(W: int, ctas: int, n_sm: int):

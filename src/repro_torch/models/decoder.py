@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import backend as backend_lib
+from repro_torch.kernels import kv_quant
 from repro_torch.models import param as param_lib
 from repro_torch.models.common import (
     apply_norm,
@@ -183,8 +184,9 @@ def copy_pool_pages(cfg, pools: List[Dict], src: torch.Tensor,
     src = src.long()
     dst = dst.long()
     for pool in pools:
-        for buf in pool.values():
-            buf[dst] = buf[src]
+        for buf in pool.values():  # data pages and, quantized, their scales
+            b = kv_quant.as_bytes(buf)
+            b[dst] = b[src]
     return pools
 
 

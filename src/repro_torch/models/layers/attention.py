@@ -99,21 +99,30 @@ def _attend(q, k, v, mask, scale):
 
 def paged_cache_specs(cfg, num_pages: int, page_size: int,
                       kv_dtype: str = "fp32") -> Dict[str, ParamSpec]:
-    """KV page pool for one attention layer (+1 trash page).  ``fp32``
-    inherits the model dtype, ``bf16`` halves pool bytes; int8/fp8 are
-    not ported yet."""
+    """KV page pool for one attention layer (+1 trash page).
+
+    ``fp32`` inherits the model dtype, ``bf16`` halves pool bytes,
+    ``int8``/``fp8`` quarter them (a bf16 model: halve) and add parallel
+    per-page-per-head fp32 scale pools ``k_scale``/``v_scale`` (fp32 for
+    every model dtype), addressed by the same block table; COW page
+    copies treat them as just another pool leaf."""
     kv_quant.resolve_kv_dtype(kv_dtype)
-    if kv_quant.is_quantized(kv_dtype):
-        raise NotImplementedError(kv_quant.QUANTIZED_TODO)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     axes = ("pages", "page", "kv_heads", "head_dim")
-    dt = None if kv_dtype == "fp32" else "bfloat16"
-    return {
+    dt = None if kv_dtype == "fp32" else \
+        str(kv_quant.pool_torch_dtype(kv_dtype, cfg.dtype)).split(".")[-1]
+    specs = {
         "k": ParamSpec((num_pages + 1, page_size, KV, hd), axes,
                        init="zeros", dtype=dt),
         "v": ParamSpec((num_pages + 1, page_size, KV, hd), axes,
                        init="zeros", dtype=dt),
     }
+    if kv_quant.is_quantized(kv_dtype):
+        s_axes = ("pages", None, "kv_heads", None)
+        for name in ("k_scale", "v_scale"):
+            specs[name] = ParamSpec((num_pages + 1, 1, KV, 1), s_axes,
+                                    init="zeros", dtype="float32")
+    return specs
 
 
 def _gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -160,14 +169,22 @@ def paged_attn_step(
     (``common.rope_cos_sin``) may be passed in precomputed: they are the
     same for every layer of a step.
 
+    ``kv_dtype`` must match the pool (``paged_cache_specs``): for
+    int8/fp8 the pool carries ``k_scale``/``v_scale`` leaves and both
+    backends run the page-boundary quantization program of
+    ``kernels/kv_quant.py``.
+
     * ``fused`` — ``ops.paged_attention``: the CUDA kernel on the card
-      (in-kernel scatter, online softmax over owned pages only).
+      (scatter, online softmax over owned pages only).
     * ``gather`` — scatter (masked rows to the trash page), gather every
       request's full page view (``paged_gather`` kernel on the card),
       masked softmax.  Attends every ``block_tables.shape[1]`` pages.
     """
-    if kv_quant.is_quantized(kv_dtype):
-        raise NotImplementedError(kv_quant.QUANTIZED_TODO)
+    quantized = kv_quant.is_quantized(kv_dtype)
+    if quantized and "k_scale" not in pool:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} needs scale pools; build the pool with "
+            "paged_cache_specs(..., kv_dtype=...)")
     B, S, D = x.shape
     dev = x.device
     window = cfg.sliding_window if (kind == "local" and cfg.sliding_window) else 0
@@ -175,20 +192,23 @@ def paged_attn_step(
         positions = pos.long()[:, None] + torch.arange(S, device=dev)[None, :]
     q, k_new, v_new = _project_qkv(params, x, positions, cfg, use_rope=True,
                                    rope=rope)
+    scale_k, scale_v = pool.get("k_scale"), pool.get("v_scale")
 
     if backend == "fused":
-        ctx, _, _ = ops.paged_attention(
+        out = ops.paged_attention(
             q, k_new, v_new, pool["k"], pool["v"], block_tables, pos,
-            write_mask, kv_dtype=kv_dtype, window=window,
+            write_mask, scale_k=scale_k, scale_v=scale_v, kv_dtype=kv_dtype,
+            window=window,
         )
-        return _out_proj(params, ctx.to(x.dtype), cfg), pool
+        return _out_proj(params, out[0].to(x.dtype), cfg), pool
 
     ref.scatter_rows(pool["k"], pool["v"], block_tables, positions,
-                     write_mask, k_new, v_new)
+                     write_mask, k_new, v_new, scale_k=scale_k,
+                     scale_v=scale_v, kv_dtype=kv_dtype)
     # attention math always in fp32 (bf16 pools round on write, upcast on
-    # read — the same as the kernel)
-    k_cache = _gather_pages(pool["k"], block_tables).float()
-    v_cache = _gather_pages(pool["v"], block_tables).float()
+    # read; quantized pools read bits * scale — the same as the kernel)
+    k_cache = ref.paged_view(pool["k"], scale_k, block_tables, _gather_pages)
+    v_cache = ref.paged_view(pool["v"], scale_v, block_tables, _gather_pages)
     C = k_cache.shape[1]
     page = pool["k"].shape[1]
     KV, hd = k_new.shape[2], k_new.shape[3]

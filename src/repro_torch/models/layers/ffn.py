@@ -6,13 +6,14 @@
     FF1(x) = sigma(W_1 x)                             (non-GLU, eq. 2)
 
 ``griffin_stat_sq`` is the per-sample squared GRIFFIN statistic (eq. 6,
-the ``expert_stat`` kernel on the card); ``compact_ffn_params`` is the
+the ``expert_stat`` kernel on the card), ``ffn_forward`` the dense block
+with the statistics on request; ``compact_ffn_params`` is the
 paper's reparameterization: keep the expert neurons' columns of W_g/W_1
 and rows of W_2.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +60,19 @@ def griffin_stat_sq(z: torch.Tensor) -> torch.Tensor:
     ``s_sq[b, j] = sum_t z[b,t,j]^2 / ||z[b,t]||^2`` in fp32 -> [B, F].
     On the card this launches the ``expert_stat`` kernel."""
     return ops.griffin_stat(z)
+
+
+def ffn_forward(params: Dict, x: torch.Tensor, cfg, collect_stats: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: [B,S,D] -> (y [B,S,D], stats or None).
+
+    stats = {s_sq [B,F]}, the GRIFFIN statistic (eq. 6)."""
+    z = ffn_activations(params, x, cfg)
+    stats = {"s_sq": griffin_stat_sq(z)} if collect_stats else None
+    y = z @ params["w2"]
+    if "b2" in params:
+        y = y + params["b2"]
+    return y, stats
 
 
 def ffn_forward_perslot(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -19,6 +19,7 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
     "int8": torch.int8,
+    "float8_e4m3fn": torch.float8_e4m3fn,
 }
 
 

@@ -25,13 +25,16 @@ compacted buffers are updated in place.
 Attention backends (``kernel_backend``): ``fused`` runs the paged
 attention kernel (``kernels/paged_attn.py``), ``gather`` the
 gather-then-attend path (``paged_gather`` kernel on the card), ``auto``
-fused on CUDA and gather on the CPU.  Greedy tokens come from
+fused on CUDA and gather on the CPU.  ``kv_dtype`` picks the pools' byte
+format (``kernels/kv_quant.py``): ``fp32`` (the model dtype), ``bf16``,
+or ``int8``/``fp8`` pages behind per-page-per-head scale pools, served by
+both backends; attention bytes per token follow the pool's format.  Greedy tokens come from
 ``torch.argmax`` on the device, which picks the first maximum like the
 reference's ``np.argmax``.
 
-Not in this slice (each raises ``NotImplementedError``): speculative
-decoding (``spec_k``), tensor parallelism (``mesh``), flocking telemetry
-(``flocking_every``) and quantized pools (``kv_dtype`` int8/fp8).
+Not ported yet (each raises ``NotImplementedError``): speculative
+decoding (``spec_k``), tensor parallelism (``mesh``) and flocking
+telemetry (``flocking_every``).
 """
 from __future__ import annotations
 
@@ -100,8 +103,6 @@ class PagedServer:
             raise _not_ported("flocking telemetry (flocking_every)",
                               "Queue A: off-path modules, obs/flocking.py")
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
-        if kv_quant.is_quantized(self.kv_dtype):
-            raise NotImplementedError(kv_quant.QUANTIZED_TODO)
         self.device = backend_lib.resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:

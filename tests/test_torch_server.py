@@ -253,8 +253,7 @@ def test_server_tracer_and_tier_dense(params):
 
 
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(mesh=object()),
-                                dict(flocking_every=4), dict(kv_dtype="int8"),
-                                dict(kv_dtype="fp8")])
+                                dict(flocking_every=4)])
 def test_server_rejects_later_slices(params, kw):
     _, tp = params["plain"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
