@@ -21,7 +21,9 @@ Phases (any failure raises and the script exits non-zero):
    ``kv_quant.ERROR_BUDGET`` of the fp32-pool plain version, gathers
    exact, FF outputs within 2e-2 (bf16) / 1e-4 (fp32 at Yi-9B width) /
    1e-5 (fp32, small); each timed with CUDA events (median) beside its
-   bound and its plain version's time;
+   bound and its plain version's time; ``torch.profiler`` shows that one
+   ``ops.paged_attention`` call at the Yi-9B decode shape is one device
+   kernel for each of fp32/bf16/int8/fp8 pools;
 3. tinylm, random weights: ``PagedServer`` with the ``fused`` and the
    ``gather`` backend gives the same token streams, and the same as the
    port on the CPU (plain versions), with fp32, int8 and fp8 pools —
@@ -40,8 +42,11 @@ Phases (any failure raises and the script exits non-zero):
    ``ops.griffin_ffn_decode`` on two decode rows against the compacted
    ``ffn_forward``.
 
-The second-to-last line is a JSON object listing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+The second-to-last line is a JSON object listing the kernels (for
+``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
+decode case; ``prefill_*`` give the prefill chunk's time and bound, and
+``launches_decode`` / ``launches_prefill`` split the launches by kind);
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -196,6 +201,37 @@ def paged_attn_work(args, lens, scales=None):
     return byts, flops
 
 
+def device_kernels(torch, fn, tries: int = 3):
+    """Names of the device kernels (and copies) one call of ``fn`` runs,
+    from ``torch.profiler`` after a warm-up call.
+
+    The call is fenced in the trace by a GPU spin on each side, and the
+    names are those between the two fences.  CUPTI hands the profiler its
+    device records asynchronously and now and then a trace comes back
+    without them; a trace that lacks either fence is such a trace, says
+    nothing about ``fn``, and is taken again, at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        names = [e.name for e in evs]
+        fences = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if len(fences) == 2:
+            return names[fences[0] + 1:fences[1]]
+    raise AssertionError(f"torch.profiler traces lacked the two GPU-spin "
+                         f"fences {tries} times; the last one held {names}")
+
+
 def gather_work(pool, bt, out):
     """Bytes a gather must move: each distinct page the clamped table
     names read once, the table read once, the output written once."""
@@ -239,18 +275,26 @@ def phase_kernels(torch, dev, flush):
         check(torch.equal(pk_k[:-1], pk_r[:-1]) and torch.equal(pv_k[:-1], pv_r[:-1]),
               f"{what}: pools differ")
         worst = max(worst, err)
+        dt = "bf16" if pool_dtype == torch.bfloat16 else "fp32"
+        if model == "yi-9b" and label == "decode":
+            names = device_kernels(torch, lambda: ops.paged_attention(*kern))
+            check(len(names) == 1, f"{what}: one call ran {names}")
+            lines.append(f"paged_attn {model} decode pool={dt}: one call = "
+                         f"{len(names)} device kernel")
         ms = time_ms(torch, lambda: ops.paged_attention(*kern), flush=flush)
         plain_ms = time_ms(torch, lambda: ref.paged_attn_ref(*plain), flush=flush)
         byts, flops = paged_attn_work(args, lens)
         b_ms, b_by = bound(byts, flops, str(pool_dtype).split(".")[-1])
-        dt = "bf16" if pool_dtype == torch.bfloat16 else "fp32"
         lines.append(f"paged_attn {model} {label:7s} pool={dt} B={B} S={S} "
                      f"ctx={lens}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                      f"bound {b_ms:.5f} ms ({b_by})  max_abs_err {err:.3g}")
-        if model == "yi-9b" and label == "decode" and dt == "bf16":
-            results["paged_attn"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=None,
-                                         at=f"decode B={B} S=1 ctx={lens} bf16 pool")
+        if model == "yi-9b" and dt == "bf16":
+            kind = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        at=f"{label} B={B} S={S} ctx={lens} bf16 pool")
+            if label == "decode":
+                results["paged_attn"] = dict(kind, library_ms=None)
+            else:
+                results["paged_attn"]["prefill"] = kind
     results["paged_attn"]["max_abs_err"] = worst
     results["paged_attn_quant"] = phase_kernels_quant(torch, dev, flush, gen,
                                                       lines, yi, tiny)
@@ -379,6 +423,13 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
                 return lambda: [d.copy_(o) for d, o in
                                 zip((a[3], a[4], a[8], a[9]), (pk, pv, sk, sv))]
 
+            if model == "yi-9b" and label == "decode":
+                names = device_kernels(torch, lambda: call(ops.paged_attention, kern))
+                reset(kern)()
+                check(len(names) == 1, f"{what}: one call ran {names}")
+                lines.append(f"paged_attn {model} decode pool={kvd}: one call = "
+                             f"{len(names)} device kernel")
+
             ms = time_ms(torch, lambda: call(ops.paged_attention, kern),
                          flush=flush, reset=reset(kern))
             plain_ms = time_ms(torch, lambda: call(ref.paged_attn_ref, plain),
@@ -388,10 +439,14 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
                          f"ctx={lens}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                          f"bound {b_ms:.5f} ms ({b_by})  max_abs_err {err:.3g}  "
                          f"vs fp32 pools {q_err:.3g}")
-            if model == "yi-9b" and label == "decode" and kvd == "int8":
-                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=None,
-                           at=f"decode B={B} S=1 ctx={lens} int8 pool, bf16 q")
+            if model == "yi-9b" and kvd == "int8":
+                kind = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by,
+                            at=f"{label} B={B} S={S} ctx={lens} int8 pool, bf16 q")
+                if label == "decode":
+                    out = dict(kind, library_ms=None)
+                else:
+                    out["prefill"] = kind
     out["max_abs_err"] = worst
     return out
 
@@ -502,9 +557,12 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-#: kernel -> (module in repro_torch.kernels, its launch counter)
+#: kernel -> (module in repro_torch.kernels, its launch counter); the
+#: attention kernels' prefill calls (S > 1) are also counted apart
 COUNTERS = {"paged_attn": ("paged_attn", "launches"),
             "paged_attn_quant": ("paged_attn", "launches_quant"),
+            "paged_attn_prefill": ("paged_attn", "prefill_launches"),
+            "paged_attn_quant_prefill": ("paged_attn", "prefill_launches_quant"),
             "expert_stat": ("expert_stat", "launches"),
             "paged_gather": ("paged_gather", "launches"),
             "griffin_ffn": ("griffin_ffn", "launches"),
@@ -772,8 +830,11 @@ def profile_decode_tick(torch, np, srv, cfg, rng):
             rows.append((e.key, dev_us / n_ticks / 1e3, e.count // n_ticks))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    attn = [r for r in rows if "paged_attn" in r[0] or "kv_quant_scatter" in r[0]]
     srv.drain()
     return dict(tick_wall_ms=wall / n_ticks * 1e3, device_busy_ms=busy,
+                attention_ms=sum(r[1] for r in attn),
+                attention=[dict(kernel=k[:90], ms=ms, per_tick=c) for k, ms, c in attn],
                 top=[dict(kernel=k[:90], ms=ms, per_tick=c) for k, ms, c in rows[:12]])
 
 
@@ -781,7 +842,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile Yi-9B decode ticks (phases 4 and 5) "
-                    "with torch.profiler")
+                    "with torch.profiler; the attention kernels' share is "
+                    "named apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
     args = ap.parse_args()
 
@@ -894,13 +956,21 @@ def main() -> int:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         n = sum(by_path.values())
         check(n > 0, f"{name} was never launched on the main path")
-        entries.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": n,
-                        "launches_by_path": by_path,
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "at": r["at"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": n,
+                 "launches_by_path": by_path,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "at": r["at"]}
+        if "prefill" in r:  # attention: decode (the fields above) and prefill
+            pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
+            p = r["prefill"]
+            entry.update(launches_decode=n - pre, launches_prefill=pre,
+                         prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],
+                         prefill_bound_ms=p["bound_ms"],
+                         prefill_bound_by=p["bound_by"], prefill_at=p["at"])
+        entries.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -28,17 +28,17 @@ _SIGNATURES = {
     "expert_stat": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pool, bt, out, rows, page_bytes, stream
     "paged_gather": [_P, _P, _P, _I, _LL, _P],
-    # q, k_new, v_new, pool_k, pool_v, bt, pos, wm, ctx, part_acc, part_ml,
-    # B, S, H, KV, hd, page, W, window, scale, pages_per_split, splits,
+    # q, k_new, v_new, pool_k, pool_v, bt, pos, wm, ctx, B, S, H, KV, hd,
+    # page, W, window, scale, pages_per_split, splits, rows_per_cta,
     # in_is_bf16, pool_is_bf16, stream
-    "paged_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "paged_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # q, k_new, v_new, pool_k, pool_v, scale_k, scale_v, bt, pos, wm, ctx,
-    # part_acc, part_ml, B, S, H, KV, hd, page, W, window, scale,
-    # pages_per_split, splits, in_is_bf16, pool_is_fp8, inv_qmax, eps, stream
-    "paged_attn_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # B, S, H, KV, hd, page, W, window, scale, pages_per_split, splits,
+    # rows_per_cta, in_is_bf16, pool_is_fp8, inv_qmax, eps, stream
+    "paged_attn_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                         _F, _F, _P],
+                         _I, _F, _F, _P],
     # x, wg, w1, w2, block_ids, z, part, y, M, D, n_sel, block_size, act,
     # vec, n_sm, is_bf16, stream
     "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -45,10 +45,12 @@ def griffin_stat(z: torch.Tensor) -> torch.Tensor:
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     """Block-table page gather. pool [P, page, E]; bt [B, n] -> [B, n, page, E]
-    (unallocated entries read page 0; the attention mask hides them)."""
-    bt = block_tables.clamp(min=0).to(torch.int32).contiguous()
+    (unallocated entries read page 0; the attention mask hides them).  The
+    kernel clips the table itself, so a call on the card is one launch."""
     if backend.is_cuda(pool, "paged_gather"):
-        return _paged_gather(pool.contiguous(), bt)
+        return _paged_gather(pool.contiguous(),
+                             block_tables.to(torch.int32).contiguous())
+    bt = block_tables.clamp(min=0).to(torch.int32).contiguous()
     return ref.paged_gather_ref(pool, bt)
 
 

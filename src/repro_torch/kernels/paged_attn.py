@@ -9,8 +9,10 @@ attention runs with an online softmax over only the ``num_pages[b] =
 min(ceil((pos[b]+S)/page), allocated[b])`` pages each request owns,
 which the kernel counts from the block table itself (no host sync).
 Each request's pages are cut into splits (``page_splits``) so a decode
-step at small batch still fills the card; when there is more than one,
-a second launch merges the splits' partial softmax states in order.
+step at small batch still fills the card; the splits of one (request,
+kv head, row tile) run as one thread block cluster and merge their
+partial softmax states in split order through distributed shared
+memory, inside the same launch.
 
 Write-back differs from the TPU body on purpose: the Pallas kernel
 rewrites every visited page, which is safe only because TPU grid steps
@@ -22,10 +24,12 @@ never written.  Masked rows are not written at all (the plain version
 sends them to the trash page, which no reader attends).
 
 Quantized pools (``kv_dtype`` int8/fp8, scale pools ``[P+1, 1, KV, 1]``
-fp32) take two launches in this order on the stream: the scatter, one
-CTA per (request, page receiving rows, kv head), grows the page's scale
-and re-encodes the whole page (``kernels/kv_quant.py``), and only then
-does attention read ``bits * scale``, so no CTA reads a page while it is
+fp32) grow a page's scale and re-encode the whole page
+(``kernels/kv_quant.py``) when it receives rows.  When a step's query
+rows fit one row tile (every decode step) only one CTA reads such a page,
+and it re-encodes the page inside the attention launch; otherwise
+(quantized prefill) a scatter launch, one CTA per (request, page
+receiving rows, kv head), runs first, so no CTA reads a page while it is
 re-encoded.
 
 CUDA tensors only; ``ops.paged_attention`` dispatches CPU tensors to
@@ -40,20 +44,33 @@ import torch
 
 from repro_torch.kernels import backend, kv_quant
 
-#: launches since the last reset (one per wrapper call): fp32/bf16
-#: pools, and quantized (int8/fp8) pools
+#: calls since the last reset (one per wrapper call): fp32/bf16 pools,
+#: and quantized (int8/fp8) pools; of those, the prefill calls (S > 1)
+#: apart, so decode calls are the difference
 launches = 0
 launches_quant = 0
+prefill_launches = 0
+prefill_launches_quant = 0
 
-#: largest head_dim the kernel's shared-memory tiles are sized for
-MAX_HEAD_DIM = 256
+#: largest head_dim the kernel's registers are sized for (4 features a
+#: lane in P.V, 8 mma k-steps)
+MAX_HEAD_DIM = 128
 
-#: query rows of one CTA (``kRows`` in ``csrc/paged_attn.cu``)
-ROWS_PER_CTA = 16
+#: query rows of one CTA; the C entry points refuse any other value, so
+#: this cannot drift from ``kRows`` in ``csrc/paged_attn.cu``
+ROWS_PER_CTA = 64
 
-#: CTAs per SM the page split aims at (a CTA holds ~34 KB of shared
-#: memory at hd=128, page 16, so several fit beside each other)
-CTAS_PER_SM = 2
+#: CTAs per SM the page split aims at (a CTA keeps 8 pages in flight and
+#: holds 70-175 KB of shared memory at hd=128, page 16)
+CTAS_PER_SM = 1
+
+#: fewest pages a split is cut to: one round of the kernel's ring (a page
+#: per warp)
+MIN_PAGES_PER_SPLIT = 4
+
+#: most splits: the splits of a row tile are one thread block cluster, at
+#: most the portable cluster size (``kMaxSplits`` in the kernel)
+MAX_SPLITS = 8
 
 
 def paged_attn(
@@ -78,7 +95,7 @@ def paged_attn(
     Contract (the server's block tables satisfy both): tables are
     prefix-allocated, and a page written this step is owned by its
     request alone."""
-    global launches, launches_quant
+    global launches, launches_quant, prefill_launches, prefill_launches_quant
     what = "paged_attn"
     quantized = kv_quant.is_quantized(kv_dtype)
     dev = backend.same_cuda_device(what, q, k_new, v_new, pool_k, pool_v,
@@ -91,7 +108,8 @@ def paged_attn(
                     and tuple(v_new.shape) == (B, S, KV, hd), what,
                     f"k_new/v_new must be {(B, S, KV, hd)}")
     backend.require(KV > 0 and H % KV == 0, what, f"H={H} not a multiple of KV={KV}")
-    backend.require(hd <= MAX_HEAD_DIM, what, f"head_dim {hd} > {MAX_HEAD_DIM}")
+    backend.require(4 <= hd <= MAX_HEAD_DIM and hd & (hd - 1) == 0, what,
+                    f"head_dim {hd} must be a power of two in [4, {MAX_HEAD_DIM}]")
     backend.require(pool_k.ndim == 4 and pool_k.shape == pool_v.shape, what,
                     "pools must be matching [P+1, page, KV, hd]")
     P1, page, KVp, hdp = pool_k.shape
@@ -140,19 +158,11 @@ def paged_attn(
     pps, splits = page_splits(
         W, B * KV * -(-SG // ROWS_PER_CTA),
         torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((B, KV, splits, SG, hd), dtype=torch.float32,
-                               device=dev)
-        part_ml = torch.empty((B, KV, splits, SG, 2), dtype=torch.float32,
-                              device=dev)
     common = (B, S, H, KV, hd, page, W, int(window), 1.0 / math.sqrt(hd),
-              pps, splits, int(q.dtype == torch.bfloat16))
+              pps, splits, ROWS_PER_CTA, int(q.dtype == torch.bfloat16))
     ptrs = (qc.data_ptr(), knc.data_ptr(), vnc.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr())
-    tail = (bt.data_ptr(), pos32.data_ptr(), wm.data_ptr(), ctx.data_ptr(),
-            None if part_acc is None else part_acc.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr())
+    tail = (bt.data_ptr(), pos32.data_ptr(), wm.data_ptr(), ctx.data_ptr())
     with torch.cuda.device(dev):
         if quantized:
             err = backend.lib().paged_attn_quant(
@@ -166,17 +176,23 @@ def paged_attn(
     backend.check(err, what)
     if quantized:
         launches_quant += 1
+        prefill_launches_quant += S > 1
     else:
         launches += 1
+        prefill_launches += S > 1
     return outs
 
 
 def page_splits(W: int, ctas: int, n_sm: int):
     """``(pages_per_split, splits)``: cut the ``W`` block-table columns
     into ranges so that ``ctas`` (b, kv, row tile) triples times
-    ``splits`` come to about ``CTAS_PER_SM`` per SM.  Pages past a
-    request's count leave their split empty, so the choice needs no host
-    sync."""
-    splits = max(1, min(W, -(-CTAS_PER_SM * n_sm // ctas)))
+    ``splits`` come to about ``CTAS_PER_SM`` per SM, but no range is cut
+    below ``MIN_PAGES_PER_SPLIT`` pages (a CTA keeps a round of pages in
+    flight, so fewer, longer splits pay the prologue and the merge less
+    often) and there are at most ``MAX_SPLITS`` (one cluster).  Pages past
+    a request's count leave their split empty, so the choice needs no
+    host sync."""
+    splits = max(1, min(W // MIN_PAGES_PER_SPLIT, MAX_SPLITS,
+                        -(-CTAS_PER_SM * n_sm // ctas)))
     pps = max(1, -(-W // splits))
     return pps, max(1, -(-W // pps))

@@ -1,12 +1,14 @@
 """Wrapper of the block-table page gather kernel (``csrc/paged_gather.cu``),
 which replaces the TPU kernel ``repro/kernels/paged_gather.py::paged_gather``.
 
-``out[b, i] = pool[block_tables[b, i]]``: a copy driven by the block
-table, one CTA per gathered page, 16-byte vector copies when the page
-size allows.  The dtype is opaque (pages are copied as bytes).
+``out[b, i] = pool[max(block_tables[b, i], 0)]``: a copy driven by the
+block table over a flat grid of the output, one 16-byte vector a thread
+when the page size allows.  The kernel clips
+negative (unallocated) entries to page 0 itself.  The dtype is opaque
+(pages are copied as bytes).
 
-CUDA tensors only; ``ops.paged_gather`` clips the table and dispatches
-CPU tensors to ``ref.paged_gather_ref``.
+CUDA tensors only; ``ops.paged_gather`` dispatches CPU tensors to
+``ref.paged_gather_ref``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ launches = 0
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     """pool [P, page, E] (any dtype); block_tables [B, n] int32, entries
-    already clipped to ``[0, P)`` -> [B, n, page, E]."""
+    in ``[-1, P)`` (negative reads page 0) -> [B, n, page, E]."""
     global launches
     what = "paged_gather"
     backend.same_cuda_device(what, pool, block_tables)

@@ -26,11 +26,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev, in_dtype):
+def _case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev, in_dtype, lens=None):
     q = torch.tensor(rng.normal(size=(B, S, H, hd)), dtype=torch.float32).to(in_dtype)
     kn = torch.tensor(rng.normal(size=(B, S, KV, hd)), dtype=torch.float32).to(in_dtype)
     vn = torch.tensor(rng.normal(size=(B, S, KV, hd)), dtype=torch.float32).to(in_dtype)
-    lens = rng.integers(0, (W - 1) * page - S, size=B)
+    if lens is None:
+        lens = rng.integers(0, (W - 1) * page - S, size=B)
+    lens = np.asarray(lens)
     need = [-(-(int(n) + S) // page) for n in lens]
     P = sum(need) + 2
     pk = torch.tensor(rng.normal(size=(P + 1, page, KV, hd)),
@@ -51,21 +53,10 @@ def _case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev, in_dtype):
     return [a.to(dev) for a in args]
 
 
-@pytest.mark.parametrize("in_dtype,pool_dtype", [
-    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("B,S,H,KV,hd,page,W,window", [
-    (3, 1, 4, 2, 8, 4, 8, 0),
-    (2, 5, 6, 3, 16, 8, 8, 0),
-    (2, 5, 4, 4, 8, 4, 12, 5),
-    (1, 32, 32, 4, 128, 16, 48, 0),   # Yi-9B prefill chunk
-    (2, 1, 32, 4, 128, 16, 48, 0),    # Yi-9B decode
-    (8, 32, 32, 4, 128, 16, 8, 0),    # enough CTAs for one page split
-])
-def test_paged_attn_kernel_matches_plain(dev, in_dtype, pool_dtype, B, S, H,
-                                         KV, hd, page, W, window):
-    rng = np.random.default_rng(B * 1000 + S * 10 + W + window)
-    args = _case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev, in_dtype)
+def _check_paged_attn(args, window=0):
+    """The kernel and the plain version on copies of the same inputs: ctx
+    within 1e-5 on rows that write, pools bit-identical except the trash
+    page.  Returns the kernel's ctx."""
     kern = [a.clone() for a in args]
     plain = [a.clone() for a in args]
     ctx_k, pk_k, pv_k = ops.paged_attention(*kern, window=window)
@@ -76,6 +67,121 @@ def test_paged_attn_kernel_matches_plain(dev, in_dtype, pool_dtype, B, S, H,
     # pools bit-identical except the trash page (the kernel never writes it)
     assert torch.equal(pk_k[:-1], pk_r[:-1])
     assert torch.equal(pv_k[:-1], pv_r[:-1])
+    return ctx_k
+
+
+@pytest.mark.parametrize("in_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,S,H,KV,hd,page,W,window", [
+    (3, 1, 4, 2, 8, 4, 8, 0),
+    (2, 5, 6, 3, 16, 8, 8, 0),
+    (2, 5, 4, 4, 8, 4, 12, 5),
+    (1, 32, 32, 4, 128, 16, 48, 0),   # Yi-9B prefill chunk
+    (2, 1, 32, 4, 128, 16, 48, 0),    # Yi-9B decode
+    (8, 32, 32, 4, 128, 16, 8, 0),    # 128 (b, kv, row tile) CTAs, 2 splits
+])
+def test_paged_attn_kernel_matches_plain(dev, in_dtype, pool_dtype, B, S, H,
+                                         KV, hd, page, W, window):
+    rng = np.random.default_rng(B * 1000 + S * 10 + W + window)
+    args = _case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev, in_dtype)
+    _check_paged_attn(args, window=window)
+
+
+@pytest.mark.parametrize("in_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_paged_attn_long_context_decode(dev, in_dtype, pool_dtype):
+    """Hundreds of pages per (b, kv) and several rounds per split: the
+    kernel's ring of page stages wraps many times."""
+    from repro_torch.kernels.paged_attn import MIN_PAGES_PER_SPLIT, page_splits
+
+    rng = np.random.default_rng(11)
+    W, page = 400, 16
+    args = _case(rng, 2, 1, 32, 4, 128, page, W, pool_dtype, dev, in_dtype,
+                 lens=[6100, 4711])
+    pps, _ = page_splits(W, 2 * 4, torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+    assert pps >= 4 * MIN_PAGES_PER_SPLIT
+    _check_paged_attn(args)
+
+
+@pytest.mark.parametrize("in_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,window", [(1, 0), (2, 100), (2, 300)])
+def test_paged_attn_decode_b1_and_window(dev, in_dtype, pool_dtype, B, window):
+    """B=1 decode at Yi-9B width, and decode with a sliding window over
+    several page splits (whole splits skipped, one split cut in two)."""
+    rng = np.random.default_rng(B * 7 + window)
+    args = _case(rng, B, 1, 32, 4, 128, 16, 40, pool_dtype, dev, in_dtype,
+                 lens=[583, 431][:B])
+    _check_paged_attn(args, window=window)
+
+
+@pytest.mark.parametrize("kvd", ["fp32", "bf16", "int8", "fp8"])
+def test_paged_attn_yi9b_prefill_every_pool_format(dev, kvd):
+    """A Yi-9B prefill chunk (S=32, 4 row tiles, bf16 queries) over each
+    pool format; quantized pools also within ERROR_BUDGET of fp32 pools."""
+    from repro_torch.kernels import kv_quant
+
+    rng = np.random.default_rng(32)
+    if kvd in ("fp32", "bf16"):
+        pool_dtype = torch.float32 if kvd == "fp32" else torch.bfloat16
+        args = _case(rng, 1, 32, 32, 4, 128, 16, 40, pool_dtype, dev,
+                     torch.bfloat16, lens=[448])
+        _check_paged_attn(args)
+        return
+    args, sk, sv, (pkf, pvf) = _warm_quant_case(
+        rng, 1, 32, 32, 4, 128, 16, 40, kvd, dev, torch.bfloat16, lens=[448],
+        with_fp32=True)
+    out_k, _ = _run_quant(args, sk, sv, kvd)
+    q, kn, vn, _, _, bt, pos, wm = args
+    ctx_f = ref.paged_attn_ref(q, kn, vn, pkf.clone(), pvf.clone(), bt, pos,
+                               wm)[0]
+    assert (out_k[0] - ctx_f).abs().max().item() <= kv_quant.ERROR_BUDGET[kvd]
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_quantized_decode_reencodes_live_rows_in_launch(dev, kvd, in_dtype):
+    """Yi-9B decode with new rows 4x the cached ones: each page receiving a
+    row grows its scale, and the one CTA that reads it re-encodes its old
+    rows inside the attention launch."""
+    rng = np.random.default_rng(4)
+    args, sk, sv = _warm_quant_case(rng, 2, 1, 32, 4, 128, 16, 40, kvd, dev,
+                                    in_dtype, grow=4.0, lens=[583, 431])
+    out_k, _ = _run_quant(args, sk, sv, kvd)
+    assert bool((out_k[3][:-1] > sk[:-1]).any())
+
+
+@pytest.mark.parametrize("kvd", ["fp32", "int8"])
+def test_paged_attn_back_to_back_calls_agree(dev, kvd):
+    """Two calls on the same inputs give bit-identical ctx: the in-launch
+    merge of the page splits (a thread block cluster) sums them in split
+    order whatever order the CTAs finish in, and leaves no state behind."""
+    rng = np.random.default_rng(5)
+    if kvd == "fp32":
+        args = _case(rng, 2, 1, 32, 4, 128, 16, 40, torch.bfloat16, dev,
+                     torch.bfloat16, lens=[583, 431])
+        ctxs = [ops.paged_attention(*[a.clone() for a in args])[0]
+                for _ in range(2)]
+    else:
+        args, sk, sv = _warm_quant_case(rng, 2, 1, 32, 4, 128, 16, 40, kvd,
+                                        dev, torch.bfloat16, lens=[583, 431])
+        ctxs = [_run_quant(args, sk, sv, kvd)[0][0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ctxs[0], ctxs[1])
+
+
+def test_paged_attn_refuses_another_row_tile(dev):
+    """The C entry points check the row tile the wrapper sizes its scratch
+    for against the compiled one."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.paged_attn import ROWS_PER_CTA
+
+    lib = backend.lib()
+    args = [None] * 9 + [1, 1, 8, 2, 128, 16, 4, 0, 1.0, 1, 2,
+                         ROWS_PER_CTA // 2, 1, 1, None]
+    assert lib.paged_attn(*args) != 0
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -105,19 +211,37 @@ def test_paged_gather_kernel_is_exact(dev, dtype, E):
     assert torch.equal(got.cpu(), ref.paged_gather_ref(pool, bt))
 
 
+@pytest.mark.parametrize("dtype,E", [(torch.bfloat16, 512), (torch.float32, 3)])
+def test_paged_gather_kernel_clips_negative_entries(dev, dtype, E):
+    """A raw table with unallocated (-1) entries goes straight to the
+    kernel's wrapper, which reads page 0 for them in one launch."""
+    from repro_torch.kernels import paged_gather
+
+    rng = np.random.default_rng(3)
+    pool = torch.tensor(rng.normal(size=(9, 16, E)), dtype=torch.float32).to(dtype)
+    bt = torch.full((2, 64), -1, dtype=torch.int32)
+    bt[0, :37] = torch.tensor(rng.permutation(9 * 5)[:37] % 9, dtype=torch.int32)
+    bt[1, :5] = torch.tensor([3, 0, 8, 1, 1], dtype=torch.int32)
+    before = paged_gather.launches
+    got = paged_gather.paged_gather(pool.to(dev), bt.to(dev))
+    assert paged_gather.launches == before + 1
+    assert torch.equal(got.cpu(), ref.paged_gather_ref(pool, bt))
+
+
 # ---------------------------------------------------------------------------
 # quantized pools (int8 / fp8)
 # ---------------------------------------------------------------------------
 
 def _warm_quant_case(rng, B, S, H, KV, hd, page, W, kvd, dev, in_dtype,
-                     grow=1.0):
+                     grow=1.0, lens=None, with_fp32=False):
     """Paged-attention inputs over warm quantized pools (every real page
     holds live bits under a grown scale, made by the plain scatter on the
     card).  ``grow`` scales the new rows: above 1 they raise the scales of
     the pages they land in, so old rows are re-encoded while live."""
     from repro_torch.kernels import kv_quant
 
-    args = _case(rng, B, S, H, KV, hd, page, W, torch.float32, dev, in_dtype)
+    args = _case(rng, B, S, H, KV, hd, page, W, torch.float32, dev, in_dtype,
+                 lens)
     q, kn, vn, pkf, pvf, bt, pos, wm = args
     P1 = pkf.shape[0]
     gp = torch.arange(P1, device=dev).repeat_interleave(page)
@@ -130,7 +254,29 @@ def _warm_quant_case(rng, B, S, H, KV, hd, page, W, kvd, dev, in_dtype,
     pv, sv = kv_quant.quantize_scatter_ref(zero, s0, gp, off,
                                            pvf.reshape(-1, KV, hd), kvd)
     kn, vn = (kn.float() * grow).to(in_dtype), (vn.float() * grow).to(in_dtype)
-    return [q, kn, vn, pk, pv, bt, pos, wm], sk, sv
+    out = [q, kn, vn, pk, pv, bt, pos, wm], sk, sv
+    return out + ((pkf, pvf),) if with_fp32 else out
+
+
+def _run_quant(args, sk, sv, kvd, window=0):
+    """The kernel and the plain version on copies of the same quantized
+    inputs; ctx within 1e-5, pools and scales bit-identical except the
+    trash page.  Returns both outputs."""
+    from repro_torch.kernels import kv_quant
+
+    kern = [a.clone() for a in args] + [sk.clone(), sv.clone()]
+    plain = [a.clone() for a in args] + [sk.clone(), sv.clone()]
+    out_k = ops.paged_attention(*kern[:8], scale_k=kern[8], scale_v=kern[9],
+                                kv_dtype=kvd, window=window)
+    out_r = ref.paged_attn_ref(*plain[:8], scale_k=plain[8], scale_v=plain[9],
+                               kv_dtype=kvd, window=window)
+    torch.cuda.synchronize()
+    rows = args[7].any(dim=1)
+    torch.testing.assert_close(out_k[0][rows], out_r[0][rows], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(out_k[1:], out_r[1:]):
+        assert torch.equal(kv_quant.as_bytes(a)[:-1], kv_quant.as_bytes(b)[:-1])
+    return out_k, out_r
 
 
 @pytest.mark.parametrize("kvd", ["int8", "fp8"])
@@ -139,32 +285,18 @@ def _warm_quant_case(rng, B, S, H, KV, hd, page, W, kvd, dev, in_dtype,
     (3, 1, 4, 2, 8, 4, 8, 0, 1.0),
     (2, 5, 6, 3, 16, 8, 8, 0, 4.0),       # scales grow under live rows
     (2, 5, 4, 4, 8, 4, 12, 5, 1.0),
-    (1, 32, 32, 4, 128, 16, 48, 0, 3.0),  # Yi-9B prefill: 16 row tiles, splits
+    (1, 32, 32, 4, 128, 16, 48, 0, 3.0),  # Yi-9B prefill: 4 row tiles, splits
     (2, 1, 32, 4, 128, 16, 48, 0, 1.0),   # Yi-9B decode
-    (8, 32, 32, 4, 128, 16, 8, 0, 2.0),   # one page split
+    (8, 32, 32, 4, 128, 16, 8, 0, 2.0),   # 128 CTAs before splitting, 2 splits
 ])
 def test_quantized_paged_attn_kernel_matches_plain(dev, kvd, in_dtype, B, S,
                                                    H, KV, hd, page, W, window,
                                                    grow):
-    from repro_torch.kernels import kv_quant
-
     rng = np.random.default_rng(B * 1000 + S * 10 + W + window)
     args, sk, sv = _warm_quant_case(rng, B, S, H, KV, hd, page, W, kvd, dev,
                                     in_dtype, grow)
-    kern = [a.clone() for a in args] + [sk.clone(), sv.clone()]
-    plain = [a.clone() for a in args] + [sk.clone(), sv.clone()]
-    out_k = ops.paged_attention(*kern[:8], scale_k=kern[8], scale_v=kern[9],
-                                kv_dtype=kvd, window=window)
-    out_r = ref.paged_attn_ref(*plain[:8], scale_k=plain[8], scale_v=plain[9],
-                               kv_dtype=kvd, window=window)
-    torch.cuda.synchronize()
+    out_k, _ = _run_quant(args, sk, sv, kvd, window=window)
     assert len(out_k) == 5
-    rows = args[7].any(dim=1)
-    torch.testing.assert_close(out_k[0][rows], out_r[0][rows], rtol=1e-5,
-                               atol=1e-5)
-    # pools and scales bit-identical except the trash page
-    for a, b in zip(out_k[1:], out_r[1:]):
-        assert torch.equal(kv_quant.as_bytes(a)[:-1], kv_quant.as_bytes(b)[:-1])
     if grow > 1.0:  # some scale really grew
         assert bool((out_k[3][:-1] > sk[:-1]).any())
 

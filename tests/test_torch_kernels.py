@@ -133,22 +133,32 @@ def test_paged_gather_plain_matches_jax_exactly(dtype):
 
 
 @pytest.mark.parametrize("W,ctas", [(0, 8), (1, 8), (64, 8), (32, 64),
-                                    (48, 8), (8, 512), (7, 3)])
+                                    (48, 8), (8, 512), (7, 3),
+                                    (40, 8),    # Yi-9B decode, B=2 x KV=4
+                                    (40, 16),   # Yi-9B prefill: 4 row tiles
+                                    (400, 8),   # long context: many rounds
+                                    (5, 1)])    # under two rounds of pages
 def test_paged_attn_page_splits_cover_the_table(W, ctas):
     """The fused kernel's page splits cover every block-table column
-    exactly once, leave no split empty of columns, and stop splitting once
-    the (b, kv, row tile) triples alone fill the card."""
-    from repro_torch.kernels.paged_attn import CTAS_PER_SM, page_splits
+    exactly once, leave no split empty of columns, cut no split below one
+    round of pages, make at most one cluster's worth of splits, and stop
+    splitting once the (b, kv, row tile) triples alone fill the card."""
+    from repro_torch.kernels.paged_attn import (CTAS_PER_SM, MAX_SPLITS,
+                                                MIN_PAGES_PER_SPLIT,
+                                                page_splits)
 
     n_sm = 132
     pps, splits = page_splits(W, ctas, n_sm)
     assert pps >= 1 and splits >= 1
     assert (splits - 1) * pps < max(W, 1) <= splits * pps
-    assert splits <= max(W, 1)
+    assert splits <= min(max(W, 1), MAX_SPLITS)
+    if splits > 1:
+        assert pps >= MIN_PAGES_PER_SPLIT
     if ctas >= CTAS_PER_SM * n_sm:
         assert splits == 1
     else:
-        assert ctas * splits >= min(CTAS_PER_SM * n_sm, ctas * W) / 2
+        assert ctas * splits >= min(CTAS_PER_SM * n_sm, ctas * MAX_SPLITS,
+                                    ctas * (W // MIN_PAGES_PER_SPLIT)) / 2
 
 
 def test_no_hidden_device():
