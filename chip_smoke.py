@@ -21,9 +21,12 @@ Phases (any failure raises and the script exits non-zero):
    ``kv_quant.ERROR_BUDGET`` of the fp32-pool plain version, gathers
    exact, FF outputs within 2e-2 (bf16) / 1e-4 (fp32 at Yi-9B width) /
    1e-5 (fp32, small); each timed with CUDA events (median) beside its
-   bound and its plain version's time; ``torch.profiler`` shows that one
-   ``ops.paged_attention`` call at the Yi-9B decode shape is one device
-   kernel for each of fp32/bf16/int8/fp8 pools;
+   bound and its plain version's time, beside a launch floor (a
+   one-element ``fill_`` timed the same way); ``torch.profiler`` shows
+   that one ``ops.paged_attention`` call at the Yi-9B decode shape is one
+   device kernel for each of fp32/bf16/int8/fp8 pools, one
+   ``ops.griffin_stat`` call at [1,32,11008] bf16 one device kernel, and
+   one ``ops.glu_ffn_forward`` call at Yi-9B width ``GLU_FFN_KERNELS``;
 3. tinylm, random weights: ``PagedServer`` with the ``fused`` and the
    ``gather`` backend gives the same token streams, and the same as the
    port on the CPU (plain versions), with fp32, int8 and fp8 pools —
@@ -71,6 +74,10 @@ FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 #: the kernel z only); fp32 sums of 4096 and 5504+ products in another
 #: order at Yi-9B width
 FF_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+#: device kernels of one ``ops.glu_ffn_forward`` call: the up pass and the
+#: cluster-merged down pass (``csrc/glu_ffn.cu``)
+GLU_FFN_KERNELS = 2
 
 
 def check(cond, msg: str) -> None:
@@ -201,35 +208,57 @@ def paged_attn_work(args, lens, scales=None):
     return byts, flops
 
 
-def device_kernels(torch, fn, tries: int = 3):
-    """Names of the device kernels (and copies) one call of ``fn`` runs,
-    from ``torch.profiler`` after a warm-up call.
+def fenced_device_events(torch, fn, tries: int = 3, complete=None):
+    """The device events (kernels and copies) of one call of ``fn``, from
+    ``torch.profiler``, in start order.
 
-    The call is fenced in the trace by a GPU spin on each side, and the
-    names are those between the two fences.  CUPTI hands the profiler its
-    device records asynchronously and now and then a trace comes back
-    without them; a trace that lacks either fence is such a trace, says
-    nothing about ``fn``, and is taken again, at most ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile
+    CUPTI hands the profiler its device records asynchronously, and a
+    trace may come back without some of them: on the H100 the first
+    records after the profiler starts have been seen to go missing (one
+    to a few hundred in a row), and nothing else.  So 16 short GPU spins,
+    finished before the call, go first to take that loss; the call runs
+    inside a ``record_function`` range, and its events are the device
+    events that start inside that range or after it, up to a closing spin
+    launched after the call.  A trace without the range or the closing
+    spin, with no event of the call, or whose events ``complete`` rejects
+    says nothing certain about ``fn`` and is taken again (``fn`` runs
+    again), at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    torch.cuda.synchronize()
     names = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            fn()
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            with record_function("fenced_call"):
+                fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
-                      if str(e.device_type).endswith("CUDA")),
+        # the range shows on both timelines: its host span marks the call,
+        # its device twin is no kernel
+        on_card = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        marks = [e for e in prof.events() if e.name == "fenced_call"
+                 and not str(e.device_type).endswith("CUDA")]
+        evs = sorted((e for e in on_card if e.name != "fenced_call"),
                      key=lambda e: e.time_range.start)
         names = [e.name for e in evs]
-        fences = [i for i, n in enumerate(names) if "spin_kernel" in n]
-        if len(fences) == 2:
-            return names[fences[0] + 1:fences[1]]
-    raise AssertionError(f"torch.profiler traces lacked the two GPU-spin "
-                         f"fences {tries} times; the last one held {names}")
+        if marks and evs and "spin_kernel" in evs[-1].name:
+            t0 = marks[0].time_range.start
+            inner = [e for e in evs[:-1] if e.time_range.start >= t0]
+            if inner and (complete is None or complete(inner)):
+                return inner
+    raise AssertionError(f"torch.profiler traces lacked the call's events "
+                         f"{tries} times; the last one held {len(names)} "
+                         f"events, ending {names[-4:]}")
+
+
+def device_kernels(torch, fn, tries: int = 3):
+    """Names of the device kernels (and copies) one call of ``fn`` runs,
+    after a warm-up call (``fenced_device_events``)."""
+    fn()
+    torch.cuda.synchronize()
+    return [e.name for e in fenced_device_events(torch, fn, tries)]
 
 
 def gather_work(pool, bt, out):
@@ -250,6 +279,12 @@ def phase_kernels(torch, dev, flush):
     gen.manual_seed(0)
     results = {}
     lines = []
+    # the launch floor: what an event pair reads around one tiny kernel,
+    # against which sub-0.01 ms kernel times are read
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(torch, lambda: one.fill_(1.0), flush=flush)
+    results["launch_floor_ms"] = floor_ms
+    lines.append(f"launch floor (one-element fill_): {floor_ms:.4f} ms")
     yi = dict(H=32, KV=4, hd=128, page=16, W=640 // 16)  # max_len 640
     tiny = dict(H=6, KV=3, hd=32, page=8, W=8)  # page 8, max_len 64
 
@@ -314,6 +349,10 @@ def phase_kernels(torch, dev, flush):
         check(torch.equal(got, ops.griffin_stat(z)),
               f"expert_stat {model}: not deterministic")
         worst = max(worst, err)
+        if model == "yi-9b":
+            names = device_kernels(torch, lambda: ops.griffin_stat(z))
+            check(len(names) == 1, f"expert_stat {model}: one call ran {names}")
+            lines.append(f"expert_stat {model}: one call = {len(names)} device kernel")
         ms = time_ms(torch, lambda: ops.griffin_stat(z), flush=flush)
         plain_ms = time_ms(torch, lambda: ref.expert_stat_ref(z), flush=flush)
         b_ms, b_by = bound(z.numel() * z.element_size() + F * 4, 3 * z.numel())
@@ -522,6 +561,10 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
         check(torch.allclose(got, want, rtol=tol, atol=tol), f"{what}: max err {err}")
         check(torch.equal(got, run()), f"{what}: not deterministic")
         worst = max(worst, err)
+        if D == 4096 and dtype == torch.bfloat16:
+            names = device_kernels(torch, run)
+            check(len(names) == GLU_FFN_KERNELS, f"{what}: one call ran {names}")
+            lines.append(f"{what}: one call = {len(names)} device kernels")
         ms = time_ms(torch, run, flush=flush)
         plain_ms = time_ms(torch, lambda: ref.glu_ffn_ref(
             x, wg, w1, w2, activation=act), flush=flush)
@@ -803,31 +846,44 @@ def phase_ffn_entry_points(torch, dev, cfg, params):
 
 def profile_decode_tick(torch, np, srv, cfg, rng):
     """Device time by kernel over decode ticks of two fresh requests
-    (``torch.profiler``), after their prefill and first decode."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (``torch.profiler``), after their prefill and first decode.  The ticks
+    are fenced as ``device_kernels`` fences a call, and taken again (the
+    next 4 ticks) when a trace lacks the call's events or a record of any
+    attention launch; the requests generate enough tokens for three
+    tries."""
+    n_ticks, tries = 4, 3
     for i, n in enumerate((583, 431)):
-        srv.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 12,
-                   rid=100 + i)
+        srv.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                   2 + n_ticks * tries + 2, rid=100 + i)
     sched = srv.sched
     while sched.queue or sched.prefilling is not None \
             or not all(len(r.generated) >= 2 for r in sched.decoding):
         srv.step()
     torch.cuda.synchronize()
-    n_ticks = 4
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls, attn_calls = [], []
+
+    def ticks():
+        before = launches()
         t0 = time.perf_counter()
         for _ in range(n_ticks):
             srv.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = e.cuda_time_total
-            rows.append((e.key, dev_us / n_ticks / 1e3, e.count // n_ticks))
+        walls.append(time.perf_counter() - t0)
+        after = launches()
+        attn_calls.append(sum(after[k] - before[k] for k in after
+                              if k.startswith("paged_attn") and "prefill" not in k))
+
+    # a trace is complete when it holds a record of every attention launch
+    # the ticks counted
+    evs = fenced_device_events(
+        torch, ticks, tries, complete=lambda evs: attn_calls[-1] == sum(
+            "paged_attn_kernel" in e.name for e in evs))
+    wall = walls[-1]
+    by_name = {}
+    for e in evs:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    rows = [(k, ms / n_ticks, count // n_ticks) for k, (ms, count) in by_name.items()]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     attn = [r for r in rows if "paged_attn" in r[0] or "kv_quant_scatter" in r[0]]
@@ -974,7 +1030,8 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": entries, "model": model, "yi9b": yi,
+            {"card": card, "kernels": entries,
+             "launch_floor_ms": kernels["launch_floor_ms"], "model": model, "yi9b": yi,
              "yi9b_quant": quant, "ffn_entry_points": ff,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))

@@ -77,4 +77,68 @@ __device__ __forceinline__ float glu_act(float g, int act) {
   return fmaxf(g, 0.f);
 }
 
+// -- asynchronous copies and tensor-core fragments (paged_attn.cu,
+//    glu_ffn.cu) -------------------------------------------------------
+
+// global -> shared copy of 16, 8 or 4 bytes that does not wait
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices: the A operand of one m16n8k16 mma (lane l
+// points at row l % 16, column (l / 16) * 8 of the 16x16 tile)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// four 8x8 bf16 matrices, transposed: the B operands of two n-tiles
+// (lane l points at k row (l % 8) + ((l / 8) % 2) * 8, column (l / 16) * 8
+// of a [k][n] tile stored n-contiguous)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// fp32 pairs as three bf16 pairs whose sum is the pair to ~2^-24: the P
+// operand of a P.V on tensor cores that keeps fp32 accuracy
+__device__ __forceinline__ void split3(float x, float y, uint32_t* out) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    out[k] = *reinterpret_cast<const uint32_t*>(&h);
+    x -= __low2float(h);
+    y -= __high2float(h);
+  }
+}
+
+// c += a . b on the tensor cores: m16n8k16, bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace griffin

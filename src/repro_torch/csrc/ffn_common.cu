@@ -1,7 +1,7 @@
-// Host entry of the FF kernels' shared down projection (ffn_common.cuh):
-// how many row splits pass 2 cuts its N rows into, so the caller can size
-// the [splits, M, D] partial sums before it launches griffin_ffn or
-// glu_ffn, which apply the same rule.
+// Host entry of griffin_ffn's down projection (ffn_common.cuh): how many
+// row splits pass 2 cuts its N rows into, so the caller can size the
+// [splits, M, D] partial sums before it launches griffin_ffn, which
+// applies the same rule.
 
 #include "ffn_common.cuh"
 

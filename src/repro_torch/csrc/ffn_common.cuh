@@ -1,11 +1,12 @@
-// Shared pieces of the GLU FF kernels (griffin_ffn.cu, glu_ffn.cu): the
-// down-projection pass and the in-order reduction of its splits.
+// The down-projection pass of griffin_ffn.cu and the in-order reduction
+// of its splits (glu_ffn.cu has its own, merged in a thread block
+// cluster).
 //
-// Pass 2 of both kernels: y[M, D] = z[M, N] . W2[rows(n), D] with an fp32
-// accumulator, where z holds the first pass's activations already rounded
-// to the input dtype (as the TPU kernels round before their second dot)
-// and rows(n) is block_ids[n / bs] * bs + n % bs for the pruned kernel, n
-// for the dense one.  W2 rows are read in place, never compacted.
+// y[M, D] = z[M, N] . W2[rows(n), D] with an fp32 accumulator, where z
+// holds the first pass's activations already rounded to the input dtype
+// (as the TPU kernel rounds before its second dot) and rows(n) is
+// block_ids[n / bs] * bs + n % bs (n when block_ids is null).  W2 rows are
+// read in place, never compacted.
 //
 // Grid (D / kDownCols column tiles, splits, M / MT row chunks): one thread
 // per output column, so a warp reads 32 neighbouring elements of a W2 row;

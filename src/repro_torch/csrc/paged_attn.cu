@@ -93,6 +93,13 @@
 
 namespace {
 
+using griffin::cp_async;
+using griffin::cp_async_commit;
+using griffin::cp_async_wait;
+using griffin::ldsm_x4_t;
+using griffin::mma_bf16;
+using griffin::split3;
+
 constexpr float kNegInf = -2.0e38f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -138,25 +145,6 @@ __host__ __device__ inline Layout layout(int page, int hd, int tsize, int pps) {
 
 __device__ __forceinline__ bool is_valid(int kpos, int qpos, int window) {
   return kpos <= qpos && (window == 0 || kpos > qpos - window);
-}
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four consecutive elements of a staged row as fp32
@@ -227,26 +215,6 @@ __device__ __forceinline__ __nv_fp8_e4m3 encode(float v, const __nv_fp8_e4m3*) {
   return griffin::quantize<__nv_fp8_e4m3>(v);
 }
 
-// four 8x8 bf16 matrices, transposed: the B operands of two n-tiles
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// fp32 pairs as three bf16 pairs whose sum is the pair to ~2^-24: the P
-// operand of a P.V on tensor cores that keeps fp32 accuracy
-__device__ __forceinline__ void split3(float x, float y, uint32_t* out) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    out[k] = *reinterpret_cast<const uint32_t*>(&h);
-    x -= __low2float(h);
-    y -= __high2float(h);
-  }
-}
-
 // two 8-bit V elements of rows k, k+1 (zero past the page) as a bf16 pair
 template <typename T>
 __device__ __forceinline__ uint32_t v_pair(const unsigned char* sv, int pitch,
@@ -254,15 +222,6 @@ __device__ __forceinline__ uint32_t v_pair(const unsigned char* sv, int pitch,
   const float lo = k < page ? static_cast<float>(reinterpret_cast<const T*>(sv + (size_t)k * pitch)[n]) : 0.f;
   const float hi = k + 1 < page ? static_cast<float>(reinterpret_cast<const T*>(sv + (size_t)(k + 1) * pitch)[n]) : 0.f;
   return pack_bf16(lo, hi);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float block_max(float v, float* red, int n_threads) {

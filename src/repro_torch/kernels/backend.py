@@ -24,8 +24,8 @@ _LL = ctypes.c_longlong
 
 #: C signatures of the entry points in ``csrc/*.cu``
 _SIGNATURES = {
-    # z, inv, out, B, S, F, z_is_bf16, stream
-    "expert_stat": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # z, out, B, S, F, vec, cluster, threads, z_is_bf16, stream
+    "expert_stat": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # pool, bt, out, rows, page_bytes, stream
     "paged_gather": [_P, _P, _P, _I, _LL, _P],
     # q, k_new, v_new, pool_k, pool_v, bt, pos, wm, ctx, B, S, H, KV, hd,
@@ -43,8 +43,10 @@ _SIGNATURES = {
     # vec, n_sm, is_bf16, stream
     "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, wg, w1, w2, z, part, y, M, D, F, act, n_sm, is_bf16, stream
-    "glu_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, wg, w1, w2, z, y, M, D, F, act, up_splits, up_k, down_splits,
+    # down_k, is_bf16, stream
+    "glu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                _P],
     # M, N, D, n_sm -> splits of the FF down projection's N rows
     "ffn_down_splits": [_I, _I, _I, _I],
 }

@@ -1,9 +1,8 @@
-"""Host half of the two GLU FF kernels (``csrc/ffn_common.cuh``), shared
-by ``kernels/griffin_ffn.py`` and ``kernels/glu_ffn.py``: the activation
-codes, the argument checks and the scratch of the down projection's row
-splits.  How many splits the rows are cut into is decided on the C side
-alone (``ffn_down_splits`` in ``csrc/ffn_common.cu``); the wrappers ask
-it to size the scratch.
+"""Host pieces of the GLU FF kernels: the activation codes and argument
+checks of ``kernels/griffin_ffn.py`` and ``kernels/glu_ffn.py``, and the
+scratch of ``griffin_ffn``'s down projection (``csrc/ffn_common.cuh``),
+whose row splits are decided on the C side alone (``ffn_down_splits`` in
+``csrc/ffn_common.cu``); the wrapper asks it to size the scratch.
 """
 from __future__ import annotations
 

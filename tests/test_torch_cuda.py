@@ -188,16 +188,44 @@ def test_paged_attn_refuses_another_row_tile(dev):
     ((37, 300), torch.float32),
     ((3, 33, 520), torch.float32),
     ((1, 32, 11008), torch.bfloat16),
+    ((2, 300, 11008), torch.bfloat16),  # 19 row tiles, 2 clusters
+    ((4, 33, 520), torch.float32),
+    ((1, 1, 11008), torch.bfloat16),    # S = 1
+    ((1, 32, 11008), torch.float32),    # 2752 vectors: 344 a CTA, 2 a thread
+    ((1, 17, 301), torch.bfloat16),     # rows not 16-byte aligned: 2-byte loads
+    ((2, 20, 8193), torch.bfloat16),    # 1025 vectors a CTA: 5 a thread
 ])
 def test_expert_stat_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import expert_stat
+
     rng = np.random.default_rng(1)
     z = torch.tensor(rng.normal(size=shape), dtype=torch.float32).to(dtype)
-    z[..., -3:, :] = 0  # padded rows contribute 0
+    pad = 3 if shape[-2] > 3 else 0
+    if pad:
+        z[..., -pad:, :] = 0  # padded rows contribute 0
     z = z.to(dev)
+    before = expert_stat.launches
     got = ops.griffin_stat(z)
+    assert expert_stat.launches == before + 1
     want = ref.expert_stat_ref(z)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     # deterministic: the same bits on a second run
+    assert torch.equal(got, ops.griffin_stat(z))
+    if pad:  # all-zero rows add exactly nothing, in any row tile
+        assert torch.equal(got, ops.griffin_stat(z[..., :-pad, :].contiguous()))
+
+
+def test_expert_stat_all_zero_rows_and_offset_view(dev):
+    """Every row zero gives zeros; a z whose address is only 4-byte
+    aligned (a view one bf16 pair in) takes narrower loads."""
+    z = torch.zeros((2, 40, 1024), dtype=torch.bfloat16, device=dev)
+    assert torch.equal(ops.griffin_stat(z), torch.zeros((2, 1024), device=dev))
+    rng = np.random.default_rng(7)
+    flat = torch.tensor(rng.normal(size=32 * 1024 + 2),
+                        dtype=torch.float32).to(torch.bfloat16).to(dev)
+    z = flat[2:].view(32, 1024)
+    got = ops.griffin_stat(z)
+    torch.testing.assert_close(got, ref.expert_stat_ref(z), rtol=1e-5, atol=1e-5)
     assert torch.equal(got, ops.griffin_stat(z))
 
 
@@ -353,9 +381,42 @@ def test_glu_ffn_kernel_matches_plain(dev, dtype, S, D, F, act):
     x = t(rng.normal(size=(S, D)))
     wg, w1 = (t(rng.normal(size=(D, F)) / np.sqrt(D)) for _ in range(2))
     w2 = t(rng.normal(size=(F, D)) / np.sqrt(F))
+    _check_glu_ffn(x, wg, w1, w2, act)
+
+
+def _check_glu_ffn(x, wg, w1, w2, act):
+    """The kernel against its plain version (``FF_TOL`` of chip_smoke:
+    2e-2 bf16, 1e-4 fp32 at D >= 4096, else 1e-5), one launch counted,
+    the same bits on a second call."""
+    from repro_torch.kernels import glu_ffn
+
+    before = glu_ffn.launches
     got = ops.glu_ffn_forward(x, wg, w1, w2, activation=act)
     want = ref.glu_ffn_ref(x, wg, w1, w2, activation=act)
     torch.cuda.synchronize()
-    tol = _ffn_tol(dtype) if D < 4096 or dtype == torch.bfloat16 else \
+    assert glu_ffn.launches == before + 1
+    D = x.shape[1]
+    tol = _ffn_tol(x.dtype) if D < 4096 or x.dtype == torch.bfloat16 else \
         dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, ops.glu_ffn_forward(x, wg, w1, w2, activation=act))
+
+
+@pytest.mark.parametrize("S,D,F,dtype,act", [
+    (1, 4096, 11008, torch.bfloat16, "swiglu"),   # M = 1: one row of 32
+    (33, 4096, 11008, torch.bfloat16, "swiglu"),  # a ragged 64-row tile
+    (1, 128, 512, torch.float32, "reglu"),
+    (33, 256, 1024, torch.float32, "reglu"),
+    (33, 256, 1024, torch.bfloat16, "reglu"),
+    (5, 96, 1001, torch.bfloat16, "reglu"),       # odd F: 2-byte rows
+    (5, 96, 1001, torch.float32, "geglu"),
+    (7, 100, 300, torch.bfloat16, "swiglu"),      # D, F rows 8-byte aligned
+    (2, 4096, 64, torch.bfloat16, "geglu"),       # one k tile of z: one split
+])
+def test_glu_ffn_kernel_ragged_shapes(dev, S, D, F, dtype, act):
+    rng = np.random.default_rng(S * 7 + F)
+    t = lambda a: torch.tensor(a, dtype=torch.float32).to(dtype).to(dev)  # noqa: E731
+    x = t(rng.normal(size=(S, D)))
+    wg, w1 = (t(rng.normal(size=(D, F)) / np.sqrt(D)) for _ in range(2))
+    w2 = t(rng.normal(size=(F, D)) / np.sqrt(F))
+    _check_glu_ffn(x, wg, w1, w2, act)

@@ -90,6 +90,49 @@ def test_glu_ffn_plain_matches_jax(dt, S, D, F):
         np.testing.assert_allclose(_np(got), _np(want), **_tol(dt))
 
 
+@pytest.mark.parametrize("M,F,D,itemsize", [
+    (32, 11008, 4096, 2),   # Yi-9B prefill chunk, bf16
+    (32, 11008, 4096, 4),
+    (1, 11008, 4096, 2),
+    (33, 11008, 4096, 2),   # one ragged 64-row tile
+    (300, 1024, 256, 2), (300, 1024, 256, 4),
+    (5, 1001, 96, 2),       # odd F
+    (3, 200, 96, 4),
+    (2, 64, 4096, 2),       # one k tile of z: one down range
+    (64, 40, 8192, 4),
+    (300, 128, 16384, 2),   # the column tiles alone fill the card
+])
+def test_glu_ffn_plan_covers_every_row(M, F, D, itemsize):
+    """The dense FF kernel's two passes cut their K rows (D for the up
+    pass, F for the down pass) into at most one cluster's worth of
+    ranges, each a whole number of k tiles and none empty, covering every
+    row exactly once, with no more CTAs than fit the card at once; the
+    row tiles cover M."""
+    from repro_torch.kernels.glu_ffn import (CTAS_PER_SM, DOWN_COLS,
+                                             DOWN_K_BYTES, MAX_SPLITS,
+                                             UP_COLS, UP_K_BYTES, glu_plan,
+                                             row_tile)
+
+    n_sm = 132
+    mt = row_tile(M)
+    assert mt in (32, 64) and (M <= 32) == (mt == 32)
+    m_tiles = -(-M // mt)
+    assert (m_tiles - 1) * mt < M <= m_tiles * mt
+    up, down = glu_plan(M, D, F, n_sm, itemsize)
+    for (splits, rps), K, kb, cols, N in ((up, D, UP_K_BYTES, UP_COLS, F),
+                                          (down, F, DOWN_K_BYTES, DOWN_COLS, D)):
+        assert 1 <= splits <= MAX_SPLITS
+        assert rps > 0 and rps % (kb // itemsize) == 0
+        rows = np.zeros(K, np.int64)
+        for sp in range(splits):
+            lo, hi = sp * rps, min(K, (sp + 1) * rps)
+            assert lo < hi
+            rows[lo:hi] += 1
+        assert (rows == 1).all()
+        tiles = -(-N // cols) * m_tiles
+        assert splits == 1 or tiles * splits <= CTAS_PER_SM * n_sm
+
+
 def test_ffn_plain_rejects_unknown_activation():
     x = torch.zeros((2, 8))
     w = torch.zeros((8, 128))

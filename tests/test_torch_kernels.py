@@ -161,6 +161,44 @@ def test_paged_attn_page_splits_cover_the_table(W, ctas):
                                     ctas * (W // MIN_PAGES_PER_SPLIT)) / 2
 
 
+@pytest.mark.parametrize("F,itemsize,address", [
+    (11008, 2, 0),      # Yi-9B prefill chunk, bf16: 16-byte loads
+    (11008, 4, 0),      # fp32: 2752 vectors
+    (512, 4, 0), (520, 4, 0), (1, 2, 0), (33, 4, 0),
+    (301, 2, 0),        # odd bf16 row: 2-byte loads
+    (8193, 2, 0),       # wider than 8 CTAs of 256 threads
+    (1024, 2, 4),       # a view 4 bytes into its storage
+    (1024, 2, 8),
+    (300000, 4, 16),
+])
+def test_expert_stat_plan_covers_every_column(F, itemsize, address):
+    """The statistic's launch: loads as wide as the row and the address
+    allow (at most 16 bytes), a cluster of at most 8 CTAs, at most 512
+    threads a CTA, and every vector of a row owned by exactly one thread
+    of one CTA."""
+    from repro_torch.kernels.expert_stat import (MAX_CLUSTER, MAX_THREADS,
+                                                 stat_plan, stat_vec)
+
+    vec = stat_vec(F, itemsize, address)
+    assert vec >= 1 and vec * itemsize <= 16 and F % vec == 0
+    assert address % (vec * itemsize) == 0
+    if 2 * vec * itemsize <= 16:  # the next width up would not fit
+        assert F % (2 * vec) or address % (2 * vec * itemsize)
+    n_vec = F // vec
+    cluster, threads = stat_plan(n_vec)
+    assert 1 <= cluster <= MAX_CLUSTER
+    assert 32 <= threads <= MAX_THREADS and threads % 32 == 0
+    vpc = -(-n_vec // cluster)
+    owned = np.zeros(n_vec, np.int64)
+    for r in range(cluster):
+        v_hi = min(n_vec, (r + 1) * vpc)
+        for tid in range(threads):
+            owned[r * vpc + tid:v_hi:threads] += 1
+    assert (owned == 1).all()
+    if n_vec <= cluster * MAX_THREADS:  # one vector a thread: z read once
+        assert vpc <= threads
+
+
 def test_no_hidden_device():
     """Without a card, asking for CUDA (explicitly or by default) raises;
     nothing runs on the CPU instead."""
