@@ -26,7 +26,10 @@ Phases (any failure raises and the script exits non-zero):
    that one ``ops.paged_attention`` call at the Yi-9B decode shape is one
    device kernel for each of fp32/bf16/int8/fp8 pools, one
    ``ops.griffin_stat`` call at [1,32,11008] bf16 one device kernel, and
-   one ``ops.glu_ffn_forward`` call at Yi-9B width ``GLU_FFN_KERNELS``;
+   one ``ops.glu_ffn_forward`` / ``ops.griffin_ffn_decode`` call at Yi-9B
+   width ``GLU_FFN_KERNELS`` / ``GRIFFIN_FFN_KERNELS``; ``griffin_ffn``'s
+   passes are timed apart (``kernel_times``) beside the server's decode
+   FF on compacted copies (``compacted_ffn``: three library products);
 3. tinylm, random weights: ``PagedServer`` with the ``fused`` and the
    ``gather`` backend gives the same token streams, and the same as the
    port on the CPU (plain versions), with fp32, int8 and fp8 pools —
@@ -48,8 +51,9 @@ Phases (any failure raises and the script exits non-zero):
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
 decode case; ``prefill_*`` give the prefill chunk's time and bound, and
-``launches_decode`` / ``launches_prefill`` split the launches by kind);
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+``launches_decode`` / ``launches_prefill`` split the launches by kind;
+``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
+``compacted_ms``, the compacted products' time); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -78,6 +82,10 @@ FF_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: device kernels of one ``ops.glu_ffn_forward`` call: the up pass and the
 #: cluster-merged down pass (``csrc/glu_ffn.cu``)
 GLU_FFN_KERNELS = 2
+
+#: device kernels of one ``ops.griffin_ffn_decode`` call: the same two
+#: passes over the selected blocks (``csrc/griffin_ffn.cu``)
+GRIFFIN_FFN_KERNELS = 2
 
 
 def check(cond, msg: str) -> None:
@@ -259,6 +267,28 @@ def device_kernels(torch, fn, tries: int = 3):
     fn()
     torch.cuda.synchronize()
     return [e.name for e in fenced_device_events(torch, fn, tries)]
+
+
+def kernel_times(torch, fn, flush, reps: int = 10):
+    """Median device milliseconds of each device kernel one call of ``fn``
+    runs, by its short name (``ffn_up``, ...), from ``torch.profiler``
+    records of ``reps`` calls with L2 flushed before each (the flush's
+    own kernel left out)."""
+    import re
+
+    names = device_kernels(torch, fn)
+
+    def calls():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
+    evs = fenced_device_events(torch, calls, complete=lambda evs: all(
+        sum(e.name == n for e in evs) == reps * names.count(n) for n in names))
+    short = lambda n: re.sub(r"^.*?(\w+)[<(].*$", r"\1", n)  # noqa: E731
+    return {short(n): statistics.median(e.time_range.elapsed_us() / 1e3
+                                        for e in evs if e.name == n)
+            for n in dict.fromkeys(names)}
 
 
 def gather_work(pool, bt, out):
@@ -495,11 +525,29 @@ def ffn_weights(torch, gen, dev, dtype, *shapes_scales):
             for shape, scale in shapes_scales]
 
 
+def compacted_ffn(torch, x, wg, w1, w2, block_ids, act: str):
+    """The server's decode FF on the selected blocks (``ffn_forward`` on
+    ``compact_ffn_params``, three library products) over copies compacted
+    once, here: weights [F, D] neuron rows, as ``griffin_ffn`` takes them."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.layers import ffn as ffn_lib
+
+    idx = (block_ids.long()[:, None] * 128
+           + torch.arange(128, device=x.device)[None, :]).reshape(-1)
+    p = ffn_lib.compact_ffn_params({"wg": wg.T, "w1": w1.T, "w2": w2}, idx)
+    p = {k: v.contiguous() for k, v in p.items()}
+    cfg = SimpleNamespace(activation=act)
+    return lambda: ffn_lib.ffn_forward(p, x[None], cfg)
+
+
 def phase_kernels_ffn(torch, dev, flush, gen, lines):
     """``griffin_ffn`` at Yi-9B decode width (D=4096, F=11008, 43 of 86
-    blocks of 128, B=2) in bf16 and fp32 with swiglu, geglu/reglu at a
-    small shape; ``glu_ffn`` on a Yi-9B prefill chunk [32,4096] x
-    [4096,11008] in bf16 and fp32, geglu at a small ragged shape.
+    blocks of 128, B=2) in bf16 and fp32 with swiglu, bf16 over all 86
+    blocks (twice the bytes: beside the 43-block time it parts a pass's
+    fixed cost from its streaming rate), geglu/reglu at a small shape;
+    ``glu_ffn`` on a Yi-9B prefill chunk [32,4096] x [4096,11008] in bf16
+    and fp32, geglu at a small ragged shape.
     Weights ~ N(0, 1/fan_in), so outputs are O(1) and the tolerances
     (``FF_TOL``, 1e-5 for fp32 at the small shapes) are relative to that."""
     from repro_torch.kernels import ops, ref
@@ -508,6 +556,7 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
     worst = 0.0
     for D, F, nb, B, dtype, act in (
             (4096, 11008, 43, 2, torch.bfloat16, "swiglu"),
+            (4096, 11008, 86, 2, torch.bfloat16, "swiglu"),  # twice the bytes
             (4096, 11008, 43, 2, torch.float32, "swiglu"),
             (256, 1024, 4, 4, torch.float32, "geglu"),
             (256, 1024, 4, 4, torch.bfloat16, "reglu")):
@@ -529,6 +578,11 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
         check(torch.allclose(got, want, rtol=tol, atol=tol), f"{what}: max err {err}")
         check(torch.equal(got, run()), f"{what}: not deterministic")
         worst = max(worst, err)
+        main = D == 4096 and nb == 43 and dtype == torch.bfloat16
+        if main:
+            names = device_kernels(torch, run)
+            check(len(names) == GRIFFIN_FFN_KERNELS, f"{what}: one call ran {names}")
+            lines.append(f"{what}: one call = {len(names)} device kernels")
         ms = time_ms(torch, run, flush=flush)
         plain_ms = time_ms(torch, lambda: ref.griffin_ffn_ref(
             x, wg, w1, w2, ids, 128, activation=act), flush=flush)
@@ -537,10 +591,22 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
         b_ms, b_by = bound(byts, 6 * B * n_sel * D, tname)
         lines.append(f"{what}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                      f"bound {b_ms:.5f} ms ({b_by})  max_abs_err {err:.3g} (tol {tol})")
-        if D == 4096 and dtype == torch.bfloat16:
+        if D == 4096:
+            # the kernel's passes apart, and what the server's decode FF runs
+            # today: three library products on compacted copies (made
+            # outside the timing; a comparison, not a library call for the
+            # zero-copy function)
+            passes = kernel_times(torch, run, flush)
+            comp = compacted_ffn(torch, x, wg, w1, w2, ids, act)
+            comp_ms = time_ms(torch, comp, flush=flush)
+            lines.append(f"{what}: device time by kernel " + "  ".join(
+                f"{k} {v:.4f} ms" for k, v in passes.items())
+                + f"  compacted products {comp_ms:.4f} ms")
+        if main:
             results["griffin_ffn"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, at=f"x [{B},{D}] bf16, {nb} of {F // 128} blocks")
+                library_ms=None, pass_ms=passes, compacted_ms=comp_ms,
+                at=f"x [{B},{D}] bf16, {nb} of {F // 128} blocks")
     results["griffin_ffn"]["max_abs_err"] = worst
 
     worst = 0.0
@@ -1019,6 +1085,7 @@ def main() -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "at": r["at"]}
+        entry.update({k: r[k] for k in ("pass_ms", "compacted_ms") if k in r})
         if "prefill" in r:  # attention: decode (the fields above) and prefill
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
             p = r["prefill"]

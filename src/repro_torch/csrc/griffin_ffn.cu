@@ -3,174 +3,158 @@
 // over the selected blocks of `bs` neuron rows of the [F, D] weights.
 //
 // Replaces: repro/kernels/griffin_ffn.py::griffin_ffn / _kernel (Pallas,
-// TPU), entry point ops.griffin_ffn_decode.
+// TPU), entry point ops.griffin_ffn_decode.  The TPU kernel prefetches the
+// block ids as scalars and lets them drive its BlockSpec index maps; here
+// they drive a row map (ffn_common.cuh: Blocks), so the selected rows of
+// Wg, W1 and W2 are read in place and no compacted copy is made.
 //
 // Bound on the H100: bytes.  At decode (B rows of x, B small) every
 // selected weight element is read once and used B times, so the
-// 3 * n_sel * D * itemsize weight bytes over 3.35 TB/s bound the call; the
-// operations (6 * B * n_sel * D) are far below the bf16 ridge.
+// 3 * n_sel * D * itemsize weight bytes over 3.35 TB/s bound the call
+// (Yi-9B at half its blocks in bf16: 135 MB, 40 us); the operations
+// (6 * B * n_sel * D) are far below the bf16 ridge.
 //
-// Design (two launches plus the split reduction, no library call):
-// * Pass 1 (griffin_ffn_up): one warp per selected neuron, 8 per CTA.  The
-//   neuron's Wg and W1 rows (block_ids[n / bs] * bs + n % bs, read in
-//   place: no compacted copy) stream through the warp in 16-byte vectors,
-//   each lane accumulating the dot products of up to MT rows of x in fp32;
-//   x is small and stays in L1.  A warp reduction finishes g and h; lane 0
-//   stores z = act(g) * h rounded to x's dtype, as the TPU kernel rounds
-//   before its second dot.  Rows of x beyond MT go to further grid rows.
-// * Pass 2 (ffn_common.cuh): y = z . W2_sel with one thread per output
-//   column, the selected rows split over CTAs and the splits summed in
-//   order, so the result is the same from run to run.
-// This version uses plain FMA loops, no tensor cores or TMA.
+// Design: two launches of the tiled loop that glu_ffn.cu also runs
+// (ffn_common.cuh), no library call, no scratch besides z:
+// * Up pass (ffn_up, BT): z = act(x . Wg_sel^T) * (x . W1_sel^T).  Wg and
+//   W1 are neuron rows, so a weight tile is [n][k]: kUpN neurons (rows
+//   map(n)) by 128 bytes of D, staged as it lies and handed to
+//   mma.sync.m16n8k16 through plain ldmatrix (an [n][k] tile is the mma's
+//   column-major B operand).  x is the A operand in row tiles of 16 (a
+//   decode step is one tile, no padding beyond 16 rows).  D is cut into
+//   ranges merged in a cluster, g and h before the activation; z is
+//   rounded to x's dtype, as the TPU kernel rounds before its second dot.
+// * Down pass (ffn_down): y = z . W2_sel, glu_ffn's down pass with z's
+//   column k reading W2's row map(k): [k][n] tiles of 128 columns, the
+//   selected rows cut into at most 8 ranges per column tile that merge in
+//   rank order in a cluster (no partial buffer, no reduction launch).
+// * bf16 weights come by TMA when the block size is a multiple of 64 (so
+//   a 64-row box never leaves a selected block) and the rows and
+//   addresses are 16-byte aligned; otherwise each row is staged by
+//   cp.async from its mapped address.  fp32 runs the same tiles on exact
+//   FMA.  kernels/griffin_ffn.py::griffin_plan sizes the ranges so every
+//   CTA of a pass is resident at once (3 per SM at a 16-row tile): at
+//   Yi-9B width with 43 of 86 blocks, 86 neuron tiles x 4 D ranges for
+//   the up pass and 32 column tiles x 8 ranges of the 5,504 rows for the
+//   down pass.
+// * The down pass is a programmatic dependent launch: its CTAs may start
+//   while the up pass still runs, head their first W2 tiles for L2, and
+//   wait for z (griddepcontrol.wait), which hides part of the second
+//   launch.
+// * What shaped the tiles, from timing variants on the H100 (bf16, Yi-9B,
+//   43 of 86 blocks): 64 neurons by 128 bytes at 3 CTAs per SM was the
+//   fastest up pass; 128 neurons, 256-byte k tiles, deeper or shallower
+//   rings, k tiles interleaved across the cluster, Wg and W1 on separate
+//   CTAs, and the up pass prefetching W2 into L2 were each as fast or
+//   slower.
+// * Bits are the same from run to run: every sum has a fixed order.
+
+#include <type_traits>
 
 #include "ffn_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // neurons (warps) per CTA of pass 1
+using namespace griffin;
 
-template <typename T>
-struct Vec;  // 16 bytes of T as floats
+constexpr int kUpN = 64;          // neurons (z columns) of an up-pass CTA
+constexpr int kUpKBytes = 128;    // bytes of an x row per up-pass k tile
+constexpr int kDownN = 128;       // y columns of a down-pass CTA
+constexpr int kDownKBytes = 128;  // bytes of a z row per down-pass k tile
 
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
+// rows of x (and z) one CTA takes: 16 for a decode step, 64 above
+inline int row_tile(int M) { return M <= 16 ? 16 : 64; }
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
+// a decode step's passes fit 3 CTAs per SM (227 KB of shared memory)
+template <typename T, bool TMA>
+constexpr bool fits3() {
+  constexpr int budget = 232448 / 3 - 1024;  // less what the runtime keeps
+  return Tiles<T, 16, kUpN, 2, kUpKBytes, TMA, true>::smem <= budget &&
+         Tiles<T, 16, kDownN, 1, kDownKBytes, TMA, false>::smem <= budget;
+}
+static_assert(fits3<float, false>() && fits3<__nv_bfloat16, false>() &&
+                  fits3<__nv_bfloat16, true>(),
+              "griffin_plan counts 3 CTAs per SM at a 16-row tile");
 
-template <typename T, int MT>
-__global__ void __launch_bounds__(kWarps * 32)
-griffin_ffn_up(const T* __restrict__ x,            // [M, D]
-               const T* __restrict__ wg,           // [F, D]
-               const T* __restrict__ w1,           // [F, D]
-               const int* __restrict__ block_ids,  // [n_sel / bs]
-               T* __restrict__ z,                  // [M, n_sel]
-               int M, int D, int n_sel, int bs, int act, int vec) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= n_sel) return;  // no barrier below: whole warps leave
-  const int m0 = blockIdx.y * MT;
-  const int mc = min(MT, M - m0);
-  const long long r = (long long)block_ids[n / bs] * bs + n % bs;
-  const T* wgr = wg + r * D;
-  const T* w1r = w1 + r * D;
-  const T* xr = x + (long long)m0 * D;
-  float ag[MT], ah[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) ag[m] = ah[m] = 0.f;
-
-  constexpr int V = Vec<T>::N;
-  int d_tail = 0;
-  if (vec) {  // D % V == 0 and 16-byte aligned rows
-    for (int d0 = lane * V; d0 < D; d0 += 32 * V) {
-      float a[V], c[V];
-      Vec<T>::load(wgr + d0, a);
-      Vec<T>::load(w1r + d0, c);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < mc) {
-          float xv[V];
-          Vec<T>::load(xr + (long long)m * D + d0, xv);
-#pragma unroll
-          for (int k = 0; k < V; ++k) {
-            ag[m] += xv[k] * a[k];
-            ah[m] += xv[k] * c[k];
-          }
-        }
-      }
-    }
-    d_tail = D;
-  }
-  for (int d = d_tail + lane; d < D; d += 32) {
-    const float a = griffin::to_f32(wgr[d]), c = griffin::to_f32(w1r[d]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < mc) {
-        const float xv = griffin::to_f32(xr[(long long)m * D + d]);
-        ag[m] += xv * a;
-        ah[m] += xv * c;
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ag[m] += __shfl_xor_sync(0xffffffffu, ag[m], o);
-      ah[m] += __shfl_xor_sync(0xffffffffu, ah[m], o);
-    }
-  }
-  if (lane == 0) {
-    for (int m = 0; m < mc; ++m)
-      z[(long long)(m0 + m) * n_sel + n] =
-          griffin::from_f32<T>(griffin::glu_act(ag[m], act) * ah[m]);
-  }
+template <typename T, int MT, bool TMA>
+cudaError_t launch(const T* x, const T* wg, const T* w1, const T* w2, Blocks map, T* z,
+                   float* y, int M, int D, int F, int n_sel, int act, int up_splits,
+                   int up_k, int down_splits, int down_k, const CUtensorMap* maps,
+                   cudaStream_t stream) {
+  constexpr int isz = sizeof(T);
+  const int m_tiles = (M + MT - 1) / MT;
+  cudaError_t e = launch_clusters(
+      ffn_up<T, MT, kUpN, kUpKBytes, TMA, true, Blocks, true>,
+      Tiles<T, MT, kUpN, 2, kUpKBytes, TMA, true>::smem, (n_sel + kUpN - 1) / kUpN,
+      up_splits, m_tiles, false, stream, x, wg, w1, z, M, D, n_sel, act, up_splits, up_k,
+      copy_bytes(D * isz, isz, x), copy_bytes(D * isz, isz, wg, w1), map, F, maps[0],
+      maps[1]);
+  if (e != cudaSuccess) return e;
+  return launch_clusters(
+      ffn_down<T, MT, kDownN, kDownKBytes, TMA, Blocks, true>,
+      Tiles<T, MT, kDownN, 1, kDownKBytes, TMA, false>::smem, (D + kDownN - 1) / kDownN,
+      down_splits, m_tiles, true, stream, static_cast<const T*>(z), w2, y, M, D, n_sel,
+      down_splits, down_k, copy_bytes(n_sel * isz, isz, z), copy_bytes(D * isz, isz, w2),
+      map, maps[2]);
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* wg, const void* w1,
-                   const void* w2, const int* block_ids, void* z, float* part,
-                   float* y, int M, int D, int n_sel, int bs, int act, int vec,
-                   int n_sm, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  T* zp = static_cast<T*>(z);
-  if (M <= 4) {
-    dim3 grid((n_sel + kWarps - 1) / kWarps, (M + 3) / 4);
-    griffin_ffn_up<T, 4><<<grid, kWarps * 32, 0, stream>>>(
-        xp, static_cast<const T*>(wg), static_cast<const T*>(w1), block_ids,
-        zp, M, D, n_sel, bs, act, vec);
-  } else {
-    dim3 grid((n_sel + kWarps - 1) / kWarps, (M + 7) / 8);
-    griffin_ffn_up<T, 8><<<grid, kWarps * 32, 0, stream>>>(
-        xp, static_cast<const T*>(wg), static_cast<const T*>(w1), block_ids,
-        zp, M, D, n_sel, bs, act, vec);
+cudaError_t launch_any(const void* x, const void* wg, const void* w1, const void* w2,
+                       const int* ids, void* z, void* y, int M, int D, int F, int n_sel,
+                       int bs, int act, int up_splits, int up_k, int down_splits,
+                       int down_k, cudaStream_t st) {
+  // bf16 weights come by TMA where a box of 64 rows stays in one block and
+  // the rows and addresses are 16-byte aligned
+  CUtensorMap maps[3] = {};
+  const bool tma = std::is_same<T, __nv_bfloat16>::value && bs % kBoxRows == 0 &&
+                   D % 8 == 0 && aligned16(wg) && aligned16(w1) && aligned16(w2) &&
+                   bf16_map(&maps[0], wg, F, D, kBoxRows) &&
+                   bf16_map(&maps[1], w1, F, D, kBoxRows) &&
+                   bf16_map(&maps[2], w2, F, D, kDownKBytes / 2);
+  auto run = [&](auto mt, auto use_tma) {
+    return launch<T, decltype(mt)::value, decltype(use_tma)::value>(
+        static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(w1),
+        static_cast<const T*>(w2), Blocks{ids, bs}, static_cast<T*>(z),
+        static_cast<float*>(y), M, D, F, n_sel, act, up_splits, up_k, down_splits, down_k,
+        maps, st);
+  };
+  using I16 = std::integral_constant<int, 16>;
+  using I64 = std::integral_constant<int, 64>;
+  using Yes = std::true_type;
+  using No = std::false_type;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (tma) return row_tile(M) == 16 ? run(I16{}, Yes{}) : run(I64{}, Yes{});
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return griffin::launch_down<T>(zp, static_cast<const T*>(w2), block_ids,
-                                 part, y, M, n_sel, D, bs, n_sm, stream);
+  return row_tile(M) == 16 ? run(I16{}, No{}) : run(I64{}, No{});
 }
 
 }  // namespace
 
-// x [M, D], wg/w1/w2 [F, D] in one dtype (fp32 or bf16); block_ids
-// [n_sel / bs] int32; z [M, n_sel] scratch in x's dtype; part [splits, M,
-// D] fp32 scratch, splits = ffn_down_splits(M, n_sel, D, n_sm) (may be
-// null when that is 1); y [M, D] fp32.  act: 0 swiglu, 1 geglu (tanh), 2
-// reglu.  vec: rows may be read as 16-byte vectors (D a multiple of 16
-// bytes, aligned pointers).  n_sm: the card's SM count.
-extern "C" int griffin_ffn(const void* x, const void* wg, const void* w1,
-                           const void* w2, const void* block_ids, void* z,
-                           void* part, void* y, int M, int D, int n_sel,
-                           int bs, int act, int vec, int n_sm, int is_bf16,
-                           void* stream) {
+// x [M, D], wg/w1/w2 [F, D] in one dtype (fp32 or bf16); block_ids [n_sel /
+// bs] int32, each in [0, F / bs), in any order (z's columns follow it); z
+// [M, n_sel] scratch in x's dtype; y [M, D] fp32.  act: 0 swiglu, 1 geglu
+// (tanh), 2 reglu.  The up pass cuts D, the down pass the n_sel selected
+// rows, into ranges that run as one cluster per column tile
+// (kernels/griffin_ffn.py::griffin_plan): up_splits ranges of up_k rows,
+// down_splits of down_k, each a whole number of k tiles (128 bytes of an x
+// row, 128 bytes of a z row), none empty; else cudaErrorInvalidValue.
+extern "C" int griffin_ffn(const void* x, const void* wg, const void* w1, const void* w2,
+                           const void* block_ids, void* z, void* y, int M, int D, int F,
+                           int n_sel, int bs, int act, int up_splits, int up_k,
+                           int down_splits, int down_k, int is_bf16, void* stream) {
+  const int isz = is_bf16 ? 2 : 4;
+  const bool ok = M > 0 && D > 0 && bs > 0 && F % bs == 0 && n_sel > 0 &&
+                  n_sel % bs == 0 &&
+                  valid_split(D, up_splits, up_k, kUpKBytes / isz) &&
+                  valid_split(n_sel, down_splits, down_k, kDownKBytes / isz);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* ids = static_cast<const int*>(block_ids);
-  auto* pp = static_cast<float*>(part);
-  auto* yp = static_cast<float*>(y);
-  cudaError_t e =
-      is_bf16 ? launch<__nv_bfloat16>(x, wg, w1, w2, ids, z, pp, yp, M, D,
-                                      n_sel, bs, act, vec, n_sm, st)
-              : launch<float>(x, wg, w1, w2, ids, z, pp, yp, M, D, n_sel, bs,
-                              act, vec, n_sm, st);
+  const cudaError_t e =
+      is_bf16 ? launch_any<__nv_bfloat16>(x, wg, w1, w2, ids, z, y, M, D, F, n_sel, bs, act,
+                                          up_splits, up_k, down_splits, down_k, st)
+              : launch_any<float>(x, wg, w1, w2, ids, z, y, M, D, F, n_sel, bs, act,
+                                  up_splits, up_k, down_splits, down_k, st);
   return static_cast<int>(e);
 }
+

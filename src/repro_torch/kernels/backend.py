@@ -8,9 +8,8 @@
   version (``kernels/ref.py``), anything else raises.  There is no
   fallback from the kernel to the plain version.
 * ``lib`` — the ``ctypes`` handle of ``build/libgriffin_kernels.so``,
-  built on first use (``kernels/build.py``).  Every C entry point that
-  launches returns ``cudaGetLastError()`` and ``check`` raises on
-  non-zero; ``ffn_down_splits`` returns a count.
+  built on first use (``kernels/build.py``).  Every C entry point
+  returns ``cudaGetLastError()`` and ``check`` raises on non-zero.
 """
 from __future__ import annotations
 
@@ -39,16 +38,14 @@ _SIGNATURES = {
     "paged_attn_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                          _I, _F, _F, _P],
-    # x, wg, w1, w2, block_ids, z, part, y, M, D, n_sel, block_size, act,
-    # vec, n_sm, is_bf16, stream
-    "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wg, w1, w2, block_ids, z, y, M, D, F, n_sel, block_size, act,
+    # up_splits, up_k, down_splits, down_k, is_bf16, stream
+    "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, wg, w1, w2, z, y, M, D, F, act, up_splits, up_k, down_splits,
     # down_k, is_bf16, stream
     "glu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                 _P],
-    # M, N, D, n_sm -> splits of the FF down projection's N rows
-    "ffn_down_splits": [_I, _I, _I, _I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

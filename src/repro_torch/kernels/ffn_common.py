@@ -1,12 +1,11 @@
-"""Host pieces of the GLU FF kernels: the activation codes and argument
-checks of ``kernels/griffin_ffn.py`` and ``kernels/glu_ffn.py``, and the
-scratch of ``griffin_ffn``'s down projection (``csrc/ffn_common.cuh``),
-whose row splits are decided on the C side alone (``ffn_down_splits`` in
-``csrc/ffn_common.cu``); the wrapper asks it to size the scratch.
+"""Host pieces of the GLU FF kernels (``kernels/griffin_ffn.py``,
+``kernels/glu_ffn.py``): the activation codes, the argument checks, and
+how a pass cuts its K rows into ranges that run as one thread block
+cluster (``csrc/ffn_common.cuh``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -14,6 +13,27 @@ from repro_torch.kernels import backend
 
 #: activation name -> the kernels' code (``griffin::glu_act``)
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "reglu": 2}
+
+#: the most row ranges of one column tile (one thread block cluster), and
+#: the CTAs per SM the ranges aim at by default
+MAX_SPLITS = 8
+CTAS_PER_SM = 3
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k_splits(K: int, bk: int, tiles: int, n_sm: int,
+             ctas_per_sm: int = CTAS_PER_SM) -> Tuple[int, int]:
+    """``(splits, rows_per_split)``: a pass's K rows cut into ``splits``
+    ranges of ``rows_per_split`` rows (a whole number of ``bk``-row k
+    tiles; the last range may be shorter, none is empty), as many as fit
+    beside the ``tiles`` output tiles at ``ctas_per_sm`` CTAs per SM in
+    one wave, at most ``MAX_SPLITS``."""
+    splits = max(1, min(MAX_SPLITS, cdiv(K, bk), ctas_per_sm * n_sm // tiles))
+    rps = bk * cdiv(cdiv(K, splits), bk)
+    return cdiv(K, rps), rps
 
 
 def check_ffn_inputs(what: str, x, ws, activation: str):
@@ -29,16 +49,3 @@ def check_ffn_inputs(what: str, x, ws, activation: str):
                     "x and the weights must share a float32 or bfloat16 dtype")
     backend.require(all(w.is_contiguous() for w in ws), what,
                     "the weights must be contiguous (they are read in place)")
-
-
-def down_scratch(x: torch.Tensor, M: int, N: int, D: int
-                 ) -> Tuple[Optional[torch.Tensor], int]:
-    """``(part, n_sm)`` for a down projection of ``N`` rows into ``[M, D]``
-    on x's card: the fp32 partial sums ``[splits, M, D]`` of its row
-    splits (None for one split) and the SM count the C side cuts by."""
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = backend.lib().ffn_down_splits(M, N, D, n_sm)
-    part = None
-    if splits > 1:
-        part = torch.empty((splits, M, D), dtype=torch.float32, device=x.device)
-    return part, n_sm

@@ -20,23 +20,16 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.ffn_common import ACTIVATIONS, check_ffn_inputs
+from repro_torch.kernels.ffn_common import (  # noqa: F401 (plan constants)
+    ACTIVATIONS, CTAS_PER_SM, MAX_SPLITS, cdiv, check_ffn_inputs, k_splits)
 
 #: launches of the kernel since the last reset (one per wrapper call)
 launches = 0
 
 #: as compiled in ``csrc/glu_ffn.cu``: columns of an up-pass and a
-#: down-pass CTA, bytes of an x (up) and a z (down) row per k tile, the
-#: most row ranges of one column tile (one thread block cluster), and the
-#: CTAs per SM the ranges aim at
+#: down-pass CTA, bytes of an x (up) and a z (down) row per k tile
 UP_COLS, DOWN_COLS = 128, 128
 UP_K_BYTES, DOWN_K_BYTES = 64, 128
-MAX_SPLITS = 8
-CTAS_PER_SM = 3
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def row_tile(M: int) -> int:
@@ -44,25 +37,14 @@ def row_tile(M: int) -> int:
     return 32 if M <= 32 else 64
 
 
-def k_splits(K: int, bk: int, tiles: int, n_sm: int) -> Tuple[int, int]:
-    """``(splits, rows_per_split)``: a pass's K rows cut into ``splits``
-    ranges of ``rows_per_split`` rows (a whole number of ``bk``-row k
-    tiles; the last range may be shorter, none is empty), as many as fit
-    beside the ``tiles`` output tiles at ``CTAS_PER_SM`` CTAs per SM in one
-    wave, at most ``MAX_SPLITS``."""
-    splits = max(1, min(MAX_SPLITS, _cdiv(K, bk), CTAS_PER_SM * n_sm // tiles))
-    rps = bk * _cdiv(_cdiv(K, splits), bk)
-    return _cdiv(K, rps), rps
-
-
 def glu_plan(M: int, D: int, F: int, n_sm: int, itemsize: int
              ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """``k_splits`` of the up pass (D's rows, over ``UP_COLS``-wide
     column tiles of z) and of the down pass (F's rows, over
     ``DOWN_COLS``-wide column tiles of y)."""
-    m_tiles = _cdiv(M, row_tile(M))
-    up = k_splits(D, UP_K_BYTES // itemsize, _cdiv(F, UP_COLS) * m_tiles, n_sm)
-    down = k_splits(F, DOWN_K_BYTES // itemsize, _cdiv(D, DOWN_COLS) * m_tiles, n_sm)
+    m_tiles = cdiv(M, row_tile(M))
+    up = k_splits(D, UP_K_BYTES // itemsize, cdiv(F, UP_COLS) * m_tiles, n_sm)
+    down = k_splits(F, DOWN_K_BYTES // itemsize, cdiv(D, DOWN_COLS) * m_tiles, n_sm)
     return up, down
 
 

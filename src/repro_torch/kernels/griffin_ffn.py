@@ -4,22 +4,67 @@ replaces the TPU kernel ``repro/kernels/griffin_ffn.py::griffin_ffn``.
 ``y = (act(x Wg_sel^T) * (x W1_sel^T)) W2_sel`` in fp32 over the selected
 blocks of ``block_size`` neuron rows of the ``[F, D]`` weights, read in
 place (zero-copy pruning: no compacted copy).  ``z`` is rounded to x's
-dtype before the second product, as the TPU kernel does.  Two passes:
-one warp per selected neuron for ``z``, then the down projection with its
-rows split over CTAs and the splits summed in order (deterministic).
+dtype before the second product, as the TPU kernel does.  Two launches of
+the tiled loop ``glu_ffn`` also runs (``csrc/ffn_common.cuh``): the up
+pass writes ``z`` from ``[n][k]`` tiles of the selected Wg/W1 rows, the
+down pass ``y`` from the selected W2 rows (tensor-core tiles for bf16,
+exact FMA for fp32; bf16 weights stream in by TMA when ``block_size`` is
+a multiple of 64); each cuts its K rows into at most 8 ranges per output
+tile that run as one thread block cluster and merge in rank order
+(``griffin_plan`` sizes them), so the bits are the same from run to run.
+
+``block_ids`` are taken in the order given, as the plain version takes
+them: sorted or not, the result is the same function.  They are not
+range-checked (that would cost a device-to-host copy); each must lie in
+``[0, F / block_size)``.
 
 CUDA tensors only; ``ops.griffin_ffn_decode`` dispatches CPU tensors to
 ``ref.griffin_ffn_ref``.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.ffn_common import ACTIVATIONS, check_ffn_inputs, down_scratch
+from repro_torch.kernels.ffn_common import (ACTIVATIONS, cdiv,
+                                            check_ffn_inputs, k_splits)
 
 #: launches of the kernel since the last reset (one per wrapper call)
 launches = 0
+
+#: as compiled in ``csrc/griffin_ffn.cu``: neurons of an up-pass CTA,
+#: columns of a down-pass CTA, bytes of an x (up) and a z (down) row per
+#: k tile
+UP_COLS, DOWN_COLS = 64, 128
+UP_K_BYTES, DOWN_K_BYTES = 128, 128
+
+
+def row_tile(M: int) -> int:
+    """Rows of x (and z) one CTA takes: 16 for a decode step, else 64."""
+    return 16 if M <= 16 else 64
+
+
+def ctas_per_sm(M: int) -> int:
+    """CTAs of a pass that share an SM: 3 at a 16-row tile (checked by a
+    ``static_assert`` in ``csrc/griffin_ffn.cu``), 2 at 64 rows."""
+    return 3 if row_tile(M) == 16 else 2
+
+
+def griffin_plan(M: int, D: int, n_sel: int, n_sm: int, itemsize: int
+                 ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``k_splits`` of the up pass (D's rows, over ``UP_COLS``-neuron
+    tiles of z's ``n_sel`` columns) and of the down pass (the ``n_sel``
+    selected rows, over ``DOWN_COLS``-wide column tiles of y), so that
+    every CTA of a pass is resident at once."""
+    m_tiles = cdiv(M, row_tile(M))
+    cps = ctas_per_sm(M)
+    up = k_splits(D, UP_K_BYTES // itemsize, cdiv(n_sel, UP_COLS) * m_tiles,
+                  n_sm, cps)
+    down = k_splits(n_sel, DOWN_K_BYTES // itemsize,
+                    cdiv(D, DOWN_COLS) * m_tiles, n_sm, cps)
+    return up, down
 
 
 def griffin_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
@@ -27,7 +72,7 @@ def griffin_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
                 block_size: int = 128, activation: str = "swiglu"
                 ) -> torch.Tensor:
     """x [B, D]; wg/w1/w2 [F, D] neuron rows (one dtype, CUDA);
-    block_ids [nb] int sorted -> [B, D] fp32."""
+    block_ids [nb] int -> [B, D] fp32."""
     global launches
     what = "griffin_ffn"
     x = x.contiguous()
@@ -46,17 +91,15 @@ def griffin_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
     if B * D == 0 or n_sel == 0:
         return y.zero_()
     z = torch.empty((B, n_sel), dtype=x.dtype, device=x.device)
-    part, n_sm = down_scratch(x, B, n_sel, D)
-    isz = x.element_size()
-    vec = int(D * isz % 16 == 0 and all(t.data_ptr() % 16 == 0
-                                         for t in (x, wg, w1)))
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    (up_splits, up_k), (down_splits, down_k) = griffin_plan(
+        B, D, n_sel, n_sm, x.element_size())
     with torch.cuda.device(x.device):
         err = backend.lib().griffin_ffn(
             x.data_ptr(), wg.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            ids.data_ptr(), z.data_ptr(),
-            None if part is None else part.data_ptr(), y.data_ptr(),
-            B, D, n_sel, block_size, ACTIVATIONS[activation], vec, n_sm,
-            int(x.dtype == torch.bfloat16), backend.stream_of(x))
+            ids.data_ptr(), z.data_ptr(), y.data_ptr(), B, D, F, n_sel,
+            block_size, ACTIVATIONS[activation], up_splits, up_k, down_splits,
+            down_k, int(x.dtype == torch.bfloat16), backend.stream_of(x))
     backend.check(err, what)
     launches += 1
     return y

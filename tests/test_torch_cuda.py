@@ -371,6 +371,63 @@ def test_griffin_ffn_kernel_matches_plain(dev, dtype, B, D, F, BK, nsel, act):
         x, wg, w1, w2, ids, block_size=BK, activation=act))  # deterministic
 
 
+def _check_griffin_ffn(x, wg, w1, w2, ids, BK, act):
+    """The kernel against its plain version on the same block ids (2e-2
+    bf16, 1e-4 fp32 at D >= 4096, else 1e-5), one launch counted, the same
+    bits on a second call."""
+    from repro_torch.kernels import griffin_ffn
+
+    before = griffin_ffn.launches
+    got = ops.griffin_ffn_decode(x, wg, w1, w2, ids, block_size=BK,
+                                 activation=act)
+    want = ref.griffin_ffn_ref(x, wg, w1, w2, ids, BK, activation=act)
+    torch.cuda.synchronize()
+    assert griffin_ffn.launches == before + 1
+    D = x.shape[1]
+    tol = _ffn_tol(x.dtype) if D < 4096 or x.dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, ops.griffin_ffn_decode(
+        x, wg, w1, w2, ids, block_size=BK, activation=act))
+
+
+@pytest.mark.parametrize("B,D,F,BK,nsel,dtype,act,order", [
+    (1, 4096, 11008, 128, 43, torch.bfloat16, "swiglu", "sorted"),  # B = 1
+    (9, 4096, 11008, 128, 43, torch.bfloat16, "swiglu", "sorted"),  # past n8
+    (17, 4096, 11008, 128, 43, torch.bfloat16, "reglu", "sorted"),  # 64-row tile
+    (33, 4096, 11008, 128, 43, torch.bfloat16, "geglu", "sorted"),
+    (33, 256, 1024, 128, 4, torch.float32, "swiglu", "sorted"),
+    (2, 4096, 11008, 128, 1, torch.bfloat16, "swiglu", "sorted"),   # nb = 1
+    (2, 4096, 11008, 128, 86, torch.bfloat16, "swiglu", "sorted"),  # all blocks
+    (2, 4096, 11008, 128, 86, torch.float32, "swiglu", "sorted"),
+    (2, 4096, 11008, 64, 87, torch.bfloat16, "swiglu", "sorted"),   # bs = box
+    (2, 4096, 11008, 256, 21, torch.bfloat16, "geglu", "sorted"),   # 4 boxes
+    (2, 4096, 11008, 32, 170, torch.bfloat16, "swiglu", "sorted"),  # no TMA
+    (3, 100, 512, 128, 2, torch.bfloat16, "reglu", "sorted"),  # D = 100
+    (3, 101, 512, 128, 2, torch.bfloat16, "swiglu", "sorted"),  # 2-byte rows
+    (2, 4096, 11008, 128, 43, torch.bfloat16, "swiglu", "unsorted"),
+    (5, 256, 1024, 64, 7, torch.float32, "geglu", "unsorted"),
+])
+def test_griffin_ffn_kernel_ragged_shapes(dev, B, D, F, BK, nsel, dtype, act,
+                                          order):
+    """Decode rows across the row-tile edges, one and every block, block
+    sizes against the 64-row TMA box and the k tile, unaligned D, and
+    block ids in any order (taken as given, as the plain version takes
+    them)."""
+    rng = np.random.default_rng(B * 13 + D + nsel)
+    t = lambda a: torch.tensor(a, dtype=torch.float32).to(dtype).to(dev)  # noqa: E731
+    x = t(rng.normal(size=(B, D)))
+    wg, w1 = (t(rng.normal(size=(F, D)) / np.sqrt(D)) for _ in range(2))
+    w2 = t(rng.normal(size=(F, D)) / np.sqrt(nsel * BK))
+    ids = rng.choice(F // BK, size=nsel, replace=False)
+    if order == "sorted":
+        ids = np.sort(ids)
+    else:
+        assert not (np.diff(ids) > 0).all()
+    _check_griffin_ffn(x, wg, w1, w2, torch.tensor(ids, dtype=torch.int32,
+                                                   device=dev), BK, act)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,D,F", [(64, 128, 512), (300, 256, 1024),
                                    (3, 96, 200), (32, 4096, 11008)])

@@ -133,6 +133,79 @@ def test_glu_ffn_plan_covers_every_row(M, F, D, itemsize):
         assert splits == 1 or tiles * splits <= CTAS_PER_SM * n_sm
 
 
+@pytest.mark.parametrize("M,D,n_sel,bs,itemsize", [
+    (2, 4096, 5504, 128, 2),    # Yi-9B decode, 43 of 86 blocks, bf16
+    (2, 4096, 5504, 128, 4),
+    (2, 4096, 11008, 128, 2),   # every block
+    (1, 4096, 128, 128, 2),     # one block
+    (9, 4096, 5568, 64, 2),     # 87 blocks of 64
+    (17, 4096, 5376, 256, 2),   # a 64-row tile, blocks of 4 boxes
+    (33, 4096, 5504, 128, 4),
+    (2, 4096, 5440, 32, 2),     # blocks smaller than a box: no TMA
+    (3, 100, 256, 128, 2),      # D = 100: a ragged k tile
+    (5, 256, 448, 64, 4),
+    (2, 8192, 14336, 128, 2),   # the column tiles alone fill the card
+])
+def test_griffin_plan_covers_every_row(M, D, n_sel, bs, itemsize):
+    """The pruned FF kernel's two passes: the up pass's neuron tiles cover
+    the n_sel selected rows of Wg/W1 and its ranges every row of D, the
+    down pass's ranges cover every selected row of W2 and its column tiles
+    every column of y, each exactly once; at most one cluster's worth of
+    ranges, each a whole number of k tiles and none empty, with no more
+    CTAs than fit the card at once.  Where the weights come by TMA (bf16,
+    the block size a multiple of the box), every 64-row box of mapped rows
+    is 64 consecutive rows of one selected block.  The plan's constants
+    are the ones compiled into ``csrc/griffin_ffn.cu``."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import griffin_ffn as g
+    from repro_torch.kernels.ffn_common import MAX_SPLITS
+
+    src = (Path(g.__file__).parents[1] / "csrc" / "griffin_ffn.cu").read_text()
+    for name, val in (("kUpN", g.UP_COLS), ("kUpKBytes", g.UP_K_BYTES),
+                      ("kDownN", g.DOWN_COLS), ("kDownKBytes", g.DOWN_K_BYTES)):
+        assert re.search(rf"constexpr int {name} = {val};", src), name
+    n_sm = 132
+    mt = g.row_tile(M)
+    assert mt in (16, 64) and (M <= 16) == (mt == 16)
+    m_tiles = -(-M // mt)
+    assert (m_tiles - 1) * mt < M <= m_tiles * mt
+    rng = np.random.default_rng(M + n_sel)
+    F = 2 * n_sel
+    ids = np.sort(rng.choice(F // bs, size=n_sel // bs, replace=False))
+    rows = ids[np.arange(n_sel) // bs] * bs + np.arange(n_sel) % bs  # the map
+    tma = itemsize == 2 and bs % 64 == 0
+    up, down = g.griffin_plan(M, D, n_sel, n_sm, itemsize)
+    for (splits, rps), K, kb, cols, N in ((up, D, g.UP_K_BYTES, g.UP_COLS, n_sel),
+                                          (down, n_sel, g.DOWN_K_BYTES, g.DOWN_COLS, D)):
+        bk = kb // itemsize
+        assert 1 <= splits <= MAX_SPLITS
+        assert rps > 0 and rps % bk == 0
+        k_seen = np.zeros(K, np.int64)
+        for sp in range(splits):
+            lo, hi = sp * rps, min(K, (sp + 1) * rps)
+            assert lo < hi
+            k_seen[lo:hi] += 1
+        assert (k_seen == 1).all()
+        tiles = -(-N // cols)
+        n_seen = np.zeros(N, np.int64)
+        for t in range(tiles):
+            n_seen[t * cols:(t + 1) * cols] += 1
+        assert (n_seen == 1).all()
+        assert splits == 1 or tiles * m_tiles * splits <= g.ctas_per_sm(M) * n_sm
+    if tma:
+        # up: a neuron tile's boxes start every 64 rows; down: a range's k
+        # tiles (64 bf16 rows) start every 64 rows after the range's start
+        starts = set(range(0, n_sel, 64))
+        starts |= {sp * down[1] + j for sp in range(down[0])
+                   for j in range(0, down[1], 64) if sp * down[1] + j < n_sel}
+        for s in starts:
+            box = rows[s:s + 64]
+            assert len(box) == 64 and (box == box[0] + np.arange(64)).all()
+    np.testing.assert_array_equal(np.sort(rows) // bs, np.repeat(ids, bs))
+
+
 def test_ffn_plain_rejects_unknown_activation():
     x = torch.zeros((2, 8))
     w = torch.zeros((8, 128))
