@@ -29,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    one ``ops.glu_ffn_forward`` / ``ops.griffin_ffn_decode`` call at Yi-9B
    width ``GLU_FFN_KERNELS`` / ``GRIFFIN_FFN_KERNELS``; ``griffin_ffn``'s
    passes are timed apart (``kernel_times``) beside the server's decode
-   FF on compacted copies (``compacted_ffn``: three library products);
+   FF on compacted copies (``compacted_ffn``: three library products),
+   and each of its passes fits the CTAs per SM its plan counts on;
 3. tinylm, random weights: ``PagedServer`` with the ``fused`` and the
    ``gather`` backend gives the same token streams, and the same as the
    port on the CPU (plain versions), with fp32, int8 and fp8 pools —
@@ -550,8 +551,20 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
     and fp32, geglu at a small ragged shape.
     Weights ~ N(0, 1/fan_in), so outputs are O(1) and the tolerances
     (``FF_TOL``, 1e-5 for fp32 at the small shapes) are relative to that."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import griffin_ffn, ops, ref
 
+    # every pass fits the CTAs per SM that griffin_plan counts on
+    fit = []
+    for M in (2, 33):
+        for dtype, tma in ((torch.float32, False), (torch.bfloat16, False),
+                           (torch.bfloat16, True)):
+            up, down = griffin_ffn.resident_ctas(M, dtype, tma)
+            want = griffin_ffn.ctas_per_sm(M)
+            what = f"griffin_ffn M={M} {str(dtype).split('.')[-1]} tma={int(tma)}"
+            check(min(up, down) >= want,
+                  f"{what}: {up}/{down} CTAs per SM resident, plan counts {want}")
+            fit.append(f"{what} {up}/{down} (plan {want})")
+    lines.append("griffin_ffn CTAs per SM resident, up/down: " + ", ".join(fit))
     results = {}
     worst = 0.0
     for D, F, nb, B, dtype, act in (

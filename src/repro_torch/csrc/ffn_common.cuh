@@ -16,9 +16,11 @@
 // the sum order is fixed and no partial goes through device memory.
 // bf16 products run on mma.sync.m16n8k16 with fp32 sums; fp32 products
 // on exact FMA (TF32 would be outside the 1e-4 tolerance at K = 4096).
-// With PDL the down pass is a programmatic dependent launch of the up
-// pass: ffn_up lets it be scheduled at once, ffn_down heads its first W2
-// tiles for L2 and then waits for z.
+// Both passes are programmatic dependent launches (launch_clusters sets
+// the attribute on every launch): each waits with griddepcontrol.wait for
+// the kernel before it on the stream before it touches memory that kernel
+// may use, ffn_up lets the down pass be scheduled at once, and ffn_down
+// heads its first W2 tiles for L2 before it waits for z.
 //
 // Where the weight rows come from is a row map: Dense (row r is row r,
 // glu_ffn) or Blocks (row r is block_ids[r / bs] * bs + r % bs, GRIFFIN's
@@ -470,7 +472,7 @@ __device__ __forceinline__ unsigned char* ring_base(unsigned char* smem) {
 // z = act(x . Wg) * (x . W1) over z columns [n0, n0 + BN); the CTAs of one
 // cluster take consecutive ranges of D's rows.  Wg/W1 are [D, N] (BT
 // false) or neuron rows [*, D] (BT), z's column n taking row map(n).
-template <typename T, int MT, int BN, int KB, bool TMA, bool BT, class Map, bool PDL = false>
+template <typename T, int MT, int BN, int KB, bool TMA, bool BT, class Map>
 __global__ void __launch_bounds__(kThreads, 2)
 ffn_up(const T* __restrict__ x,   // [M, D]
        const T* __restrict__ wg,  // [D, N] or [*, D]
@@ -480,8 +482,10 @@ ffn_up(const T* __restrict__ x,   // [M, D]
        int cp_w, Map map, int oob_row, const __grid_constant__ CUtensorMap map_g,
        const __grid_constant__ CUtensorMap map_1) {
   using L = Tiles<T, MT, BN, 2, KB, TMA, BT>;
-  // PDL: the down pass may be scheduled from now on (it waits for z)
-  if constexpr (PDL) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // the down pass may be scheduled from now on (it waits for z); x, and
+  // the memory z takes, are the previous kernel's until it is done
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = ring_base<L::align>(smem_raw);
   const int tile = blockIdx.x / splits, split = blockIdx.x % splits;
@@ -510,7 +514,7 @@ ffn_up(const T* __restrict__ x,   // [M, D]
 // y = z . W2 over columns [n0, n0 + BN); the CTAs of one cluster take
 // consecutive ranges of z's K columns, z's column k taking W2's row
 // map(k)
-template <typename T, int MT, int BN, int KB, bool TMA, class Map, bool PDL = false>
+template <typename T, int MT, int BN, int KB, bool TMA, class Map>
 __global__ void __launch_bounds__(kThreads, 2)
 ffn_down(const T* __restrict__ z,   // [M, K]
          const T* __restrict__ w2,  // [*, D]
@@ -524,15 +528,13 @@ ffn_down(const T* __restrict__ z,   // [M, K]
   const int n0 = tile * BN, m0 = blockIdx.y * MT;
   const int k0 = split * k_per_split;
   const int Kr = min(K, k0 + k_per_split) - k0;
-  if constexpr (PDL) {
-    // launched while the up pass may still run: W2 does not depend on it,
-    // so the ring's first tiles head for L2 before the wait for z
-    if (TMA && threadIdx.x == 0)
-      for (int kt = 0; kt < kStages - 1 && kt * L::BK < Kr; ++kt)
-        for (int h = 0; h < L::boxes; ++h)
-          tma_prefetch(&map_2, n0 + h * 64, (int)map(k0 + kt * L::BK));
-    asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  }
+  // launched while the up pass may still run: W2 does not depend on it,
+  // so the ring's first tiles head for L2 before the wait for z
+  if (TMA && threadIdx.x == 0)
+    for (int kt = 0; kt < kStages - 1 && kt * L::BK < Kr; ++kt)
+      for (int h = 0; h < L::boxes; ++h)
+        tma_prefetch(&map_2, n0 + h * 64, (int)map(k0 + kt * L::BK));
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   Engine<T, MT, BN, 1, KB, TMA, false> eng;
   eng.zero();
   const T* const b[1] = {w2};
@@ -566,10 +568,12 @@ inline int copy_bytes(int row_bytes, int min_bytes, const void* p0,
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // grid (column tiles x splits, row tiles); the splits of a column tile run
-// as one thread block cluster
+// as one thread block cluster, and the kernel is a programmatic dependent
+// launch: it may start before the previous kernel on the stream ends, and
+// waits for it itself (griddepcontrol.wait)
 template <class Kernel, class... Args>
 cudaError_t launch_clusters(Kernel kernel, int smem, int col_tiles, int splits, int m_tiles,
-                            bool pdl, cudaStream_t stream, Args... args) {
+                            cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -582,15 +586,25 @@ cudaError_t launch_clusters(Kernel kernel, int smem, int col_tiles, int splits, 
   cluster.val.clusterDim.x = splits;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
-  // pdl: may start before the previous kernel on the stream ends
-  // (programmatic dependent launch; the kernel waits for it itself)
   cudaLaunchAttribute attrs[2] = {cluster, {}};
   attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attrs[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attrs;
-  cfg.numAttrs = pdl ? 2 : 1;
+  cfg.numAttrs = 2;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// CTAs of `kernel` that one SM holds at once with `smem` bytes of dynamic
+// shared memory: registers and shared memory both count; 0 on an error
+template <class Kernel>
+int resident_ctas(Kernel kernel, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 // A [rows, cols] bf16 row-major tensor as TMA boxes of [box_rows, 64],

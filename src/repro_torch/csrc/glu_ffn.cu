@@ -36,6 +36,9 @@
 //   kernels/glu_ffn.py::glu_plan sizes the ranges so that every CTA of a
 //   pass is resident at once at 3 CTAs per SM: at Yi-9B width 86 column
 //   tiles x 4 ranges for the up pass, 32 x 8 for the down pass.
+// * Both passes are programmatic dependent launches (ffn_common.cuh): the
+//   down pass may start while the up pass runs, heads its first W2 tiles
+//   for L2 and then waits for z (griddepcontrol.wait).
 // * What shaped the tiles, from timing variants on the H100: whole
 //   residency mattered most (a ring of 3 stages, ~60 KB, lets 3 CTAs
 //   share an SM; deeper rings that cost residency or a second wave were
@@ -79,14 +82,14 @@ cudaError_t launch(const T* x, const T* wg, const T* w1, const T* w2, T* z,
   cudaError_t e = launch_clusters(
       ffn_up<T, MT, kUpN, kUpKBytes, TMA, false, Dense>,
       Tiles<T, MT, kUpN, 2, kUpKBytes, TMA, false>::smem, (F + kUpN - 1) / kUpN,
-      up_splits, m_tiles, false, stream, x, wg, w1, z, M, D, F, act, up_splits, up_k,
+      up_splits, m_tiles, stream, x, wg, w1, z, M, D, F, act, up_splits, up_k,
       copy_bytes(D * isz, isz, x), copy_bytes(F * isz, isz, wg, w1), Dense{}, 0,
       maps[0], maps[1]);
   if (e != cudaSuccess) return e;
   return launch_clusters(
       ffn_down<T, MT, kDownN, kDownKBytes, TMA, Dense>,
       Tiles<T, MT, kDownN, 1, kDownKBytes, TMA, false>::smem, (D + kDownN - 1) / kDownN,
-      down_splits, m_tiles, false, stream, static_cast<const T*>(z), w2, y, M, D, F,
+      down_splits, m_tiles, stream, static_cast<const T*>(z), w2, y, M, D, F,
       down_splits, down_k, copy_bytes(F * isz, isz, z), copy_bytes(D * isz, isz, w2),
       Dense{}, maps[2]);
 }

@@ -33,14 +33,15 @@
 //   addresses are 16-byte aligned; otherwise each row is staged by
 //   cp.async from its mapped address.  fp32 runs the same tiles on exact
 //   FMA.  kernels/griffin_ffn.py::griffin_plan sizes the ranges so every
-//   CTA of a pass is resident at once (3 per SM at a 16-row tile): at
-//   Yi-9B width with 43 of 86 blocks, 86 neuron tiles x 4 D ranges for
-//   the up pass and 32 column tiles x 8 ranges of the 5,504 rows for the
-//   down pass.
-// * The down pass is a programmatic dependent launch: its CTAs may start
-//   while the up pass still runs, head their first W2 tiles for L2, and
-//   wait for z (griddepcontrol.wait), which hides part of the second
-//   launch.
+//   CTA of a pass is resident at once (3 per SM at a 16-row tile, 2 at 64
+//   rows; griffin_ffn_resident_ctas lets the card tests check registers
+//   and shared memory against that): at Yi-9B width with 43 of 86 blocks,
+//   86 neuron tiles x 4 D ranges for the up pass and 32 column tiles x 8
+//   ranges of the 5,504 rows for the down pass.
+// * Both passes are programmatic dependent launches (ffn_common.cuh): the
+//   down pass's CTAs may start while the up pass still runs, head their
+//   first W2 tiles for L2, and wait for z (griddepcontrol.wait), which
+//   hides part of the second launch.
 // * What shaped the tiles, from timing variants on the H100 (bf16, Yi-9B,
 //   43 of 86 blocks): 64 neurons by 128 bytes at 3 CTAs per SM was the
 //   fastest up pass; 128 neurons, 256-byte k tiles, deeper or shallower
@@ -84,16 +85,16 @@ cudaError_t launch(const T* x, const T* wg, const T* w1, const T* w2, Blocks map
   constexpr int isz = sizeof(T);
   const int m_tiles = (M + MT - 1) / MT;
   cudaError_t e = launch_clusters(
-      ffn_up<T, MT, kUpN, kUpKBytes, TMA, true, Blocks, true>,
+      ffn_up<T, MT, kUpN, kUpKBytes, TMA, true, Blocks>,
       Tiles<T, MT, kUpN, 2, kUpKBytes, TMA, true>::smem, (n_sel + kUpN - 1) / kUpN,
-      up_splits, m_tiles, false, stream, x, wg, w1, z, M, D, n_sel, act, up_splits, up_k,
+      up_splits, m_tiles, stream, x, wg, w1, z, M, D, n_sel, act, up_splits, up_k,
       copy_bytes(D * isz, isz, x), copy_bytes(D * isz, isz, wg, w1), map, F, maps[0],
       maps[1]);
   if (e != cudaSuccess) return e;
   return launch_clusters(
-      ffn_down<T, MT, kDownN, kDownKBytes, TMA, Blocks, true>,
+      ffn_down<T, MT, kDownN, kDownKBytes, TMA, Blocks>,
       Tiles<T, MT, kDownN, 1, kDownKBytes, TMA, false>::smem, (D + kDownN - 1) / kDownN,
-      down_splits, m_tiles, true, stream, static_cast<const T*>(z), w2, y, M, D, n_sel,
+      down_splits, m_tiles, stream, static_cast<const T*>(z), w2, y, M, D, n_sel,
       down_splits, down_k, copy_bytes(n_sel * isz, isz, z), copy_bytes(D * isz, isz, w2),
       map, maps[2]);
 }
@@ -128,6 +129,14 @@ cudaError_t launch_any(const void* x, const void* wg, const void* w1, const void
   return row_tile(M) == 16 ? run(I16{}, No{}) : run(I64{}, No{});
 }
 
+template <typename T, int MT, bool TMA>
+void resident(int* up, int* down) {
+  *up = resident_ctas(ffn_up<T, MT, kUpN, kUpKBytes, TMA, true, Blocks>,
+                      Tiles<T, MT, kUpN, 2, kUpKBytes, TMA, true>::smem);
+  *down = resident_ctas(ffn_down<T, MT, kDownN, kDownKBytes, TMA, Blocks>,
+                        Tiles<T, MT, kDownN, 1, kDownKBytes, TMA, false>::smem);
+}
+
 }  // namespace
 
 // x [M, D], wg/w1/w2 [F, D] in one dtype (fp32 or bf16); block_ids [n_sel /
@@ -158,3 +167,21 @@ extern "C" int griffin_ffn(const void* x, const void* wg, const void* w1, const 
   return static_cast<int>(e);
 }
 
+// CTAs of the up and the down pass that one SM holds at once (registers
+// and shared memory) for M rows of x, fp32 or bf16, with or without TMA
+// weights: what kernels/griffin_ffn.py::ctas_per_sm assumes is checked
+// against this on the card.
+extern "C" int griffin_ffn_resident_ctas(int M, int is_bf16, int tma, int* up, int* down) {
+  *up = *down = 0;
+  if (M <= 0 || (tma && !is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool r16 = row_tile(M) == 16;
+  if (!is_bf16)
+    r16 ? resident<float, 16, false>(up, down) : resident<float, 64, false>(up, down);
+  else if (!tma)
+    r16 ? resident<__nv_bfloat16, 16, false>(up, down)
+        : resident<__nv_bfloat16, 64, false>(up, down);
+  else
+    r16 ? resident<__nv_bfloat16, 16, true>(up, down)
+        : resident<__nv_bfloat16, 64, true>(up, down);
+  return static_cast<int>(cudaGetLastError());
+}

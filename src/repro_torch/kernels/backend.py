@@ -20,6 +20,7 @@ import torch
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C signatures of the entry points in ``csrc/*.cu``
 _SIGNATURES = {
@@ -42,6 +43,8 @@ _SIGNATURES = {
     # up_splits, up_k, down_splits, down_k, is_bf16, stream
     "griffin_ffn": [_P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # M, is_bf16, tma, up (out), down (out)
+    "griffin_ffn_resident_ctas": [_I, _I, _I, _IP, _IP],
     # x, wg, w1, w2, z, y, M, D, F, act, up_splits, up_k, down_splits,
     # down_k, is_bf16, stream
     "glu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -20,8 +20,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.ffn_common import (  # noqa: F401 (plan constants)
-    ACTIVATIONS, CTAS_PER_SM, MAX_SPLITS, cdiv, check_ffn_inputs, k_splits)
+from repro_torch.kernels.ffn_common import (ACTIVATIONS, cdiv,
+                                            check_ffn_inputs, k_splits)
 
 #: launches of the kernel since the last reset (one per wrapper call)
 launches = 0

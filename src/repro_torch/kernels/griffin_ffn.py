@@ -23,6 +23,7 @@ CUDA tensors only; ``ops.griffin_ffn_decode`` dispatches CPU tensors to
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -47,9 +48,22 @@ def row_tile(M: int) -> int:
 
 
 def ctas_per_sm(M: int) -> int:
-    """CTAs of a pass that share an SM: 3 at a 16-row tile (checked by a
-    ``static_assert`` in ``csrc/griffin_ffn.cu``), 2 at 64 rows."""
+    """CTAs of a pass that share an SM: 3 at a 16-row tile, 2 at 64 rows
+    (``resident_ctas`` gives what the card holds)."""
     return 3 if row_tile(M) == 16 else 2
+
+
+def resident_ctas(M: int, dtype: torch.dtype, tma: bool) -> Tuple[int, int]:
+    """CTAs of the up and the down pass that one SM of the current card
+    holds at once for ``M`` rows of x, by registers and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); ``tma``: bf16
+    weights by TMA.  Builds the kernels."""
+    up, down = ctypes.c_int(0), ctypes.c_int(0)
+    err = backend.lib().griffin_ffn_resident_ctas(
+        M, int(dtype == torch.bfloat16), int(tma), ctypes.byref(up),
+        ctypes.byref(down))
+    backend.check(err, "griffin_ffn_resident_ctas")
+    return up.value, down.value
 
 
 def griffin_plan(M: int, D: int, n_sel: int, n_sm: int, itemsize: int

@@ -349,8 +349,6 @@ def _ffn_tol(dtype):
 ])
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "reglu"])
 def test_griffin_ffn_kernel_matches_plain(dev, dtype, B, D, F, BK, nsel, act):
-    from repro_torch.kernels import griffin_ffn
-
     rng = np.random.default_rng(B * D + F)
     t = lambda a: torch.tensor(a, dtype=torch.float32).to(dtype).to(dev)  # noqa: E731
     x = t(rng.normal(size=(B, D)))
@@ -358,17 +356,7 @@ def test_griffin_ffn_kernel_matches_plain(dev, dtype, B, D, F, BK, nsel, act):
     w2 = t(rng.normal(size=(F, D)) / np.sqrt(nsel * BK))
     ids = torch.tensor(np.sort(rng.choice(F // BK, size=nsel, replace=False)),
                        dtype=torch.int32, device=dev)
-    before = griffin_ffn.launches
-    got = ops.griffin_ffn_decode(x, wg, w1, w2, ids, block_size=BK,
-                                 activation=act)
-    want = ref.griffin_ffn_ref(x, wg, w1, w2, ids, BK, activation=act)
-    torch.cuda.synchronize()
-    assert griffin_ffn.launches == before + 1
-    tol = _ffn_tol(dtype) if D < 4096 or dtype == torch.bfloat16 else \
-        dict(rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(got, want, **tol)
-    assert torch.equal(got, ops.griffin_ffn_decode(
-        x, wg, w1, w2, ids, block_size=BK, activation=act))  # deterministic
+    _check_griffin_ffn(x, wg, w1, w2, ids, BK, act)
 
 
 def _check_griffin_ffn(x, wg, w1, w2, ids, BK, act):
@@ -426,6 +414,21 @@ def test_griffin_ffn_kernel_ragged_shapes(dev, B, D, F, BK, nsel, dtype, act,
         assert not (np.diff(ids) > 0).all()
     _check_griffin_ffn(x, wg, w1, w2, torch.tensor(ids, dtype=torch.int32,
                                                    device=dev), BK, act)
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 64])
+@pytest.mark.parametrize("dtype,tma", [(torch.float32, False),
+                                       (torch.bfloat16, False),
+                                       (torch.bfloat16, True)])
+def test_griffin_ffn_passes_fit_the_plan(dev, M, dtype, tma):
+    """Every instantiation of both passes fits as many CTAs per SM, by
+    registers and shared memory, as ``griffin_plan`` counts on (3 at a
+    16-row tile, 2 at 64 rows), so no pass runs in a second wave."""
+    from repro_torch.kernels import griffin_ffn
+
+    up, down = griffin_ffn.resident_ctas(M, dtype, tma)
+    want = griffin_ffn.ctas_per_sm(M)
+    assert up >= want and down >= want, (up, down, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -108,10 +108,9 @@ def test_glu_ffn_plan_covers_every_row(M, F, D, itemsize):
     ranges, each a whole number of k tiles and none empty, covering every
     row exactly once, with no more CTAs than fit the card at once; the
     row tiles cover M."""
-    from repro_torch.kernels.glu_ffn import (CTAS_PER_SM, DOWN_COLS,
-                                             DOWN_K_BYTES, MAX_SPLITS,
-                                             UP_COLS, UP_K_BYTES, glu_plan,
-                                             row_tile)
+    from repro_torch.kernels.ffn_common import CTAS_PER_SM, MAX_SPLITS
+    from repro_torch.kernels.glu_ffn import (DOWN_COLS, DOWN_K_BYTES, UP_COLS,
+                                             UP_K_BYTES, glu_plan, row_tile)
 
     n_sm = 132
     mt = row_tile(M)
