@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
 1. build the hand-written kernels from ``src/repro_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at
    Yi-9B shapes (H=32, KV=4, hd=128, page 16, table width 40 as phases
-   4-5 serve; decode S=1 and prefill chunk S=32 with fp32, bf16, int8
-   and fp8 pools, the quantized ones timed from warm pools each call;
+   4-5 serve; decode S=1, prefill chunk S=32 and the speculative verify
+   call of phase 7b, B=2 S=5 (request 0's rows cross a page, request 1's
+   last two masked, quantized pages growing their scales), with fp32,
+   bf16, int8 and fp8 pools, the quantized ones timed from warm pools
+   each call;
    ``expert_stat`` on
    [1,32,11008] bf16; ``griffin_ffn`` D=4096, F=11008, 43 of 86 blocks,
    B=2; ``glu_ffn`` [32,4096] x [4096,11008]) and at the tinylm shapes
@@ -23,8 +26,8 @@ Phases (any failure raises and the script exits non-zero):
    1e-5 (fp32, small); each timed with CUDA events (median) beside its
    bound and its plain version's time, beside a launch floor (a
    one-element ``fill_`` timed the same way); ``torch.profiler`` shows
-   that one ``ops.paged_attention`` call at the Yi-9B decode shape is one
-   device kernel for each of fp32/bf16/int8/fp8 pools, one
+   that one ``ops.paged_attention`` call at the Yi-9B decode and verify
+   shapes is one device kernel for each of fp32/bf16/int8/fp8 pools, one
    ``ops.griffin_stat`` call at [1,32,11008] bf16 one device kernel, and
    one ``ops.glu_ffn_forward`` / ``ops.griffin_ffn_decode`` call at Yi-9B
    width ``GLU_FFN_KERNELS`` / ``GRIFFIN_FFN_KERNELS``; ``griffin_ffn``'s
@@ -47,12 +50,29 @@ Phases (any failure raises and the script exits non-zero):
    layer, ``ops.glu_ffn_forward`` on a 32-token chunk against the dense
    ``ffn_forward``, and the statistic -> ``select_block_ids`` ->
    ``ops.griffin_ffn_decode`` on two decode rows against the compacted
-   ``ffn_forward``.
+   ``ffn_forward``;
+7. speculative serving: (a) phase 3's tinylm and requests with fp32
+   (TF32 off), int8 and fp8 pools: ``PagedServer(spec_k=3)`` fused on the
+   card gives the same token streams as ``spec_impl="per_token"``, the
+   ``gather`` backend and the CPU, and with fp32 pools as the dense
+   (``gcfg=None``) server (quantized, a draft may grow a page's scale that
+   the verify keeps, as in the reference: the match with dense is
+   reported; on a mismatch the dense top-2 logit margin at the first
+   differing token is printed); (b) phase 4's Yi-9B model and requests
+   with GRIFFIN 0.5 drafts, ``spec_k=4`` fused and adaptive, beside a
+   dense server: tokens/s, TTFT, TPOT, acceptance, tokens per verify,
+   mean draft length, capped
+   rounds, peak memory, attention launches by kind, a spec round's and a
+   dense decode tick's host-clock wall time, the share of tokens equal to
+   the dense streams (no floor), every verify logit finite, and one
+   ``decoder.draft_verify_paged`` call run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in a round).
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
-decode case; ``prefill_*`` give the prefill chunk's time and bound, and
-``launches_decode`` / ``launches_prefill`` split the launches by kind;
+decode case; ``prefill_*`` and ``verify_*`` give the prefill chunk's and
+the verify call's time and bound, and ``launches_decode`` /
+``launches_prefill`` / ``launches_verify`` split the launches by kind;
 ``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
 ``compacted_ms``, the compacted products' time); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -169,6 +189,27 @@ def paged_attn_case(torch, gen, B, S, lens, pool_dtype, dev, H, KV, hd, page,
     if S > 1:
         wm[0, S - 3:] = False  # a partial last chunk
     return [q, kn, vn, pk, pv, bt, pos, wm]
+
+
+#: the Yi-9B speculative verify call (spec_k 4, 2 slots): request 0's 5
+#: rows cross a page boundary (589 cached: rows 589..593, page 16),
+#: request 1 drafted k_r = 2, so its rows 3-4 are masked
+VERIFY_LENS = [589, 431]
+
+
+def verify_case(torch, dev, pool_dtype, in_dtype, shape):
+    """The verify call's inputs, from a generator of their own (the other
+    cases keep the draws they had before the verify cases existed).  One
+    element of request 0's first new K and V row is 6 (the cached rows are
+    N(0, 1)), so on quantized pools that page's scales grow."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    args = paged_attn_case(torch, gen, 2, 5, VERIFY_LENS, pool_dtype, dev,
+                           in_dtype=in_dtype, **shape)
+    args[1][0, 0, 0, 0] = args[2][0, 0, 0, 0] = 6.0
+    args[7] = torch.ones((2, 5), dtype=torch.bool, device=dev)
+    args[7][1, 3:] = False
+    return args
 
 
 def paged_attn_work(args, lens, scales=None):
@@ -319,16 +360,20 @@ def phase_kernels(torch, dev, flush):
     yi = dict(H=32, KV=4, hd=128, page=16, W=640 // 16)  # max_len 640
     tiny = dict(H=6, KV=3, hd=32, page=8, W=8)  # page 8, max_len 64
 
-    # -- paged_attn: decode (B=2, S=1) and one prefill chunk (B=1) ---------
+    # -- paged_attn: decode (B=2, S=1), one prefill chunk (B=1) and a
+    # speculative verify (B=2, S=5) ----------------------------------------
     worst = 0.0
     cases = [("yi-9b", "decode", 2, 1, [583, 431], dt, yi)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [("yi-9b", "prefill", 1, 32, [448], dt, yi)
               for dt in (torch.float32, torch.bfloat16)]
+    cases += [("yi-9b", "verify", 2, 5, VERIFY_LENS, dt, yi)
+              for dt in (torch.float32, torch.bfloat16)]
     cases += [("tinylm", "decode", 2, 1, [43, 28], torch.float32, tiny),
               ("tinylm", "prefill", 1, 16, [32], torch.float32, tiny)]
     for model, label, B, S, lens, pool_dtype, shape in cases:
-        args = paged_attn_case(torch, gen, B, S, lens, pool_dtype, dev, **shape)
+        args = verify_case(torch, dev, pool_dtype, None, shape) if label == "verify" \
+            else paged_attn_case(torch, gen, B, S, lens, pool_dtype, dev, **shape)
         kern = [a.clone() for a in args]
         plain = [a.clone() for a in args]
         ctx_k, pk_k, pv_k = ops.paged_attention(*kern)
@@ -342,10 +387,10 @@ def phase_kernels(torch, dev, flush):
               f"{what}: pools differ")
         worst = max(worst, err)
         dt = "bf16" if pool_dtype == torch.bfloat16 else "fp32"
-        if model == "yi-9b" and label == "decode":
+        if model == "yi-9b" and label in ("decode", "verify"):
             names = device_kernels(torch, lambda: ops.paged_attention(*kern))
             check(len(names) == 1, f"{what}: one call ran {names}")
-            lines.append(f"paged_attn {model} decode pool={dt}: one call = "
+            lines.append(f"paged_attn {model} {label} pool={dt}: one call = "
                          f"{len(names)} device kernel")
         ms = time_ms(torch, lambda: ops.paged_attention(*kern), flush=flush)
         plain_ms = time_ms(torch, lambda: ref.paged_attn_ref(*plain), flush=flush)
@@ -360,7 +405,7 @@ def phase_kernels(torch, dev, flush):
             if label == "decode":
                 results["paged_attn"] = dict(kind, library_ms=None)
             else:
-                results["paged_attn"]["prefill"] = kind
+                results["paged_attn"][label] = kind
     results["paged_attn"]["max_abs_err"] = worst
     results["paged_attn_quant"] = phase_kernels_quant(torch, dev, flush, gen,
                                                       lines, yi, tiny)
@@ -451,12 +496,15 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
     out, worst = None, 0.0
     cases = [("yi-9b", "decode", 2, 1, [583, 431], torch.bfloat16, yi),
              ("yi-9b", "prefill", 1, 32, [448], torch.bfloat16, yi),
+             ("yi-9b", "verify", 2, 5, VERIFY_LENS, torch.bfloat16, yi),
              ("tinylm", "decode", 2, 1, [43, 28], torch.float32, tiny),
              ("tinylm", "prefill", 1, 16, [32], torch.float32, tiny)]
     for kvd in ("int8", "fp8"):
         for model, label, B, S, lens, in_dtype, shape in cases:
-            args = paged_attn_case(torch, gen, B, S, lens, torch.float32, dev,
-                                   in_dtype=in_dtype, **shape)
+            args = verify_case(torch, dev, torch.float32, in_dtype, shape) \
+                if label == "verify" else paged_attn_case(
+                    torch, gen, B, S, lens, torch.float32, dev,
+                    in_dtype=in_dtype, **shape)
             q, kn, vn, pkf, pvf, bt, pos, wm = args
             (pk, sk), (pv, sv) = (warm_pool(torch, kv_quant, p, kvd)
                                   for p in (pkf, pvf))
@@ -480,6 +528,10 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
                 check(torch.equal(kv_quant.as_bytes(a)[:-1],
                                   kv_quant.as_bytes(b)[:-1]),
                       f"{what}: {('pool_k', 'pool_v', 'scale_k', 'scale_v')[i]} differs")
+            if label == "verify":  # the new rows grew some page's scale
+                check(bool((out_r[3][:-1] > sk[:-1]).any()
+                           or (out_r[4][:-1] > sv[:-1]).any()),
+                      f"{what}: no page scale grew")
             q_err = (out_k[0] - ctx_f).abs().max().item()
             check(q_err <= kv_quant.ERROR_BUDGET[kvd],
                   f"{what}: error {q_err} vs the fp32 pools over budget "
@@ -493,11 +545,11 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
                 return lambda: [d.copy_(o) for d, o in
                                 zip((a[3], a[4], a[8], a[9]), (pk, pv, sk, sv))]
 
-            if model == "yi-9b" and label == "decode":
+            if model == "yi-9b" and label in ("decode", "verify"):
                 names = device_kernels(torch, lambda: call(ops.paged_attention, kern))
                 reset(kern)()
                 check(len(names) == 1, f"{what}: one call ran {names}")
-                lines.append(f"paged_attn {model} decode pool={kvd}: one call = "
+                lines.append(f"paged_attn {model} {label} pool={kvd}: one call = "
                              f"{len(names)} device kernel")
 
             ms = time_ms(torch, lambda: call(ops.paged_attention, kern),
@@ -516,7 +568,7 @@ def phase_kernels_quant(torch, dev, flush, gen, lines, yi, tiny):
                 if label == "decode":
                     out = dict(kind, library_ms=None)
                 else:
-                    out["prefill"] = kind
+                    out[label] = kind
     out["max_abs_err"] = worst
     return out
 
@@ -680,11 +732,14 @@ def to_device(tree, dev):
 
 
 #: kernel -> (module in repro_torch.kernels, its launch counter); the
-#: attention kernels' prefill calls (S > 1) are also counted apart
+#: attention kernels' speculative verify calls and other prefill calls
+#: (S > 1) are also counted apart
 COUNTERS = {"paged_attn": ("paged_attn", "launches"),
             "paged_attn_quant": ("paged_attn", "launches_quant"),
             "paged_attn_prefill": ("paged_attn", "prefill_launches"),
             "paged_attn_quant_prefill": ("paged_attn", "prefill_launches_quant"),
+            "paged_attn_verify": ("paged_attn", "verify_launches"),
+            "paged_attn_quant_verify": ("paged_attn", "verify_launches_quant"),
             "expert_stat": ("expert_stat", "launches"),
             "paged_gather": ("paged_gather", "launches"),
             "griffin_ffn": ("griffin_ffn", "launches"),
@@ -706,6 +761,15 @@ def reset_launches() -> None:
         setattr(_counter_module(k), attr, 0)
 
 
+def attn_kinds(counts):
+    """Attention launches by kind (both pool formats): decode, prefill,
+    verify."""
+    pre = counts["paged_attn_prefill"] + counts["paged_attn_quant_prefill"]
+    ver = counts["paged_attn_verify"] + counts["paged_attn_quant_verify"]
+    return dict(decode=counts["paged_attn"] + counts["paged_attn_quant"] - pre - ver,
+                prefill=pre, verify=ver)
+
+
 def serve(server, prompts):
     for i, (p, n) in enumerate(prompts):
         server.submit(p, n, rid=i)
@@ -718,13 +782,12 @@ def add_counts(total, counts):
     return total
 
 
-def phase_tinylm(torch, np, dev):
-    """fused == gather == CPU plain token streams, with fp32, int8 and fp8
-    pools; returns the launches summed over the card runs."""
+def tinylm_setup(np):
+    """tinylm, its parameters (one draw on the CPU: generators on two
+    devices draw differently; scaled so that greedy streams vary), the 4
+    requests (two share a 16-token prefix) and the server's sizes."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.griffin import GriffinConfig
     from repro_torch.models import decoder
-    from repro_torch.serving.server import PagedServer
 
     cfg = get_config("tinylm")
     rng = np.random.default_rng(3)
@@ -734,10 +797,18 @@ def phase_tinylm(torch, np, dev):
     prompts += [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 12)
                 for n in (11, 27)]
     kw = dict(page_size=8, num_pages=24, n_slots=2, prefill_chunk=16, max_len=64)
-    # one draw (on the CPU: generators on two devices draw differently),
-    # scaled so that greedy streams vary, copied to the card
     host = decoder.init_params(cfg, seed=0, device="cpu")
     scale_matrices(host, 2.0)
+    return cfg, host, prompts, kw
+
+
+def phase_tinylm(torch, np, dev):
+    """fused == gather == CPU plain token streams, with fp32, int8 and fp8
+    pools; returns the launches summed over the card runs."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.serving.server import PagedServer
+
+    cfg, host, prompts, kw = tinylm_setup(np)
     total, streams = {}, {}
     attn = {"fp32": "paged_attn", "int8": "paged_attn_quant",
             "fp8": "paged_attn_quant"}
@@ -773,6 +844,116 @@ def phase_tinylm(torch, np, dev):
     return total, streams
 
 
+def record_margins(torch, np, srv):
+    """Top-2 logit margin of every token a server commits through its
+    ``_step_model`` (a dense or vanilla server), by request."""
+    margins, last = {}, {}
+    step_model = srv._step_model
+    finish_decode = srv.sched.finish_decode_token
+    finish_prefill = srv.sched.finish_prefill_chunk
+
+    def margin(row):
+        top = torch.topk(row.float(), 2).values
+        return float(top[0] - top[1])
+
+    def step(bt, toks, pos, mask, pruned, collect=False):
+        out = step_model(bt, toks, pos, mask, pruned, collect)
+        for slot in np.nonzero(mask.any(axis=1))[0]:
+            last[int(slot)] = out[0][slot, int(mask[slot].sum()) - 1]
+        return out
+
+    def fin_decode(req, tok):
+        margins.setdefault(req.rid, []).append(margin(last[req.slot]))
+        return finish_decode(req, tok)
+
+    def fin_prefill(work, first_token):
+        if first_token is not None:
+            margins.setdefault(work.req.rid, []).append(margin(last[0]))
+        return finish_prefill(work, first_token)
+
+    srv._step_model = step
+    srv.sched.finish_decode_token = fin_decode
+    srv.sched.finish_prefill_chunk = fin_prefill
+    return margins
+
+
+def phase_spec_tinylm(torch, np, dev):
+    """Speculative serving on phase 3's tinylm and requests, fp32 pools
+    (TF32 off), then int8, then fp8: ``spec_k=3`` fused on the card gives
+    the same token streams as ``spec_impl="per_token"``, the ``gather``
+    backend and the port on the CPU (plain versions), and with fp32 pools
+    the same as the dense (``gcfg=None``) server.  With quantized pools a
+    draft row may grow its page's scale, which the dense verify keeps, as
+    in the reference's spec server (``tests/test_torch_spec.py`` holds the
+    port's CPU streams to it), so the match with dense is reported.  On a
+    mismatch the dense server's top-2 logit margin at the first differing
+    token is printed before the phase fails.  Returns the launches summed
+    over the card runs, and per pool format the fused run's speculative
+    counters."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.serving.server import PagedServer
+
+    cfg, host, prompts, kw = tinylm_setup(np)
+    # name, device, backend, speculative, extra server arguments
+    runs = (("fused", dev, "fused", True, {}),
+            ("per_token", dev, "fused", True, {"spec_impl": "per_token"}),
+            ("dense", dev, "fused", False, {}),
+            ("gather", dev, "gather", True, {}),
+            ("cpu", "cpu", "gather", True, {}))
+    total, out = {}, {}
+    for kvd in ("fp32", "int8", "fp8"):
+        streams, counts, margins = {}, {}, {}
+        for name, device, backend, spec, extra in runs:
+            srv = PagedServer(cfg, to_device(host, device),
+                              gcfg=GriffinConfig(sparsity=0.5) if spec else None,
+                              kernel_backend=backend, device=device,
+                              kv_dtype=kvd, spec_k=3 if spec else 0, **extra, **kw)
+            if not spec:
+                margins = record_margins(torch, np, srv)
+            reset_launches()
+            streams[name] = serve(srv, prompts)
+            counts[name] = launches()
+            m = srv.metrics.summary()
+            check(m["spec_rounds"] > 0 if spec else m["spec_rounds"] == 0,
+                  f"tinylm spec {kvd} {name}: {m['spec_rounds']} spec rounds")
+            if name == "fused":
+                out[kvd] = {k: m[k] for k in ("spec_rounds", "acceptance_rate",
+                                              "tokens_per_verify")}
+        # fp32: every run commits the dense stream.  Quantized, a draft
+        # row can grow its page's scale, which the dense verify keeps (as
+        # the reference's spec server does), so the spec runs are held to
+        # each other and to the CPU, and their match with dense reported
+        want = streams["dense"] if kvd == "fp32" else streams["cpu"]
+        for name, got in streams.items():
+            if name == "dense" and kvd != "fp32":
+                continue
+            for rid in want:
+                if got[rid] != want[rid]:
+                    i = next(i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                             if a != b)
+                    raise AssertionError(
+                        f"tinylm spec {kvd}: {name} rid {rid} {got[rid]} != "
+                        f"{want[rid]} at token {i}; dense top-2 logit margin "
+                        f"there {margins[rid][i]:.3g}")
+        dense = streams["dense"]
+        out[kvd]["token_match_vs_dense"] = match_rate(streams["fused"], dense)
+        check(len({t for s_ in dense.values() for t in s_}) > 4,
+              f"tinylm spec {kvd}: degenerate streams {dense}")
+        kinds = {n: attn_kinds(c) for n, c in counts.items()}
+        check(kinds["fused"]["verify"] > 0 and kinds["per_token"]["verify"] > 0
+              and kinds["dense"]["verify"] == 0 and counts["fused"]["paged_gather"] == 0,
+              f"tinylm spec {kvd} launches {counts}")
+        check(counts["gather"]["paged_gather"] > 0
+              and sum(kinds["gather"].values()) == 0,
+              f"tinylm spec {kvd} gather launches {counts['gather']}")
+        check(sum(counts["cpu"].values()) == 0,
+              f"tinylm spec {kvd}: CPU run launched a kernel")
+        for name in ("fused", "per_token", "dense", "gather"):
+            add_counts(total, counts[name])
+        out[kvd]["rid0"] = dense[0]
+    return total, out
+
+
 YI_PROMPT_LENS = (200, 350, 480, 600)
 
 
@@ -798,27 +979,41 @@ def yi9b_model(torch, np, dev):
 
 
 def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
-               profile: bool = False):
-    """``PagedServer`` (GRIFFIN 0.5, ``kernel_backend="auto"``) over the 4
-    requests; returns the numbers and the full token streams.  The server
-    is dropped before returning."""
+               profile: bool = False, griffin: bool = True, spec_k: int = 0):
+    """``PagedServer`` (GRIFFIN 0.5, or dense with ``griffin=False``;
+    speculative rounds of up to ``spec_k`` drafts, fused and adaptive, when
+    ``spec_k`` is set; ``kernel_backend="auto"``) over the 4 requests;
+    returns the numbers and the full token streams.  Every logit the
+    server reads must be finite.  Each tick is timed on the host clock up
+    to a ``synchronize``: the median decode tick (no prefill chunk, a
+    one-token decode) and spec round (no prefill chunk, a verify) are
+    reported.  The server is dropped before returning."""
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.serving.server import PagedServer
 
+    what = f"yi-9b {kv_dtype}" + (" dense" if not griffin else "") \
+        + (f" spec_k={spec_k}" if spec_k else "")
     torch.cuda.reset_peak_memory_stats()
-    srv = PagedServer(cfg, params, gcfg=GriffinConfig(sparsity=0.5),
+    srv = PagedServer(cfg, params,
+                      gcfg=GriffinConfig(sparsity=0.5) if griffin else None,
                       page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
                       max_len=640, kernel_backend="auto", device=dev,
-                      kv_dtype=kv_dtype)
+                      kv_dtype=kv_dtype, spec_k=spec_k)
     check(srv.backend == "fused", f"auto resolved to {srv.backend}")
-    step_model = srv._step_model
+    step_model, draft_verify = srv._step_model, srv._draft_verify
 
     def checked(*a, **k):
         out = step_model(*a, **k)
-        check(bool(torch.isfinite(out[0]).all()), f"yi-9b {kv_dtype}: non-finite logits")
+        check(bool(torch.isfinite(out[0]).all()), f"{what}: non-finite logits")
         return out
 
-    srv._step_model = checked
+    def checked_round(*a, **k):
+        drafts, vlogits = draft_verify(*a, **k)
+        check(bool(torch.isfinite(vlogits).all()),
+              f"{what}: non-finite verify logits")
+        return drafts, vlogits
+
+    srv._step_model, srv._draft_verify = checked, checked_round
     for i, (p, n) in enumerate(prompts):
         srv.submit(p, n, rid=i)
     reset_launches()
@@ -826,23 +1021,29 @@ def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
     t0 = time.perf_counter()
     while True:
         before = launches()
+        t_tick = time.perf_counter()
         more = srv.step()
         torch.cuda.synchronize()
+        t_tick = time.perf_counter() - t_tick
         after = launches()
-        ticks.append({k: after[k] - before[k] for k in after})
+        ticks.append(({k: after[k] - before[k] for k in after}, t_tick))
         if not more:
             break
     wall = time.perf_counter() - t0
     counts = launches()
     out = {rid: r.generated for rid, r in srv.sched.finished.items()}
-    check(sorted(out) == [0, 1, 2, 3], f"yi-9b {kv_dtype} finished {sorted(out)}")
+    check(sorted(out) == [0, 1, 2, 3], f"{what} finished {sorted(out)}")
     for rid, toks in out.items():
         check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
-              f"yi-9b {kv_dtype} rid {rid}: {toks}")
+              f"{what} rid {rid}: {toks}")
     attn = "paged_attn_quant" if kv_dtype in ("int8", "fp8") else "paged_attn"
-    check(counts[attn] > 0 and counts["expert_stat"] > 0,
-          f"yi-9b {kv_dtype} launches {counts}")
-    decode_ticks = [t for t in ticks if t["expert_stat"] == 0 and t[attn]]
+    kinds = attn_kinds(counts)
+    check(counts[attn] > 0 and (counts["expert_stat"] > 0) == griffin
+          and (kinds["verify"] > 0) == bool(spec_k), f"{what} launches {counts}")
+    tick_kinds = [(attn_kinds(t), w) for t, w in ticks]
+    decode_ticks = [(k, w) for k, w in tick_kinds
+                    if k["decode"] and not k["prefill"] and not k["verify"]]
+    spec_ticks = [w for k, w in tick_kinds if k["verify"] and not k["prefill"]]
     m = srv.metrics.summary()
     res = dict(
         kv_dtype=kv_dtype, pool_dtype=str(srv.pools[0]["k"].dtype), wall_s=wall,
@@ -851,16 +1052,61 @@ def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
         prefill_chunks=m["prefill_chunks"], preemptions=m["preemptions"],
         attn_bytes_per_token=m["attn_bytes_per_token"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=counts,
-        attn_calls_per_decode_tick=min((t[attn] for t in decode_ticks), default=0),
+        launches=counts, attn_launches_by_kind=kinds,
+        attn_calls_per_decode_tick=min((k["decode"] for k, _ in decode_ticks),
+                                       default=0),
+        decode_ticks=len(decode_ticks),
+        decode_tick_wall_ms_p50=statistics.median(w for _, w in decode_ticks) * 1e3
+        if decode_ticks else None,
         generated={rid: toks[:8] for rid, toks in out.items()},
     )
+    if spec_k:
+        res.update({k: m[k] for k in ("spec_rounds", "acceptance_rate",
+                                      "tokens_per_verify", "draft_k_mean",
+                                      "spec_capped_rounds")})
+        res.update(spec_round_ticks=len(spec_ticks),
+                   spec_round_wall_ms_p50=statistics.median(spec_ticks) * 1e3
+                   if spec_ticks else None,
+                   sync_free_round=sync_free_round(torch, cfg, params, srv))
     if profile:
         res["decode_tick_profile"] = profile_decode_tick(
             torch, np, srv, cfg, np.random.default_rng(2))
-    del srv, step_model
+    del srv, step_model, draft_verify
     torch.cuda.empty_cache()
     return res, out
+
+
+def sync_free_round(torch, cfg, params, srv):
+    """One ``decoder.draft_verify_paged`` call at the served shape (2
+    slots, ``spec_k`` drafts, contexts 500 and 300 over a 40-page table,
+    the server's compacted slot weights) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    sync: the fused round has none between its first draft step and its
+    verify logits.  Inputs are made on the card before; the server's pools
+    take the writes (it has drained)."""
+    from repro_torch.models import decoder
+
+    dev, W, K = srv.device, srv.pcfg.max_pages_per_request, srv.spec_k
+    bt = torch.arange(2 * W, dtype=torch.int32, device=dev).reshape(2, W)
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([500, 300], dtype=torch.int32, device=dev)
+    k_r = torch.tensor([K, K // 2], dtype=torch.int32, device=dev)
+    live = torch.ones(2, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        drafts, vlogits, _ = decoder.draft_verify_paged(
+            params, cfg, srv.pools, bt, tok, pos, k_r, live, srv.pruned_slots,
+            num_steps=K, spec_k=K, backend=srv.backend, kv_dtype=srv.kv_dtype)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(tuple(vlogits.shape) == (2, K + 1, cfg.vocab_size)
+          and bool(torch.isfinite(vlogits).all()), "sync-free round: bad logits")
+    return dict(enqueue_ms=enqueue_s * 1e3,
+                drafts=drafts.tolist())
 
 
 def match_rate(a, b) -> float:
@@ -924,16 +1170,18 @@ def phase_ffn_entry_points(torch, dev, cfg, params):
 
 
 def profile_decode_tick(torch, np, srv, cfg, rng):
-    """Device time by kernel over decode ticks of two fresh requests
-    (``torch.profiler``), after their prefill and first decode.  The ticks
-    are fenced as ``device_kernels`` fences a call, and taken again (the
-    next 4 ticks) when a trace lacks the call's events or a record of any
-    attention launch; the requests generate enough tokens for three
-    tries."""
+    """Device time by kernel over decode ticks (speculative rounds on a
+    spec server) of two fresh requests (``torch.profiler``), after their
+    prefill and first decode.  The ticks are fenced as ``device_kernels``
+    fences a call, and taken again (the next 4 ticks) when a trace lacks
+    the call's events or a record of any attention launch; the requests
+    generate enough tokens for three tries."""
     n_ticks, tries = 4, 3
+    per_tick = srv.spec_k + 1  # most tokens a tick commits
     for i, n in enumerate((583, 431)):
         srv.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                   2 + n_ticks * tries + 2, rid=100 + i)
+                   min(2 + n_ticks * tries * per_tick + 2,
+                       srv.pcfg.max_request_len - n), rid=100 + i)
     sched = srv.sched
     while sched.queue or sched.prefilling is not None \
             or not all(len(r.generated) >= 2 for r in sched.decoding):
@@ -949,8 +1197,8 @@ def profile_decode_tick(torch, np, srv, cfg, rng):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         after = launches()
-        attn_calls.append(sum(after[k] - before[k] for k in after
-                              if k.startswith("paged_attn") and "prefill" not in k))
+        kinds = attn_kinds({k: after[k] - before[k] for k in after})
+        attn_calls.append(kinds["decode"] + kinds["verify"])
 
     # a trace is complete when it holds a record of every attention launch
     # the ticks counted
@@ -976,8 +1224,9 @@ def profile_decode_tick(torch, np, srv, cfg, rng):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Yi-9B decode ticks (phases 4 and 5) "
-                    "with torch.profiler; the attention kernels' share is "
+                    help="also profile Yi-9B decode ticks (phases 4, 5 and "
+                    "7b's dense server) and spec rounds (7b) with "
+                    "torch.profiler; the attention kernels' share is "
                     "named apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
     args = ap.parse_args()
@@ -1064,13 +1313,43 @@ def main() -> int:
           f"({card}): {time.perf_counter() - t0:.1f} s, launches "
           f"glu_ffn {ff_counts['glu_ffn']} griffin_ffn {ff_counts['griffin_ffn']}, "
           f"{ff}")
+
+    t0 = time.perf_counter()
+    spec_tiny_counts, spec_tiny = phase_spec_tinylm(torch, np, dev)
+    print(f"phase 7a tinylm spec_k=3 fused == per_token == gather == CPU plain "
+          f"(== dense at fp32), fp32/int8/fp8 pools: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"launches {spec_tiny_counts}, {spec_tiny}")
+    t0 = time.perf_counter()
+    spec_dense, dense_out = serve_yi9b(torch, np, dev, cfg, params, prompts,
+                                       "fp32", args.profile, griffin=False)
+    spec, spec_out = serve_yi9b(torch, np, dev, cfg, params, prompts, "fp32",
+                                args.profile, spec_k=4)
+    spec["token_match_vs_dense"] = match_rate(spec_out, dense_out)
+    print(f"phase 7b yi-9b GRIFFIN 0.5 drafts, spec_k=4 fused, adaptive, bf16 "
+          f"pools, beside a dense server ({card}): "
+          f"{time.perf_counter() - t0:.1f} s total")
+    spec_keys = ("tokens_per_s", "ttft_p50_s", "tpot_p50_s", "peak_mem_gb",
+                 "attn_launches_by_kind", "decode_ticks", "decode_tick_wall_ms_p50")
+    for k in spec_keys:
+        print(f"  dense {k}: {spec_dense[k]}")
+    for k in spec_keys + ("spec_rounds", "acceptance_rate", "tokens_per_verify",
+                          "draft_k_mean", "spec_capped_rounds", "spec_round_ticks",
+                          "spec_round_wall_ms_p50", "token_match_vs_dense",
+                          "sync_free_round"):
+        print(f"  spec {k}: {spec[k]}")
+    for name, r in (("dense", spec_dense), ("spec", spec)):
+        if "decode_tick_profile" in r:
+            print(f"  {name} tick profile: " + json.dumps(r["decode_tick_profile"]))
     del params
 
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels
     paths = {"tinylm": tiny_counts, "yi9b": yi["launches"],
              "yi9b_int8": quant["int8"]["launches"],
-             "yi9b_fp8": quant["fp8"]["launches"], "ffn_entry_points": ff_counts}
+             "yi9b_fp8": quant["fp8"]["launches"], "ffn_entry_points": ff_counts,
+             "spec_tinylm": spec_tiny_counts, "yi9b_dense": spec_dense["launches"],
+             "yi9b_spec": spec["launches"]}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -1099,13 +1378,16 @@ def main() -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "at": r["at"]}
         entry.update({k: r[k] for k in ("pass_ms", "compacted_ms") if k in r})
-        if "prefill" in r:  # attention: decode (the fields above) and prefill
+        if "prefill" in r:  # attention: decode (the fields above), prefill
+            # and speculative verify
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
-            p = r["prefill"]
-            entry.update(launches_decode=n - pre, launches_prefill=pre,
-                         prefill_ms=p["ms"], prefill_plain_ms=p["plain_ms"],
-                         prefill_bound_ms=p["bound_ms"],
-                         prefill_bound_by=p["bound_by"], prefill_at=p["at"])
+            ver = sum(c.get(name + "_verify", 0) for c in paths.values())
+            entry.update(launches_decode=n - pre - ver, launches_prefill=pre,
+                         launches_verify=ver)
+            for kind in ("prefill", "verify"):
+                p = r[kind]
+                entry.update({f"{kind}_{k}": p[k] for k in
+                              ("ms", "plain_ms", "bound_ms", "bound_by", "at")})
         entries.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1113,6 +1395,7 @@ def main() -> int:
             {"card": card, "kernels": entries,
              "launch_floor_ms": kernels["launch_floor_ms"], "model": model, "yi9b": yi,
              "yi9b_quant": quant, "ffn_entry_points": ff,
+             "spec_tinylm": spec_tiny, "yi9b_spec": spec, "yi9b_dense": spec_dense,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

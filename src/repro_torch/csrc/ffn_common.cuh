@@ -53,15 +53,25 @@ constexpr int kMaxSplits = 8;  // portable thread block cluster size
 // weight row r of a dense matrix
 struct Dense {
   __device__ __forceinline__ long long operator()(int r) const { return r; }
+  __device__ __forceinline__ bool keeps(int) const { return true; }
 };
 
 // weight row r of the selected blocks of bs rows: block_ids[r / bs] * bs
-// + r % bs (a few hundred bytes of ids, read through L1)
+// + r % bs (a few hundred bytes of ids, read through L1).  A block id
+// outside [0, nblk) is a block that adds nothing: its rows read block
+// nblk - 1, inside the matrix, on both load paths, and keeps() is false
+// for them, so ffn_up writes zeros to their z columns and ffn_down's sum
+// takes nothing from them
 struct Blocks {
   const int* ids;
   int bs;
+  int nblk;
   __device__ __forceinline__ long long operator()(int r) const {
-    return (long long)__ldg(ids + r / bs) * bs + r % bs;
+    const unsigned id = min((unsigned)__ldg(ids + r / bs), (unsigned)nblk - 1u);
+    return (long long)id * bs + r % bs;
+  }
+  __device__ __forceinline__ bool keeps(int r) const {
+    return (unsigned)__ldg(ids + r / bs) < (unsigned)nblk;
   }
 };
 
@@ -507,7 +517,10 @@ ffn_up(const T* __restrict__ x,   // [M, D]
     T* o = z + (long long)m * N + n;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (n + j < N) o[j] = griffin::from_f32<T>(griffin::glu_act(g[j], act) * h[j]);
+      if (n + j < N)
+        o[j] = griffin::from_f32<T>(!BT || map.keeps(n + j)
+                                        ? griffin::glu_act(g[j], act) * h[j]
+                                        : 0.f);
   });
 }
 

@@ -115,7 +115,7 @@ cudaError_t launch_any(const void* x, const void* wg, const void* w1, const void
   auto run = [&](auto mt, auto use_tma) {
     return launch<T, decltype(mt)::value, decltype(use_tma)::value>(
         static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(w1),
-        static_cast<const T*>(w2), Blocks{ids, bs}, static_cast<T*>(z),
+        static_cast<const T*>(w2), Blocks{ids, bs, F / bs}, static_cast<T*>(z),
         static_cast<float*>(y), M, D, F, n_sel, act, up_splits, up_k, down_splits, down_k,
         maps, st);
   };
@@ -140,7 +140,9 @@ void resident(int* up, int* down) {
 }  // namespace
 
 // x [M, D], wg/w1/w2 [F, D] in one dtype (fp32 or bf16); block_ids [n_sel /
-// bs] int32, each in [0, F / bs), in any order (z's columns follow it); z
+// bs] int32 in any order (z's columns follow it), an id outside [0, F /
+// bs) a block that adds nothing (its rows are read from block F / bs - 1
+// and its z columns written as zeros, so nothing out of bounds is read); z
 // [M, n_sel] scratch in x's dtype; y [M, D] fp32.  act: 0 swiglu, 1 geglu
 // (tanh), 2 reglu.  The up pass cuts D, the down pass the n_sel selected
 // rows, into ranges that run as one cluster per column tile

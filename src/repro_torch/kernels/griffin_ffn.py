@@ -15,8 +15,13 @@ tile that run as one thread block cluster and merge in rank order
 
 ``block_ids`` are taken in the order given, as the plain version takes
 them: sorted or not, the result is the same function.  They are not
-range-checked (that would cost a device-to-host copy); each must lie in
-``[0, F / block_size)``.
+range-checked on the host (that would cost a device-to-host copy): an id
+outside ``[0, F / block_size)`` is a block that adds nothing, in both
+kernel load paths (TMA and ``cp.async``: its rows are read from the last
+block, inside the matrix, and the up pass writes zeros to its z columns)
+and in the plain version.
+Selection never makes such ids, and the TPU reference clamps them (its
+``jnp`` gather), so they lie outside both packages' contract.
 
 CUDA tensors only; ``ops.griffin_ffn_decode`` dispatches CPU tensors to
 ``ref.griffin_ffn_ref``.

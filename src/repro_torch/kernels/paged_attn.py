@@ -37,20 +37,42 @@ CUDA tensors only; ``ops.paged_attention`` dispatches CPU tensors to
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
 from repro_torch.kernels import backend, kv_quant
 
 #: calls since the last reset (one per wrapper call): fp32/bf16 pools,
-#: and quantized (int8/fp8) pools; of those, the prefill calls (S > 1)
-#: apart, so decode calls are the difference
+#: and quantized (int8/fp8) pools; of those, the speculative verify calls
+#: (made inside ``counting_as("verify")``) and the other prefill calls
+#: (S > 1) apart, so decode calls are the difference
 launches = 0
 launches_quant = 0
 prefill_launches = 0
 prefill_launches_quant = 0
+verify_launches = 0
+verify_launches_quant = 0
+
+#: the kind the calls made now are counted as (None: by their shape)
+_counting: Optional[str] = None
+
+
+@contextlib.contextmanager
+def counting_as(kind: str) -> Iterator[None]:
+    """Count the calls made inside as ``kind`` ("verify"): a verify call
+    ``[n_slots, k+1]`` has the shape of a short prefill chunk, so only its
+    caller can tell them apart.  A host-side flag, no sync."""
+    global _counting
+    if kind != "verify":
+        raise ValueError(f"counting_as: unknown kind {kind!r}")
+    prev, _counting = _counting, kind
+    try:
+        yield
+    finally:
+        _counting = prev
 
 #: largest head_dim the kernel's registers are sized for (4 features a
 #: lane in P.V, 8 mma k-steps)
@@ -96,6 +118,7 @@ def paged_attn(
     prefix-allocated, and a page written this step is owned by its
     request alone."""
     global launches, launches_quant, prefill_launches, prefill_launches_quant
+    global verify_launches, verify_launches_quant
     what = "paged_attn"
     quantized = kv_quant.is_quantized(kv_dtype)
     dev = backend.same_cuda_device(what, q, k_new, v_new, pool_k, pool_v,
@@ -174,12 +197,16 @@ def paged_attn(
                 *ptrs, *tail, *common, int(pool_k.dtype == torch.bfloat16),
                 backend.stream_of(q))
     backend.check(err, what)
+    verify = _counting == "verify"
+    prefill = S > 1 and not verify
     if quantized:
         launches_quant += 1
-        prefill_launches_quant += S > 1
+        verify_launches_quant += verify
+        prefill_launches_quant += prefill
     else:
         launches += 1
-        prefill_launches += S > 1
+        verify_launches += verify
+        prefill_launches += prefill
     return outs
 
 

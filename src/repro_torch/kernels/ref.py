@@ -32,14 +32,22 @@ def griffin_ffn_ref(
     activation: str = "swiglu",
 ) -> torch.Tensor:
     """GRIFFIN decode FF: ``act(x Wg^T) * (x W1^T) @ W2`` over the
-    selected neuron blocks only.  Returns fp32 [B, D]."""
+    selected neuron blocks only.  Returns fp32 [B, D].
+
+    A block id outside ``[0, F / block_size)`` is a block that adds
+    nothing, as in both kernel paths: its rows are read clamped in range
+    and its z columns are zero.  Such ids lie outside the
+    contract: selection never makes them, and the TPU reference clamps
+    them (its ``jnp`` gather), so no parity test covers them."""
     ids = block_ids.long()
-    idx = (ids[:, None] * block_size
+    nblk = wg.shape[0] // block_size
+    ok = ((ids >= 0) & (ids < nblk)).repeat_interleave(block_size)
+    idx = (ids.clamp(0, nblk - 1)[:, None] * block_size
            + torch.arange(block_size, device=ids.device)[None, :]).reshape(-1)
     wg_s, w1_s, w2_s = wg[idx], w1[idx], w2[idx]
     g = x @ wg_s.T
     h = x @ w1_s.T
-    z = _act(activation)(g) * h
+    z = torch.where(ok, _act(activation)(g) * h, 0)  # bad blocks add 0
     return (z @ w2_s).float()
 
 

@@ -16,6 +16,10 @@ Public API:
     init_paged_pools(cfg, num_pages, page_size, kv_dtype, device) -> pools
     copy_pool_pages(cfg, pools, src, dst)    -> pools (COW page forks)
     decode_step_paged(params, cfg, pools, bt, tokens, pos, ...) -> logits, pools, stats
+    draft_loop_paged(params, cfg, pools, bt, token, pos, k_r, ...) -> drafts, pools
+    verify_step_paged(params, cfg, pools, bt, tokens, pos, mask, ...) -> logits, pools
+    draft_verify_paged(params, cfg, pools, bt, token, pos, k_r, live, ...)
+                                             -> drafts, logits, pools
     extract_ffn_tree(params, cfg)            -> {li: dense-FF params}
     prune_stats_tree(stats, cfg)             -> {li: stats}
 """
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
+from repro_torch.kernels import paged_attn as paged_attn_lib
 from repro_torch.models import param as param_lib
 from repro_torch.models.common import (
     apply_norm,
@@ -281,6 +286,128 @@ def decode_step_paged(
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params.get("head", {}), params["embed"], x, cfg)
     return logits, pools, (stats_tree if collect_stats else None)
+
+
+@torch.no_grad()
+def draft_loop_paged(
+    params: Dict,
+    cfg,
+    pools: List[Dict],
+    block_tables: torch.Tensor,  # [B, n_pages] int32, -1 = unallocated
+    token: torch.Tensor,  # [B, 1] int32: last committed token per slot
+    pos: torch.Tensor,  # [B] int32 committed KV length per slot
+    k_r: torch.Tensor,  # [B] int32 per-slot draft lengths (<= num_steps)
+    pruned: Optional[Dict[int, Dict]] = None,  # per-slot compacted FF (the draft)
+    *,
+    num_steps: int,
+    backend: str = "gather",
+    kv_dtype: str = "fp32",
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """``num_steps`` greedy draft iterations of the ``[B, 1]`` paged
+    decode step, with no host sync: argmax feedback, draft-KV page writes
+    and the per-slot GRIFFIN-compacted FF weights stay on the device (the
+    reference's ``lax.scan`` is a Python loop here).
+
+    Slot ``b`` takes part in iteration ``i`` only while ``i < k_r[b]``: a
+    masked slot's KV write is suppressed (``write_mask`` row False) and
+    its token is frozen, so its drafts past ``k_r[b]`` are garbage that
+    nothing consumes.  ``torch.argmax`` takes the first maximum, as
+    ``jnp.argmax`` and ``np.argmax`` do, so the drafts equal the
+    per-token host loop's.
+
+    Returns (draft tokens [B, num_steps] int32, pools updated in place)."""
+    tok = token
+    drafts = []
+    for i in range(num_steps):
+        live = k_r > i  # [B] bool
+        logits, pools, _ = decode_step_paged(
+            params, cfg, pools, block_tables, tok, pos + i,
+            write_mask=live[:, None], pruned=pruned, backend=backend,
+            kv_dtype=kv_dtype,
+        )
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(token.dtype)
+        tok = torch.where(live[:, None], nxt[:, None], tok)
+        drafts.append(nxt)
+    if not drafts:
+        return token.new_zeros((token.shape[0], 0)), pools
+    return torch.stack(drafts, dim=1), pools
+
+
+@torch.no_grad()
+def verify_step_paged(
+    params: Dict,
+    cfg,
+    pools: List[Dict],
+    block_tables: torch.Tensor,  # [B, n_pages] int32, -1 = unallocated
+    tokens: torch.Tensor,  # [B, k+1] int32: last committed token + k drafts
+    pos: torch.Tensor,  # [B] int32 committed KV length per request
+    write_mask: torch.Tensor,  # [B, k+1] bool
+    backend: str = "gather",
+    kv_dtype: str = "fp32",
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """Dense multi-token verify step of self-speculative decoding: all
+    ``k+1`` positions of a drafted continuation scored in one batched
+    pass with the full weights.  Token ``tokens[b, i]`` sits at position
+    ``pos[b] + i``; its dense KV overwrites what the draft wrote there,
+    so accepted positions hold exactly the KV a dense decode would have
+    written (rejected ones sit past ``cache_len`` after the commit,
+    where every reader masks them).  Its attention launches count as
+    verify calls (``paged_attn.counting_as``).
+
+    Returns (logits [B, k+1, V]: row ``i`` scores the position after
+    input ``i``, pools updated in place)."""
+    with paged_attn_lib.counting_as("verify"):
+        logits, pools, _ = decode_step_paged(
+            params, cfg, pools, block_tables, tokens, pos,
+            write_mask=write_mask, pruned=None, backend=backend,
+            kv_dtype=kv_dtype,
+        )
+    return logits, pools
+
+
+@torch.no_grad()
+def draft_verify_paged(
+    params: Dict,
+    cfg,
+    pools: List[Dict],
+    block_tables: torch.Tensor,  # [B, n_pages] int32, -1 = unallocated
+    token: torch.Tensor,  # [B, 1] int32: last committed token per slot
+    pos: torch.Tensor,  # [B] int32 committed KV length per slot
+    k_r: torch.Tensor,  # [B] int32 per-slot draft lengths (0 = no drafting)
+    row_live: torch.Tensor,  # [B] bool: slot holds a planned request
+    pruned: Optional[Dict[int, Dict]] = None,  # per-slot compacted FF (the draft)
+    *,
+    num_steps: int,
+    spec_k: int,
+    backend: str = "gather",
+    kv_dtype: str = "fp32",
+) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
+    """A whole speculative round, draft loop and dense verify, with no
+    host sync: the drafts feed the ``[B, spec_k+1]`` verify matrix on the
+    device (last committed token in column 0, each slot's drafts after
+    it, zeros after those), rows masked to ``row_live & (i <= k_r)``.  An
+    empty slot's verify row is masked whole; a live slot that drafted 0
+    tokens verifies just its last token, a dense decode step.
+    ``num_steps`` may exceed ``spec_k``: the surplus draft columns are
+    dropped (every ``k_r`` is at most both).
+
+    Returns (drafts [B, num_steps], verify logits [B, spec_k+1, V],
+    pools updated in place)."""
+    drafts, pools = draft_loop_paged(
+        params, cfg, pools, block_tables, token, pos, k_r, pruned,
+        num_steps=num_steps, backend=backend, kv_dtype=kv_dtype,
+    )
+    B = token.shape[0]
+    cols = min(num_steps, spec_k)
+    vtoks = torch.cat([token, drafts[:, :cols],
+                       token.new_zeros((B, spec_k - cols))], dim=1)
+    idx = torch.arange(spec_k + 1, device=token.device)[None, :]
+    vmask = row_live[:, None] & (idx <= k_r[:, None])
+    vlogits, pools = verify_step_paged(
+        params, cfg, pools, block_tables, vtoks, pos, vmask,
+        backend=backend, kv_dtype=kv_dtype,
+    )
+    return drafts, vlogits, pools
 
 
 # ---------------------------------------------------------------------------

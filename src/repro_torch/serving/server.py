@@ -11,9 +11,10 @@ Execution model per ``step()`` (one scheduler tick):
      ``expert_stat`` kernel on the card) — with the prefix cache a
      request whose prompt prefix is cached starts at the first divergent
      token with the cached ``s_sq`` partial pre-loaded,
-  2. the decode batch advances every DECODING request by one token in a
+  2. the decode batch advances every DECODING request: by one token in a
      single call over ``n_slots`` padded slots, on per-slot compacted FF
-     weights selected at the request's first decode.
+     weights selected at the request's first decode (vanilla), or by up
+     to ``spec_k + 1`` tokens per request in a speculative round (below).
 
 All host state (block tables, positions, tokens) lives in the
 scheduler's request objects; the model, pools, statistics and compacted
@@ -32,9 +33,37 @@ both backends; attention bytes per token follow the pool's format.  Greedy token
 ``torch.argmax`` on the device, which picks the first maximum like the
 reference's ``np.argmax``.
 
-Not ported yet (each raises ``NotImplementedError``): speculative
-decoding (``spec_k``), tensor parallelism (``mesh``) and flocking
-telemetry (``flocking_every``).
+Self-speculative decoding (``spec_k > 0``, needs ``gcfg``): the
+per-slot GRIFFIN-compacted FF weights are the draft model and the dense
+model verifies.  One round per decode batch:
+
+  1. **plan + reserve** (``_plan_spec``) — each request drafts ``k_r =
+     min(k_adaptive, prefill cap, remaining budget - 1, capacity
+     headroom)`` tokens and reserves their pages plus one bonus position
+     without preemption (``Scheduler.reserve_draft``); a failed
+     reservation drafts 0.  ``k_adaptive`` comes from the request's
+     ``SpecController`` (``adaptive_spec``); while a prompt prefills,
+     ``k_r`` is capped at ``spec_prefill_cap``.  When nobody can draft,
+     the tick decodes one token **dense**: with ``spec_k`` the compacted
+     weights are only ever the draft.
+  2. **draft + verify** — ``spec_impl="fused"``: one
+     ``decoder.draft_verify_paged`` call (draft loop on the compacted
+     weights, then the dense ``[n_slots, spec_k+1]`` verify) with no host
+     sync inside, and one host transfer of the drafts and verify logits
+     after it; ``"per_token"`` keeps the host loop (a step and a sync per
+     draft token) and a standalone ``verify_step_paged`` as the
+     differential oracle.
+  3. **commit + rollback** — ``sampling.greedy_verify`` commits accepted
+     drafts plus one correction or bonus token through the scheduler's
+     callbacks; ``Scheduler.rollback_draft`` returns unused draft pages,
+     so allocator state equals never having drafted.
+
+Greedy speculative output is token-identical to dense greedy decode
+(``gcfg=None``); resumes after preemption rebuild dense too, and drafts
+always compact at the global budget (tiers change nothing).
+
+Not ported yet (each raises ``NotImplementedError``): tensor
+parallelism (``mesh``) and flocking telemetry (``flocking_every``).
 """
 from __future__ import annotations
 
@@ -50,6 +79,7 @@ from repro_torch.models import decoder
 from repro_torch.models.layers.attention import resolve_attn_backend
 from repro_torch.obs.stragglers import StepTimeMonitor
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serving import sampling
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedConfig
 from repro_torch.serving.scheduler import (
@@ -57,6 +87,7 @@ from repro_torch.serving.scheduler import (
     PrefillWork,
     ScheduledRequest,
     Scheduler,
+    SpecController,
 )
 
 
@@ -79,6 +110,9 @@ class PagedServer:
         prefill_chunk: int = 32,
         max_len: int = 256,
         spec_k: int = 0,
+        spec_impl: str = "fused",
+        adaptive_spec: bool = True,
+        spec_prefill_cap: int = 1,
         prefix_cache: bool = True,
         kernel_backend: str = "auto",
         kv_dtype: str = "fp32",
@@ -93,9 +127,6 @@ class PagedServer:
         assert decoder.supports_paged(cfg), (
             f"{cfg.name}: paged serving covers attention families only"
         )
-        if spec_k:
-            raise _not_ported("speculative decoding (spec_k > 0)",
-                              "Queue A: speculative rounds")
         if mesh is not None:
             raise _not_ported("tensor parallelism (mesh)",
                               "Queue A: tensor parallelism")
@@ -117,6 +148,20 @@ class PagedServer:
             max_pages_per_request=-(-max_len // page_size),
         )
         self.n_slots = n_slots
+        if spec_k and self.gcfg is None:
+            raise ValueError(
+                "spec_k needs gcfg: the GRIFFIN-compacted weights are the "
+                "draft model"
+            )
+        if spec_impl not in ("fused", "per_token"):
+            raise ValueError(
+                f"spec_impl: 'fused' (one draft+verify call per round) or "
+                f"'per_token' (host-loop differential oracle), got "
+                f"{spec_impl!r}"
+            )
+        self.spec_k = spec_k
+        self.spec_impl = spec_impl
+        self.spec_prefill_cap = spec_prefill_cap
         self.backend = resolve_attn_backend(kernel_backend, self.device)
         # per-layer profiles + request tiers
         self.profile = profile
@@ -137,6 +182,8 @@ class PagedServer:
         self.sched = Scheduler(self.pcfg, n_slots, prefill_chunk,
                                metrics=metrics, prefix_cache=prefix_cache)
         self.sched.needs_stats = self.gcfg is not None
+        if spec_k and adaptive_spec:
+            self.sched.spec_ctl = SpecController(spec_k)
         self.pools = decoder.init_paged_pools(cfg, num_pages, page_size,
                                               self.kv_dtype, self.device)
         # per-slot compacted FF: {li: {leaf: [n_slots, ...]}}
@@ -160,6 +207,27 @@ class PagedServer:
             kv_dtype=self.kv_dtype,
         )
 
+    def _draft_verify(self, bts, toks, pos, k_r, live, pruned,
+                      num_steps: int):
+        """One fused speculative round on the device: (drafts [B,
+        num_steps], verify logits [B, spec_k+1, V]) as device tensors."""
+        drafts, vlogits, _ = decoder.draft_verify_paged(
+            self.params, self.cfg, self.pools, self._tensor(bts),
+            self._tensor(toks), self._tensor(pos), self._tensor(k_r),
+            self._tensor(live), pruned, num_steps=num_steps,
+            spec_k=self.spec_k, backend=self.backend, kv_dtype=self.kv_dtype,
+        )
+        return drafts, vlogits
+
+    def _verify(self, bts, toks, pos, mask) -> torch.Tensor:
+        """The standalone dense verify step: logits [B, k+1, V]."""
+        vlogits, _ = decoder.verify_step_paged(
+            self.params, self.cfg, self.pools, self._tensor(bts),
+            self._tensor(toks), self._tensor(pos), self._tensor(mask),
+            backend=self.backend, kv_dtype=self.kv_dtype,
+        )
+        return vlogits
+
     # -- API ---------------------------------------------------------------
     @property
     def metrics(self) -> ServingMetrics:
@@ -172,7 +240,8 @@ class PagedServer:
         """``tier`` (one of ``griffin.TIERS``): the fraction of FF experts
         this request keeps — 1.0 decodes dense.  None falls back to the
         server's ``default_tier`` (itself None -> the global ``gcfg``
-        budget)."""
+        budget).  In speculative mode tiers change nothing: drafts use the
+        global budget and the dense verifier commits every token."""
         tier = griffin_lib.resolve_tier(tier)
         if tier is not None and self.gcfg is None:
             raise ValueError(
@@ -210,8 +279,15 @@ class PagedServer:
                              tokens=len(plan.prefill.tokens)):
                     self._run_prefill(plan.prefill)
             if plan.decode:
-                with tr.span("decode", batch=len(plan.decode)):
-                    self._run_decode(plan.decode)
+                ks = self._plan_spec(plan.decode, plan) if self.spec_k \
+                    else None
+                if ks:
+                    with tr.span("spec_round", batch=len(plan.decode),
+                                 drafted=sum(ks.values())):
+                        self._run_speculative(plan.decode, ks)
+                else:
+                    with tr.span("decode", batch=len(plan.decode)):
+                        self._run_decode(plan.decode)
             metrics.on_step(self.sched.pool_in_use_frac(),
                             len(plan.decode),
                             shared_pages=self.sched.alloc.num_shared,
@@ -286,8 +362,11 @@ class PagedServer:
         self._count_attn_bytes([work.start], Lc, Wl, rows=1)
         collect = work.collect_stats and self.gcfg is not None
         # resume of a compacted request: generated-token positions must
-        # rebuild their KV with the same FF weights that decoded them
-        use_pruned = work.use_pruned and req.pruned_host is not None
+        # rebuild their KV with the same FF weights that decoded them —
+        # the compacted ones in vanilla GRIFFIN mode, the dense ones in
+        # speculative mode (the dense verifier committed every token)
+        use_pruned = work.use_pruned and not self.spec_k \
+            and req.pruned_host is not None
         pruned = self._expand_b1(req.pruned_host) if use_pruned else None
         with self.tracer.annotation("prefill_chunk"):
             logits, _, stats = self._step_model(bt, toks, pos, mask, pruned,
@@ -307,6 +386,11 @@ class PagedServer:
         if work.is_last and req.state == DECODING and self.gcfg is not None:
             if not req.compacted:
                 tier = req.tier if req.tier is not None else self.default_tier
+                if self.spec_k:
+                    # drafts always use the global budget: the dense
+                    # verifier commits every token, so a tier would
+                    # change speed, never outputs
+                    tier = None
                 if tier == 1.0:
                     # dense tier: no selection, no compacted buffers
                     req.pruned_host = None
@@ -342,7 +426,10 @@ class PagedServer:
     def _run_decode(self, reqs: List[ScheduledRequest]) -> None:
         B = self.n_slots
         toks, pos, mask, bts, W = self._decode_inputs(reqs)
-        use_griffin = self.gcfg is not None
+        # spec mode: the compacted weights are only the draft — a vanilla
+        # tick (nobody could draft) decodes dense, or its tokens and KV
+        # drift from the dense stream the verifier commits
+        use_griffin = self.gcfg is not None and not self.spec_k
         pruned = self._sync_pruned_slots(reqs) if use_griffin else None
         dense_rows = [r for r in reqs if r.pruned_host is None] \
             if use_griffin else list(reqs)
@@ -374,6 +461,145 @@ class PagedServer:
                 next_tok[r.slot] = best[r.slot]
         for req in reqs:
             self.sched.finish_decode_token(req, next_tok[req.slot])
+
+    # -- speculative draft / verify / commit / rollback --------------------
+    def _plan_spec(self, reqs: List[ScheduledRequest],
+                   plan) -> Optional[Dict[int, int]]:
+        """Per-request draft lengths for a speculative round, pages
+        reserved: ``k_r = min(k_adaptive, prefill cap, remaining budget -
+        1, capacity headroom)``.  ``k_adaptive`` is the request's learned
+        draft length (``SpecController``; ``spec_k`` when it is off).
+        While a prompt is prefilling (a chunk in this plan, or a request
+        mid-prefill) ``k_r`` is capped at ``spec_prefill_cap``, so its
+        chunks interleave with short rounds; merely queued prompts do not
+        engage the cap.  A request whose reservation fails (pool
+        pressure) drafts 0: its verify row is a dense decode step.
+        Returns ``rid -> k_r``, or None when nobody can draft (the tick
+        decodes dense)."""
+        if not all(r.compacted for r in reqs):
+            return None
+        ctl = self.sched.spec_ctl
+        prefill_pending = (plan.prefill is not None
+                           or self.sched.prefilling is not None)
+        cap = self.spec_prefill_cap if prefill_pending else self.spec_k
+        ks: Dict[int, int] = {}
+        capped = False
+        for r in reqs:
+            want = ctl.k_for(r.rid) if ctl is not None else self.spec_k
+            k = max(0, min(want,
+                           r.max_new - len(r.generated) - 1,
+                           self.pcfg.max_request_len - r.cache_len - 1))
+            if k > cap:
+                k = cap
+                capped = True
+            if k and not self.sched.reserve_draft(r, k):
+                k = 0
+            ks[r.rid] = k
+        if not any(ks.values()):
+            return None
+        if capped:
+            self.sched.metrics.on_spec_cap()
+        return ks
+
+    def _run_speculative(self, reqs: List[ScheduledRequest],
+                         ks: Dict[int, int]) -> None:
+        """One draft/verify/commit/rollback round for the decode batch
+        (per-request draft lengths and pages planned by ``_plan_spec``)."""
+        K = self.spec_k
+        B, W = self.n_slots, self._live_width(reqs)
+        bts = np.full((B, W), -1, np.int32)
+        base = {r.rid: r.cache_len for r in reqs}
+        last = {r.rid: r.generated[-1] for r in reqs}
+        draft: Dict[int, List[int]] = {r.rid: [] for r in reqs}
+        for req in reqs:
+            bts[req.slot] = req.table.as_array(W)
+        num_steps = max(ks.values())
+        # every request compacts at the global budget in spec mode, so
+        # the slot buffers have one width
+        pruned = self._sync_pruned_slots(reqs)
+
+        # modeled attention traffic: draft iteration ``i`` reads for the
+        # requests still inside their ``k_r`` only, the verify one row per
+        # planned request
+        for i in range(num_steps):
+            live = [r for r in reqs if i < ks[r.rid]]
+            self._count_attn_bytes([base[r.rid] + i for r in live], 1, W,
+                                   rows=len(live))
+        self._count_attn_bytes([base[r.rid] + ks[r.rid] for r in reqs], 1, W,
+                               rows=len(reqs))
+
+        if self.spec_impl == "fused":
+            toks = np.zeros((B, 1), np.int32)
+            pos = np.zeros((B,), np.int32)
+            kr = np.zeros((B,), np.int32)
+            live = np.zeros((B,), bool)
+            for req in reqs:
+                s = req.slot
+                toks[s, 0] = last[req.rid]
+                pos[s] = base[req.rid]
+                kr[s] = ks[req.rid]
+                live[s] = True
+            with self.tracer.annotation("draft_verify"):
+                dr, vl = self._draft_verify(bts, toks, pos, kr, live, pruned,
+                                            num_steps)
+                # the round's one host transfer: drafts (int32 bits) beside
+                # the verify logits
+                host = torch.cat([vl.reshape(B, -1), dr.view(torch.float32)],
+                                 dim=1).cpu().numpy()
+            vlogits = host[:, :-num_steps].reshape(vl.shape)
+            dr = host[:, -num_steps:].view(np.int32)
+            for req in reqs:
+                draft[req.rid] = [int(t) for t in dr[req.slot, : ks[req.rid]]]
+        else:
+            for i in range(num_steps):
+                toks = np.zeros((B, 1), np.int32)
+                pos = np.zeros((B,), np.int32)
+                mask = np.zeros((B, 1), bool)
+                for req in reqs:
+                    s = req.slot
+                    toks[s, 0] = last[req.rid]
+                    pos[s] = base[req.rid] + i
+                    mask[s, 0] = i < ks[req.rid]
+                logits, _, _ = self._step_model(bts, toks, pos, mask, pruned)
+                best = torch.argmax(logits[:, 0], dim=-1).tolist()  # [slots]
+                for req in reqs:
+                    if i < ks[req.rid]:
+                        draft[req.rid].append(best[req.slot])
+                        last[req.rid] = best[req.slot]
+            vtoks = np.zeros((B, K + 1), np.int32)
+            vpos = np.zeros((B,), np.int32)
+            vmask = np.zeros((B, K + 1), bool)
+            for req in reqs:
+                s, kr = req.slot, ks[req.rid]
+                vtoks[s, 0] = req.generated[-1]
+                vtoks[s, 1 : kr + 1] = draft[req.rid]
+                vpos[s] = base[req.rid]
+                vmask[s, : kr + 1] = True
+            with self.tracer.annotation("verify_step"):
+                vlogits = self._verify(bts, vtoks, vpos, vmask).cpu().numpy()
+
+        # commit through the vanilla callbacks; the round's telemetry and
+        # the controller see it *before* the commits, since the last
+        # commit may finish the request (``done`` is a generated-count
+        # check, so the commit count is known up front)
+        for req in reqs:
+            kr = ks[req.rid]
+            committed, n_acc = sampling.greedy_verify(
+                vlogits[req.slot, : kr + 1], draft[req.rid])
+            n_commit = min(len(committed), req.max_new - len(req.generated))
+            if kr:
+                self.sched.metrics.on_spec_round(
+                    req.rid, drafted=kr, accepted=n_acc, committed=n_commit)
+                if self.sched.spec_ctl is not None:
+                    self.sched.spec_ctl.observe(req.rid, kr, n_acc)
+            for tok in committed:
+                if req.done:
+                    break
+                self.sched.finish_decode_token(req, tok)
+        # unused draft tails go back in reverse reservation order, so the
+        # rollbacks unwind the allocator's LIFO stack exactly
+        for req in reversed(reqs):
+            self.sched.rollback_draft(req)
 
     # -- per-slot GRIFFIN weights ------------------------------------------
     def _k_tree(self, tier: float) -> Dict[int, int]:

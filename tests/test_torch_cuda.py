@@ -140,6 +140,48 @@ def test_paged_attn_yi9b_prefill_every_pool_format(dev, kvd):
     assert (out_k[0] - ctx_f).abs().max().item() <= kv_quant.ERROR_BUDGET[kvd]
 
 
+#: the Yi-9B speculative verify call (spec_k 4): request 0's 5 rows cross
+#: a page boundary (589 cached, rows at 589..593, page 16), request 1
+#: drafted k_r = 2, so its rows 3-4 are masked
+VERIFY_LENS = [589, 431]
+
+
+def verify_mask(dev):
+    wm = torch.ones((2, 5), dtype=torch.bool, device=dev)
+    wm[1, 3:] = False
+    return wm
+
+
+@pytest.mark.parametrize("kvd", ["fp32", "bf16", "int8", "fp8"])
+def test_paged_attn_yi9b_verify_every_pool_format(dev, kvd):
+    """The verify shape [n_slots=2, k+1=5] at Yi-9B width over each pool
+    format (bf16 queries): ctx within 1e-5, pools (and scales) bit-identical
+    except the trash page; quantized, some new rows grow their page's
+    scale and ctx stays within ERROR_BUDGET of fp32 pools."""
+    from repro_torch.kernels import kv_quant
+
+    rng = np.random.default_rng(45)
+    if kvd in ("fp32", "bf16"):
+        pool_dtype = torch.float32 if kvd == "fp32" else torch.bfloat16
+        args = _case(rng, 2, 5, 32, 4, 128, 16, 40, pool_dtype, dev,
+                     torch.bfloat16, lens=VERIFY_LENS)
+        args[7] = verify_mask(dev)
+        _check_paged_attn(args)
+        return
+    args, sk, sv, (pkf, pvf) = _warm_quant_case(
+        rng, 2, 5, 32, 4, 128, 16, 40, kvd, dev, torch.bfloat16,
+        lens=VERIFY_LENS, with_fp32=True)
+    args[7] = verify_mask(dev)
+    out_k, _ = _run_quant(args, sk, sv, kvd)
+    assert bool((out_k[3][:-1] > sk[:-1]).any() or (out_k[4][:-1] > sv[:-1]).any())
+    q, kn, vn, _, _, bt, pos, wm = args
+    ctx_f = ref.paged_attn_ref(q, kn, vn, pkf.clone(), pvf.clone(), bt, pos,
+                               wm)[0]
+    rows = wm.any(dim=1)
+    assert (out_k[0][rows] - ctx_f[rows]).abs().max().item() <= \
+        kv_quant.ERROR_BUDGET[kvd]
+
+
 @pytest.mark.parametrize("kvd", ["int8", "fp8"])
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_reencodes_live_rows_in_launch(dev, kvd, in_dtype):
@@ -480,3 +522,108 @@ def test_glu_ffn_kernel_ragged_shapes(dev, S, D, F, dtype, act):
     wg, w1 = (t(rng.normal(size=(D, F)) / np.sqrt(D)) for _ in range(2))
     w2 = t(rng.normal(size=(F, D)) / np.sqrt(F))
     _check_glu_ffn(x, wg, w1, w2, act)
+
+
+@pytest.mark.parametrize("BK,F,bad", [(128, 8192, 64), (32, 1536, 48)])
+def test_griffin_ffn_bad_block_id_adds_nothing(dev, BK, F, bad):
+    """A block id one past the last block (F / BK) on the TMA path (block
+    size 128) and on the cp.async path (block size 32): a block that adds
+    nothing, as in the plain version (its rows are read in bounds)."""
+    rng = np.random.default_rng(F + bad)
+    t = lambda a: torch.tensor(a, dtype=torch.float32).to(torch.bfloat16).to(dev)  # noqa: E731
+    D = 256
+    x = t(rng.normal(size=(2, D)))
+    wg, w1 = (t(rng.normal(size=(F, D)) / np.sqrt(D)) for _ in range(2))
+    w2 = t(rng.normal(size=(F, D)) / np.sqrt(4 * BK))
+    good = [3, 10, F // BK - 1]
+    ids = torch.tensor([3, bad, 10, F // BK - 1], dtype=torch.int32, device=dev)
+    _check_griffin_ffn(x, wg, w1, w2, ids, BK, "swiglu")
+    without = ops.griffin_ffn_decode(
+        x, wg, w1, w2, torch.tensor(good, dtype=torch.int32, device=dev),
+        block_size=BK)
+    torch.testing.assert_close(ops.griffin_ffn_decode(x, wg, w1, w2, ids,
+                                                      block_size=BK),
+                               without, **_ffn_tol(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# a speculative round
+# ---------------------------------------------------------------------------
+
+def _tinylm_round(dev, seed=0):
+    """tinylm (projections scaled by 2, as the server tests scale them) on
+    the card with random pools, tables for 3 slots, and per-slot compacted
+    FF weights (each slot's own random half of the neurons)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+    from repro_torch.models.layers import ffn as ffn_lib
+
+    cfg = get_config("tinylm")
+    params = decoder.init_params(cfg, seed=seed, device="cpu")
+    for lp in params["layers"]:
+        for group in ("mixer", "ffn"):
+            for k, v in lp[group].items():
+                if k.startswith("w"):
+                    v.mul_(2.0)
+    to = lambda t: ({k: to(v) for k, v in t.items()} if isinstance(t, dict)  # noqa: E731
+                    else [to(v) for v in t] if isinstance(t, list) else t.to(dev))
+    params = to(params)
+    rng = np.random.default_rng(seed)
+    page, P = 8, 12
+    pools = decoder.init_paged_pools(cfg, P, page, device=dev)
+    for layer in pools:
+        for buf in layer.values():
+            buf.copy_(torch.tensor(rng.normal(size=buf.shape), dtype=torch.float32))
+    pos = np.array([13, 7, 20], np.int32)
+    bt = np.full((3, 4), -1, np.int32)
+    perm, c = rng.permutation(P), 0
+    for b in range(3):
+        need = -(-(int(pos[b]) + 4) // page)
+        bt[b, :need] = perm[c : c + need]
+        c += need
+    F = cfg.d_ff
+    pruned = {}
+    for li, lp in enumerate(params["layers"]):
+        slots = [ffn_lib.compact_ffn_params(
+            lp["ffn"], torch.tensor(np.sort(rng.permutation(F)[: F // 2]), device=dev))
+            for _ in range(3)]
+        pruned[li] = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
+    tok = rng.integers(0, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    inputs = (t(bt), t(tok), t(pos), t(np.array([2, 0, 3], np.int32)),
+              t(np.array([True, True, False])))
+    return cfg, params, pools, pruned, inputs
+
+
+def test_draft_verify_round_fused_equals_plain(dev, monkeypatch):
+    """One ``draft_verify_paged`` round (k_r = [2, 0, 3], slot 2 not live)
+    through the attention kernel against the same round through its plain
+    version, both on the card: equal drafts, verify logits within 1e-5,
+    pools within 1e-5 except the trash page; the kernel counts its calls
+    as decode and verify launches."""
+    from repro_torch.kernels import paged_attn
+    from repro_torch.models import decoder
+
+    cfg, params, pools, pruned, inputs = _tinylm_round(dev)
+    plain_pools = [{k: v.clone() for k, v in layer.items()} for layer in pools]
+    before = (paged_attn.launches, paged_attn.verify_launches,
+              paged_attn.prefill_launches)
+    dk, lk, pk = decoder.draft_verify_paged(
+        params, cfg, pools, *inputs, pruned, num_steps=3, spec_k=3,
+        backend="fused")
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (paged_attn.launches - before[0], paged_attn.verify_launches - before[1],
+            paged_attn.prefill_launches - before[2]) == (4 * L, L, 0)
+    monkeypatch.setattr(ops, "paged_attention",
+                        lambda *a, **k: ref.paged_attn_ref(*a, **k))
+    dp, lp, pp = decoder.draft_verify_paged(
+        params, cfg, plain_pools, *inputs, pruned, num_steps=3, spec_k=3,
+        backend="fused")
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    vm = inputs[4][:, None] & (torch.arange(4, device=dev)[None] <= inputs[3][:, None])
+    torch.testing.assert_close(lk[vm], lp[vm], rtol=1e-5, atol=1e-5)
+    for a, b in zip(pk, pp):
+        for key in a:
+            torch.testing.assert_close(a[key][:-1], b[key][:-1], rtol=1e-5, atol=1e-5)

@@ -75,6 +75,23 @@ def test_griffin_ffn_plain_matches_jax(dt, B, D, F, BK, nsel, act):
         np.testing.assert_allclose(_np(got), _np(want), **_tol(dt))
 
 
+@pytest.mark.parametrize("bad", [8, 11, -1])
+def test_griffin_ffn_plain_bad_block_id_adds_nothing(bad):
+    """A block id outside [0, F / block_size) is a block that adds
+    nothing, as in both kernel paths; the JAX reference clamps such ids
+    (its gather), so the input lies outside both packages' contract and
+    has no parity test."""
+    rng = np.random.default_rng(5)
+    B, D, F, BK = 3, 64, 512, 64
+    x, wg, w1, w2 = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+                     for s in ((B, D), (F, D), (F, D), (F, D)))
+    good = torch.tensor([5, 2, 7], dtype=torch.int32)
+    with_bad = torch.tensor([5, bad, 2, 7], dtype=torch.int32)
+    want = ops.griffin_ffn_decode(x, wg, w1, w2, good, block_size=BK)
+    got = ops.griffin_ffn_decode(x, wg, w1, w2, with_bad, block_size=BK)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 @pytest.mark.parametrize("S,D,F", [(64, 128, 512), (300, 256, 1024)])
 def test_glu_ffn_plain_matches_jax(dt, S, D, F):

@@ -252,8 +252,7 @@ def test_server_tracer_and_tier_dense(params):
     assert {"tick", "plan", "prefill_chunk", "decode"} <= names
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(mesh=object()),
-                                dict(flocking_every=4)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(flocking_every=4)])
 def test_server_rejects_later_slices(params, kw):
     _, tp = params["plain"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
