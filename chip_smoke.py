@@ -66,7 +66,27 @@ Phases (any failure raises and the script exits non-zero):
    dense decode tick's host-clock wall time, the share of tokens equal to
    the dense streams (no floor), every verify logit finite, and one
    ``decoder.draft_verify_paged`` call run under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in a round).
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in a round);
+8. the serving edge: (a) ``repro_torch.launch.serve.main`` on phase 3's
+   tinylm weights, written as a checkpoint in the reference's layout:
+   GRIFFIN 0.5 with int8 pools, ``--spec-k 3``, ``--trace-out``,
+   ``--metrics-snapshot`` and ``--flocking-telemetry 2``; ``--no-griffin
+   --kernel-backend gather``; ``--tier 0.5`` -- each run's streams equal
+   the same call with ``--device cpu``, the trace validates
+   (``obs.export.validate_chrome_trace``), the snapshot parses and
+   ``flocking:`` is printed; (b) phase 4's Yi-9B model behind the
+   HTTP/SSE ``ServingFrontend`` on a free 127.0.0.1 port with flocking
+   telemetry every 4 ticks: 4 concurrent ``POST /v1/generate`` (phase 4's
+   prompts, 32 new tokens, two interactive, two batch) whose SSE streams
+   equal a fresh server's ``drain()``, one more the client hangs up after
+   4 tokens (counted cancelled, its pages returned), ``/healthz`` and a
+   ``/metrics`` that validates, the pools bit-identical around a probe;
+   TTFT p50/p99, tokens/s, tick wall with and without a probe and the
+   per-layer Jaccard/angular means reported; (c) the closed-loop load
+   generator on the real clock over 8b's server: 6 chat sessions of at
+   most 3 turns on 2 Zipf-shared 256-token system prompts, ``max_new`` at
+   most 32 -- every session ends and the pool empties; goodput, shed
+   rate, prefix hit rate, COW copies and TTFT p99 reported.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -84,6 +104,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1221,6 +1242,379 @@ def profile_decode_tick(torch, np, srv, cfg, rng):
                 top=[dict(kernel=k[:90], ms=ms, per_tick=c) for k, ms, c in rows[:12]])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving edge (launcher, HTTP/SSE frontend, load generator)
+# ---------------------------------------------------------------------------
+
+def launcher(argv):
+    """``repro_torch.launch.serve.main(argv)`` with its printed lines
+    captured: (drained streams, text)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_lib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve_lib.main(argv)
+    return out, buf.getvalue()
+
+
+def phase_launcher(torch, np, tmp: Path):
+    """8a: phase 3's tinylm weights, written as a checkpoint in the
+    reference's layout, served through ``launch.serve.main`` on the card
+    and with ``--device cpu``: GRIFFIN 0.5 with int8 pools, ``--spec-k 3``,
+    a trace, a metrics snapshot and flocking telemetry every 2 ticks; the
+    dense model on the gather backend; ``--tier 0.5``.  Card streams must
+    equal the CPU's, the trace must validate, the snapshot parse and
+    ``flocking:`` be printed.  Returns the card runs' launches and a
+    summary line per run."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.obs.export import validate_chrome_trace
+
+    cfg, host, _, _ = tinylm_setup(np)
+    ckpt = tmp / "ckpt"
+    checkpointer.save(str(ckpt), 1, {"params": bridge.params_to_jax(host, cfg)})
+    trace, snap = tmp / "trace.json", tmp / "metrics.json"
+    base = ["--arch", "tinylm", "--requests", "8", "--ckpt-dir", str(ckpt)]
+    runs = {"griffin_int8_spec3_obs": ["--kv-dtype", "int8", "--spec-k", "3",
+                                       "--trace-out", str(trace),
+                                       "--metrics-snapshot", str(snap),
+                                       "--flocking-telemetry", "2"],
+            "dense_gather": ["--no-griffin", "--kernel-backend", "gather"],
+            "tier_0.5": ["--tier", "0.5"]}
+    total, lines = {}, {}
+    for name, flags in runs.items():
+        reset_launches()
+        card, text = launcher(base + flags + ["--device", "cuda"])
+        counts = launches()
+        check("[ckpt] loaded" in text and "[device] cuda" in text,
+              f"launcher {name}: {text}")
+        if "--trace-out" in flags:
+            check("  flocking: jaccard=" in text, f"launcher {name}: {text}")
+            errors = validate_chrome_trace(json.loads(trace.read_text()))
+            check(not errors, f"launcher {name}: trace errors {errors[:3]}")
+            check(json.loads(snap.read_text())["summary"]["requests_finished"] == 8,
+                  f"launcher {name}: snapshot {snap.read_text()[:200]}")
+        cpu, _ = launcher(base + flags + ["--device", "cpu"])
+        check(card == cpu, f"launcher {name}: card {card} != CPU {cpu}")
+        check(len({t for s_ in card.values() for t in s_}) > 4,
+              f"launcher {name}: degenerate streams {card}")
+        kinds = attn_kinds(counts)
+        if name == "dense_gather":
+            ok = counts["paged_gather"] > 0 and counts["expert_stat"] == 0 \
+                and sum(kinds.values()) == 0
+        else:
+            ok = counts["expert_stat"] > 0 and kinds["decode"] > 0 \
+                and counts["paged_gather"] == 0 \
+                and (kinds["verify"] > 0) == ("--spec-k" in flags) \
+                and (counts["paged_attn_quant"] > 0) == ("int8" in flags)
+        check(ok, f"launcher {name} launches {counts}")
+        add_counts(total, counts)
+        lines[name] = [ln.strip() for ln in text.splitlines()
+                       if "paged: served" in ln or "flocking:" in ln
+                       or "spec:" in ln]
+    return total, lines
+
+
+#: phases 4, 7b and 8's Yi-9B server
+YI_SERVER = dict(page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
+                 max_len=640, kernel_backend="auto")
+
+#: TTFT deadline (s) of phase 8b's requests: at ~60 ms a tick, a 600-token
+#: prompt takes ~19 chunks, so the class defaults would shed
+FRONTEND_DEADLINE_S = 60.0
+
+
+def parse_sse(raw: bytes):
+    """HTTP response -> (status line, [(event or None, data), ...])."""
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status = head.split(b"\r\n")[0].decode()
+    frames = []
+    for chunk in body.decode().split("\n\n"):
+        if not chunk.strip():
+            continue
+        event, data = None, None
+        for line in chunk.splitlines():
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+        frames.append((event, data))
+    return status, frames
+
+
+def http_post(path: str, obj) -> bytes:
+    body = json.dumps(obj).encode()
+    return (f"POST {path} HTTP/1.1\r\nContent-Length: {len(body)}\r\n"
+            f"\r\n").encode() + body
+
+
+async def http_call(asyncio, port: int, raw: bytes, cut: int = 0) -> bytes:
+    """One request over a socket; reads to EOF, or hangs up after ``cut``
+    SSE token frames."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(raw)
+    await writer.drain()
+    data = bytearray()
+    while True:
+        chunk = await reader.read(65536)
+        if not chunk:
+            break
+        data += chunk
+        if cut and data.count(b'data: {"token"') >= cut:
+            break
+    writer.close()
+    try:
+        await writer.wait_closed()
+    except ConnectionError:
+        pass
+    return bytes(data)
+
+
+def owners(alloc):
+    """Request ids that still hold pages (prefix-cache holders excluded)."""
+    return sorted(o for o in alloc.holders_snapshot() if isinstance(o, int))
+
+
+def phase_frontend(torch, np, dev, cfg, params, prompts):
+    """8b: Yi-9B (phase 4's model) behind ``ServingFrontend`` and
+    ``asyncio.start_server`` on a free 127.0.0.1 port, flocking telemetry
+    every 4 ticks: 4 ``POST /v1/generate`` requests (phase 4's prompts,
+    32 new tokens, two ``interactive`` and two ``batch``) and one more
+    whose client hangs up after 4 tokens, concurrently, plus ``/healthz``
+    and ``/metrics``.  Checks: the hung-up request is ``cancelled`` and
+    holds no page; ``/metrics`` validates; the pools are bit-identical
+    around the first probe that probes a request.  Returns the server,
+    its frontend (stopped), the SSE streams by prompt index and the numbers; the
+    streams are held to a fresh server's ``drain()`` by the caller."""
+    import asyncio
+
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.kernels import kv_quant
+    from repro_torch.obs.registry import validate_prometheus_text
+    from repro_torch.serving.frontend import CANCELLED, FINISHED, ServingFrontend
+    from repro_torch.serving.server import PagedServer
+
+    srv = PagedServer(cfg, params, gcfg=GriffinConfig(sparsity=0.5),
+                      flocking_every=4, device=dev, **YI_SERVER)
+    check(srv.backend == "fused", f"auto resolved to {srv.backend}")
+    fe = ServingFrontend(srv)
+    step, probe = srv.step, srv._run_flocking_probe
+    ticks, state = [], {"probe": False, "pools_identical": None}
+
+    def timed_step():
+        state["probe"] = False
+        t0 = time.perf_counter()
+        more = step()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0, state["probe"]))
+        return more
+
+    def timed_probe(reqs):
+        t0 = time.perf_counter()
+        probe(reqs)
+        torch.cuda.synchronize()
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def checked_probe(reqs):
+        state["probe"] = True
+        live = any(r.compacted and r.generated for r in reqs)
+        if not live or state["pools_identical"] is not None:
+            return timed_probe(reqs)
+        before = [{k: kv_quant.as_bytes(v).clone() for k, v in pool.items()}
+                  for pool in srv.pools]
+        timed_probe(reqs)
+        state["pools_identical"] = all(
+            torch.equal(b[k], kv_quant.as_bytes(pool[k]))
+            for b, pool in zip(before, srv.pools) for k in b)
+        del before
+
+    # the monitor's share of a probe: the statistics' copy to the host and
+    # the Jaccard / angular arithmetic, after the probe step has finished
+    probe_ms, monitor_ms = [], []
+    on_probe = srv.flocking.on_probe
+
+    def timed_on_probe(rows, stats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = on_probe(rows, stats)
+        monitor_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    srv.step, srv._run_flocking_probe = timed_step, checked_probe
+    srv.flocking.on_probe = timed_on_probe
+    slos = ("interactive", "batch", "interactive", "batch")
+    bodies = [http_post("/v1/generate", {
+        "prompt": p.tolist(), "max_new": n, "slo": slo,
+        "deadline_s": FRONTEND_DEADLINE_S}) for (p, n), slo in zip(prompts, slos)]
+    cut_prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, 64)
+    cut_body = http_post("/v1/generate", {
+        "prompt": cut_prompt.tolist(), "max_new": 32, "slo": "standard",
+        "deadline_s": FRONTEND_DEADLINE_S})
+
+    async def run():
+        server = await asyncio.start_server(fe.handle_connection, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        runner = asyncio.ensure_future(fe.run())
+        try:
+            health = await http_call(asyncio, port, b"GET /healthz HTTP/1.1\r\n\r\n")
+            outs = await asyncio.gather(
+                *(http_call(asyncio, port, b) for b in bodies),
+                http_call(asyncio, port, cut_body, cut=4))
+            t_end = time.perf_counter() + 60
+            while fe.has_work and time.perf_counter() < t_end:
+                await asyncio.sleep(0.01)  # the hang-up lands at a tick
+            metrics = await http_call(asyncio, port, b"GET /metrics HTTP/1.1\r\n\r\n")
+        finally:
+            fe.stop()
+            await runner
+            server.close()
+            await server.wait_closed()
+        return health, outs, metrics
+
+    t0 = time.perf_counter()
+    health, outs, metrics = asyncio.run(run())
+    wall = time.perf_counter() - t0
+    srv.step, srv._run_flocking_probe = step, probe
+    srv.flocking.on_probe = on_probe
+    check(health.startswith(b"HTTP/1.1 200") and b'"ok": true' in health,
+          f"/healthz: {health[:200]}")
+    streams, rid_of = {}, {}
+    for i, raw in enumerate(outs[:4]):
+        status, frames = parse_sse(raw)
+        check(status == "HTTP/1.1 200 OK" and frames[0][0] == "accepted"
+              and frames[-1][0] == "done", f"SSE {i}: {raw[:300]}")
+        rid_of[i] = frames[0][1]["rid"]
+        streams[i] = [d["token"] for _, d in frames[1:-1]]
+        check(fe.handles[rid_of[i]].state == FINISHED, f"SSE {i} not finished")
+    _, cut_frames = parse_sse(outs[4])
+    cut = fe.handles[cut_frames[0][1]["rid"]]
+    check(cut.state == CANCELLED and 4 <= len(cut.tokens) < 32,
+          f"hung-up request: {cut.state}, {len(cut.tokens)} tokens")
+    check(srv.metrics.cancelled_aborts == 1, "cancel not counted")
+    srv.sched.alloc.check()
+    check(owners(srv.sched.alloc) == [], f"pages held: {owners(srv.sched.alloc)}")
+    check(metrics.startswith(b"HTTP/1.1 200"), f"/metrics: {metrics[:200]}")
+    errors = validate_prometheus_text(metrics.partition(b"\r\n\r\n")[2].decode())
+    check(not errors, f"/metrics: {errors[:3]}")
+    check(state["pools_identical"] is True,
+          f"pools around a probe: {state['pools_identical']}")
+    m, s = srv.metrics.summary(), fe.summary()
+    gauges = {}
+    for g in srv.metrics.registry:
+        if g.name in ("flocking_jaccard", "flocking_angular"):
+            gauges.setdefault(g.name, []).append(g.value)
+    check(len(gauges.get("flocking_jaccard", [])) == cfg.num_layers,
+          f"flocking gauges {len(gauges.get('flocking_jaccard', []))}")
+    plain = [w for w, p in ticks if not p]
+    probed = [w for w, p in ticks if p]
+    res = dict(
+        wall_s=wall, ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
+        tokens_per_s=m["tokens_per_sec"], completed=s["completed"],
+        cancelled=s["cancelled"], cancel_latency_mean_s=m["cancel_latency_mean_s"],
+        ticks=len(ticks), probe_ticks=len(probed),
+        tick_wall_ms_p50=statistics.median(plain) * 1e3,
+        probe_tick_wall_ms_p50=statistics.median(probed) * 1e3,
+        probe_ms_p50=statistics.median(probe_ms),
+        probe_monitor_ms_p50=statistics.median(monitor_ms),
+        flocking_probes=srv.flocking.probes.value,
+        jaccard_layer_mean=float(np.mean(gauges["flocking_jaccard"])),
+        angular_layer_mean=float(np.mean(gauges["flocking_angular"])),
+        pools_identical_around_probe=state["pools_identical"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return srv, fe, streams, res
+
+
+def phase_loadgen(torch, np, srv, fe, cfg):
+    """8c: the closed-loop load generator on the real clock over 8b's
+    frontend and server (prefix cache kept; the engine's prefix and COW
+    counters are read as differences over the run): 6 chat
+    sessions of at most 3 turns, 2 Zipf-shared system prompts of 256
+    tokens, ``max_new`` capped at 32, TTFT deadlines 5 s (interactive) and
+    10 s (standard).  Checks: every session ends, no request holds a page
+    afterwards, and with the prefix cache flushed the pool is empty."""
+    from repro_torch.serving.loadgen import chat_sessions, run_closed_loop
+
+    m0 = srv.metrics
+    before = (m0.prefix_lookups, m0.prefix_hits, m0.saved_prefill_tokens,
+              m0.cow_copies, m0.preemptions)
+    sessions = chat_sessions(6, rate=4.0, seed=0, vocab=cfg.vocab_size,
+                             n_system=2, system_len=256, max_turns=3,
+                             gen_cap=32, deadlines={"interactive": 5.0,
+                                                    "standard": 10.0})
+    t0 = time.perf_counter()
+    res = run_closed_loop(fe, sessions, clock=fe.clock)
+    wall = time.perf_counter() - t0
+    check(all(h.done for h in fe.handles.values()), "a turn never ended")
+    last = {}
+    for t in res.turns:
+        last[t.sid] = t
+    ended = sum(1 for sc in sessions if sc.sid in last and (
+        last[sc.sid].state != "finished"
+        or last[sc.sid].turn == len(sc.turns) - 1))
+    check(ended + res.truncated_sessions == len(sessions),
+          f"sessions ended {ended} + truncated {res.truncated_sessions}")
+    srv.sched.alloc.check()
+    check(owners(srv.sched.alloc) == [], f"pages held: {owners(srv.sched.alloc)}")
+    srv.sched.flush_prefix()
+    check(srv.sched.alloc.num_in_use == 0,
+          f"{srv.sched.alloc.num_in_use} pages in use after the flush")
+    m, s = srv.metrics, res.summary()
+    lookups, hits, saved, cow, pre = (
+        a - b for a, b in zip((m.prefix_lookups, m.prefix_hits,
+                               m.saved_prefill_tokens, m.cow_copies,
+                               m.preemptions), before))
+    return dict(wall_s=wall, turns=s["turns"], finished=s["finished"],
+                goodput_tokens_per_s=s["goodput_tokens_per_sec"],
+                shed_rate=s["shed_rate"], slo_met_rate=s["slo_met_rate"],
+                ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
+                prefix_hit_rate=hits / lookups if lookups else 0.0,
+                saved_prefill_tokens=saved, cow_copies=cow, preemptions=pre,
+                truncated_sessions=res.truncated_sessions)
+
+
+def phase_serving_edge(torch, np, dev, cfg, params, prompts, yi_streams):
+    """Phase 8: 8b and 8c on one Yi-9B server and frontend, then 8b's SSE streams held
+    to a fresh server's ``drain()`` (the first server freed before)."""
+    import gc
+
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.serving.server import PagedServer
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    srv, fe, streams, fe_res = phase_frontend(torch, np, dev, cfg, params,
+                                              prompts)
+    fe_counts = launches()
+    reset_launches()
+    lg = phase_loadgen(torch, np, srv, fe, cfg)
+    lg_counts = launches()
+    del srv, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle_srv = PagedServer(cfg, params, gcfg=GriffinConfig(sparsity=0.5),
+                             device=dev, **YI_SERVER)
+    reset_launches()
+    oracle = serve(oracle_srv, prompts)
+    drain_counts = launches()
+    del oracle_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i in streams:
+        check(streams[i] == oracle[i],
+              f"SSE stream {i} {streams[i]} != drain() {oracle[i]}")
+    fe_res["token_match_vs_phase4"] = match_rate(oracle, yi_streams)
+    for name, counts in (("frontend", fe_counts), ("loadgen", lg_counts),
+                         ("drain", drain_counts)):
+        kinds = attn_kinds(counts)
+        check(kinds["decode"] > 0 and kinds["prefill"] > 0
+              and counts["expert_stat"] > 0, f"phase 8 {name} launches {counts}")
+    fe_res["launches"], lg["launches"] = fe_counts, lg_counts
+    return fe_res, lg, drain_counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1341,6 +1735,28 @@ def main() -> int:
     for name, r in (("dense", spec_dense), ("spec", spec)):
         if "decode_tick_profile" in r:
             print(f"  {name} tick profile: " + json.dumps(r["decode_tick_profile"]))
+
+    t8 = t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_counts, launch_lines = phase_launcher(torch, np, Path(tmp))
+    print(f"phase 8a launch.serve.main tinylm card == --device cpu "
+          f"(GRIFFIN int8 spec_k=3 + trace + snapshot + flocking; dense "
+          f"gather; tier 0.5): {time.perf_counter() - t0:.1f} s, launches "
+          f"{launch_counts}")
+    for name, lines_ in launch_lines.items():
+        print(f"  {name}: " + " | ".join(lines_))
+    t0 = time.perf_counter()
+    fe_res, lg_res, drain_counts = phase_serving_edge(
+        torch, np, dev, cfg, params, prompts, yi_streams)
+    print(f"phase 8b yi-9b HTTP/SSE frontend, 4 requests + 1 hung up, "
+          f"flocking every 4 ticks, SSE == drain() ({card}):")
+    for k, v in fe_res.items():
+        print(f"  {k}: {v}")
+    print(f"phase 8c yi-9b loadgen, 6 sessions on the real clock ({card}):")
+    for k, v in lg_res.items():
+        print(f"  {k}: {v}")
+    print(f"phase 8 total: {time.perf_counter() - t8:.1f} s (8b-8c "
+          f"{time.perf_counter() - t0:.1f} s)")
     del params
 
     # launches on each kernel's main path: the serving runs for the
@@ -1349,7 +1765,9 @@ def main() -> int:
              "yi9b_int8": quant["int8"]["launches"],
              "yi9b_fp8": quant["fp8"]["launches"], "ffn_entry_points": ff_counts,
              "spec_tinylm": spec_tiny_counts, "yi9b_dense": spec_dense["launches"],
-             "yi9b_spec": spec["launches"]}
+             "yi9b_spec": spec["launches"], "launcher_tinylm": launch_counts,
+             "frontend_yi9b": fe_res["launches"], "loadgen_yi9b": lg_res["launches"],
+             "drain_yi9b": drain_counts}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -1396,6 +1814,7 @@ def main() -> int:
              "launch_floor_ms": kernels["launch_floor_ms"], "model": model, "yi9b": yi,
              "yi9b_quant": quant, "ffn_entry_points": ff,
              "spec_tinylm": spec_tiny, "yi9b_spec": spec, "yi9b_dense": spec_dense,
+             "launcher": launch_lines, "frontend": fe_res, "loadgen": lg_res,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

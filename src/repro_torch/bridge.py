@@ -6,7 +6,10 @@ keeps the rest unrolled (``seg{i}/layer{j}``); the port keeps one entry
 per layer.  These helpers take trees whose leaves are already numpy
 arrays (``jax.tree.map(np.asarray, tree)`` on the reference side) and
 return torch tensors on a device, bit for bit — no weights are
-downloaded or re-drawn.  ``device=None`` means the card, as for every
+downloaded or re-drawn (leaves that are torch tensors already, such as
+the bf16 leaves of a restored checkpoint, are moved as they are).
+``params_to_jax`` goes the other way, so the port can write checkpoints
+in the reference's layout.  ``device=None`` means the card, as for every
 entry point of the port; the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
@@ -23,6 +26,8 @@ from repro_torch.models import decoder
 def _to_torch(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):  # e.g. a restored bf16 checkpoint leaf
+        return tree.to(device)
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits
         bits = torch.from_numpy(arr.view(np.int16).copy())
@@ -72,3 +77,31 @@ def tree_from_jax(tree: Dict, cfg, device=None) -> Dict[int, Any]:
     device = backend.resolve_device(device)
     return {li: _to_torch(leaf, device)
             for li, leaf in per_layer(tree, cfg).items()}
+
+
+def params_to_jax(params: Dict, cfg) -> Dict:
+    """The port's parameters -> the reference's layout (scan leaves
+    stacked on a leading axis), as CPU tensors: the inverse of
+    ``params_from_jax``, for writing checkpoints either package reads."""
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.detach().cpu()
+
+    def stack(leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack([lf[k] for lf in leaves]) for k in leaves[0]}
+        return torch.stack(leaves)
+
+    out: Dict[str, Any] = {"embed": cpu(params["embed"]),
+                           "final_norm": cpu(params["final_norm"])}
+    if "head" in params:
+        out["head"] = cpu(params["head"])
+    groups: Dict[tuple, list] = {}
+    for li, (path, _, _) in enumerate(decoder.layer_paths(cfg)):
+        groups.setdefault(tuple(path.split("/")), []).append(
+            cpu(params["layers"][li]))
+    for (seg, name), leaves in groups.items():
+        out.setdefault(seg, {})[name] = stack(leaves) \
+            if name.startswith("pos") else leaves[0]
+    return out

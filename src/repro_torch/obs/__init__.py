@@ -1,5 +1,8 @@
-"""Serving observability: span tracing and bounded metrics (copies of
-the reference's host-side ``obs`` modules)."""
+"""Serving observability (the reference's ``obs`` package): span
+tracing (``trace``) and its Chrome/Perfetto export (``export``), bounded
+metrics (``registry``), straggler telemetry (``stragglers``), and live
+flocking telemetry (``flocking``: Jaccard / angular drift of each
+request's GRIFFIN selection, fed by ``PagedServer``'s probe)."""
 from repro_torch.obs.registry import Registry, exp_buckets, linear_buckets
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 

@@ -18,10 +18,12 @@ Execution model per ``step()`` (one scheduler tick):
 
 All host state (block tables, positions, tokens) lives in the
 scheduler's request objects; the model, pools, statistics and compacted
-weights live on ``device`` (the card unless ``device="cpu"``).  Block
-tables are narrowed to the tick's live context (the widest request's
-page count, rounded up to a power of two).  The pools and the per-slot
-compacted buffers are updated in place.
+weights live on ``device`` (the card unless ``device="cpu"``).  The
+gather backend narrows block tables to the tick's live context (the
+widest request's page count, rounded up to a power of two); the fused
+kernel gets them at full width, so its split plan, and with it every
+request's logits, do not depend on the batch (``_live_width``).  The
+pools and the per-slot compacted buffers are updated in place.
 
 Attention backends (``kernel_backend``): ``fused`` runs the paged
 attention kernel (``kernels/paged_attn.py``), ``gather`` the
@@ -62,8 +64,17 @@ Greedy speculative output is token-identical to dense greedy decode
 (``gcfg=None``); resumes after preemption rebuild dense too, and drafts
 always compact at the global budget (tiers change nothing).
 
-Not ported yet (each raises ``NotImplementedError``): tensor
-parallelism (``mesh``) and flocking telemetry (``flocking_every``).
+Flocking telemetry (``flocking_every > 0``, needs ``gcfg``): every N
+ticks, before the decode or speculative step, a dense ``decode_step_paged``
+with ``collect_stats`` runs over the same inputs and feeds
+``obs.flocking.FlockingMonitor``.  The port's steps write the pools in
+place (the reference's probe writes into a copy it throws away), so the
+probe saves the page each probed row writes — position ``cache_len`` —
+and the trash page, in every layer's K/V pool and scale pool, and writes
+them back after the probe: serving state is bit-identical around it.
+
+Not ported yet (raises ``NotImplementedError``): tensor parallelism
+(``mesh``).
 """
 from __future__ import annotations
 
@@ -77,6 +88,7 @@ from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
 from repro_torch.models import decoder
 from repro_torch.models.layers.attention import resolve_attn_backend
+from repro_torch.obs.flocking import FlockingMonitor
 from repro_torch.obs.stragglers import StepTimeMonitor
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving import sampling
@@ -84,6 +96,7 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged import PagedConfig
 from repro_torch.serving.scheduler import (
     DECODING,
+    FINISHED,
     PrefillWork,
     ScheduledRequest,
     Scheduler,
@@ -130,9 +143,6 @@ class PagedServer:
         if mesh is not None:
             raise _not_ported("tensor parallelism (mesh)",
                               "Queue A: tensor parallelism")
-        if flocking_every:
-            raise _not_ported("flocking telemetry (flocking_every)",
-                              "Queue A: off-path modules, obs/flocking.py")
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
         self.device = backend_lib.resolve_device(device)
         table = params["embed"]["table"]
@@ -188,11 +198,22 @@ class PagedServer:
                                               self.kv_dtype, self.device)
         # per-slot compacted FF: {li: {leaf: [n_slots, ...]}}
         self.pruned_slots: Optional[Dict[int, Dict]] = None
+        # live requests holding a compacted FF copy (``pruned_host``),
+        # released when they finish (see ``_release_finished``)
+        self._compacted: Dict[int, ScheduledRequest] = {}
         self._next_rid = 0
         self._tick_attn_bytes = 0.0  # modeled KV read bytes, this tick
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.sched.metrics.tracer = self.tracer
         self.steps_mon = StepTimeMonitor(self.sched.metrics.registry)
+        if flocking_every and self.gcfg is None:
+            raise ValueError(
+                "flocking_every needs gcfg: the telemetry compares the "
+                "GRIFFIN expert selection against decode activations"
+            )
+        self.flocking_every = flocking_every
+        self.flocking = FlockingMonitor(self.gcfg, self.sched.metrics.registry,
+                                        cfg) if flocking_every else None
         self._tick_no = 0
 
     # -- device calls --------------------------------------------------------
@@ -232,6 +253,27 @@ class PagedServer:
     @property
     def metrics(self) -> ServingMetrics:
         return self.sched.metrics
+
+    def reset_metrics(self) -> ServingMetrics:
+        """Swap in a fresh ``ServingMetrics`` (same clock + tracer) and
+        re-home the registry-backed monitors on it.
+
+        For steady-state measurement: drain a warmup trace first, call
+        this, then run the timed trace — percentiles, counters and the
+        throughput window then cover only post-warmup requests.  Call
+        only between drains (no live requests).  Serving state is
+        untouched: pages, prefix cache and adaptive ``spec_k`` controller
+        state all survive."""
+        old = self.sched.metrics
+        if self.sched.has_work:
+            raise RuntimeError(
+                "reset_metrics with live requests would drop their timelines")
+        fresh = ServingMetrics(clock=old.clock, tracer=old.tracer)
+        self.sched.metrics = fresh
+        self.steps_mon = StepTimeMonitor(fresh.registry)
+        if self.flocking is not None:
+            self.flocking = FlockingMonitor(self.gcfg, fresh.registry, self.cfg)
+        return fresh
 
     def submit(self, prompt: np.ndarray, max_new: int,
                rid: Optional[int] = None, priority: int = 0,
@@ -279,6 +321,13 @@ class PagedServer:
                              tokens=len(plan.prefill.tokens)):
                     self._run_prefill(plan.prefill)
             if plan.decode:
+                if self.flocking is not None \
+                        and self._tick_no % self.flocking_every == 0:
+                    # dense probe before the decode/spec step; the pages
+                    # it writes are restored
+                    with tr.span("flocking_probe", cat="obs",
+                                 batch=len(plan.decode)):
+                        self._run_flocking_probe(plan.decode)
                 ks = self._plan_spec(plan.decode, plan) if self.spec_k \
                     else None
                 if ks:
@@ -293,11 +342,38 @@ class PagedServer:
                             shared_pages=self.sched.alloc.num_shared,
                             attn_bytes_read=self._tick_attn_bytes)
         self._tick_attn_bytes = 0.0
+        self._release_finished()
+        if self.flocking is not None:
+            for rid in [r for r in self.flocking.live_rids()
+                        if r in self.sched.finished]:
+                self.flocking.on_finish(rid)
         self.steps_mon.on_tick(metrics.clock() - t0, None)
         tr.counter("pool", occupancy=self.sched.pool_in_use_frac(),
                    decode_batch=len(plan.decode),
                    shared_pages=self.sched.alloc.num_shared)
         return self.sched.has_work
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """Client-side abort (between ticks): drop the request wherever
+        it lives, free its pages, count it as a ``cancelled`` (or
+        ``shed``) abort.  Returns False for unknown or already-finished
+        rids."""
+        ok = self.sched.cancel(rid, reason=reason)
+        self._release_finished()
+        if ok and self.flocking is not None:
+            self.flocking.on_finish(rid)
+        return ok
+
+    def _release_finished(self) -> None:
+        """Drop the compacted FF copy of every request that finished or
+        was aborted.  The scheduler keeps finished requests (their tokens)
+        for good, and at Yi-9B width one copy is ~6.5 GB on the card, so a
+        long-running server must not keep them; a preempted request keeps
+        its copy to resume with."""
+        for rid, req in list(self._compacted.items()):
+            if req.state == FINISHED:
+                req.pruned_host = None
+                del self._compacted[rid]
 
     def drain(self) -> Dict[int, List[int]]:
         """Run until idle; returns generated tokens per finished request."""
@@ -319,10 +395,16 @@ class PagedServer:
 
     # -- live-context narrowing + modeled attention traffic ----------------
     def _live_width(self, reqs: List[ScheduledRequest]) -> int:
-        """Block-table width for this call: the widest request's page
-        count, rounded up to a power of two, capped at
-        ``max_pages_per_request``."""
+        """Block-table width for this call.  The fused kernel always gets
+        ``max_pages_per_request``: its page-split plan follows the table
+        width, so a width that followed the widest request of the batch
+        would make a request's logits depend on who shares its tick, and
+        bf16 greedy streams would change with the schedule (pages past a
+        request's count leave their split empty).  The gather path takes
+        the widest request's page count, rounded up to a power of two."""
         W = self.pcfg.max_pages_per_request
+        if self.backend == "fused":
+            return W
         n = max((len(r.table.pages) for r in reqs), default=1)
         w = 1
         while w < max(n, 1):
@@ -398,9 +480,19 @@ class PagedServer:
                 else:
                     ffn_tree = decoder.extract_ffn_tree(self.params, self.cfg)
                     ks = None if tier is None else self._k_tree(tier)
+                    # telemetry compares against the global budget, so
+                    # tiered requests are not tracked; at that budget the
+                    # compaction's own selection is ``select_tree``'s
+                    sel = {} if self.flocking is not None and tier is None \
+                        else None
                     req.pruned_host, req.k_widths = \
                         griffin_lib.select_and_compact(
-                            req.s_sq_acc, ffn_tree, self.gcfg, ks=ks)
+                            req.s_sq_acc, ffn_tree, self.gcfg, ks=ks,
+                            on_select=None if sel is None
+                            else sel.__setitem__)
+                    if sel is not None:
+                        self.flocking.on_select(req.rid, sel, req.s_sq_acc)
+                    self._compacted[req.rid] = req
                 req.compacted = True
                 req.s_sq_acc = None
             # slot install is deferred to the decode tick
@@ -461,6 +553,44 @@ class PagedServer:
                 next_tok[r.slot] = best[r.slot]
         for req in reqs:
             self.sched.finish_decode_token(req, next_tok[req.slot])
+
+    # -- flocking telemetry (obs/flocking.py) ------------------------------
+    def _run_flocking_probe(self, reqs: List[ScheduledRequest]) -> None:
+        """Dense stats probe over the live decode batch: one un-pruned
+        ``decode_step_paged`` with ``collect_stats`` on the same inputs
+        the coming decode tick uses; only the per-slot ``s_sq`` rows feed
+        the monitor.
+
+        The step writes each probed row's K/V in place, and with int8/fp8
+        pools may grow that page's scale and re-encode the page; masked
+        rows of the gather path land in the trash page.  Those pages, in
+        every layer's pools and scale pools, are saved before the probe
+        and written back after it, so the pools are bit-identical around
+        it."""
+        probed = [r for r in reqs if r.compacted and r.generated]
+        if not probed:
+            return
+        toks, pos, mask, bts, _ = self._decode_inputs(probed)
+        page = self.pcfg.page_size
+        touched = {self.pcfg.num_pages}  # the trash page
+        touched.update(int(bts[r.slot, r.cache_len // page]) for r in probed)
+        idx = self._tensor(np.asarray(sorted(touched), np.int64))
+        saved = [{k: kv_quant.as_bytes(buf).index_select(0, idx)
+                  for k, buf in pool.items()} for pool in self.pools]
+        try:
+            with self.tracer.annotation("flocking_probe"):
+                _, _, stats = self._step_model(bts, toks, pos, mask, None,
+                                               collect=True)
+        finally:
+            for pool, snap in zip(self.pools, saved):
+                for k, buf in pool.items():
+                    kv_quant.as_bytes(buf).index_copy_(0, idx, snap[k])
+        part = decoder.prune_stats_tree(stats, self.cfg)
+        results = self.flocking.on_probe(
+            {r.rid: r.slot for r in probed}, part)
+        for rid, v in results.items():
+            self.tracer.ainstant(rid, "flocking", jaccard=v["jaccard"],
+                                 angular=v["angular"])
 
     # -- speculative draft / verify / commit / rollback --------------------
     def _plan_spec(self, reqs: List[ScheduledRequest],

@@ -627,3 +627,88 @@ def test_draft_verify_round_fused_equals_plain(dev, monkeypatch):
     for a, b in zip(pk, pp):
         for key in a:
             torch.testing.assert_close(a[key][:-1], b[key][:-1], rtol=1e-5, atol=1e-5)
+
+
+def _tinylm_host_params():
+    """tinylm drawn on the CPU (a CUDA generator draws other values),
+    projection matrices scaled by 2 so that greedy streams vary."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = get_config("tinylm")
+    params = decoder.init_params(cfg, seed=0, device="cpu")
+    for lp in params["layers"]:
+        for group in ("mixer", "ffn"):
+            for k, v in lp[group].items():
+                if k.startswith("w"):
+                    v.mul_(2.0)
+    return cfg, params
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flocking_probe_leaves_fused_pools_bit_identical(dev, kv_dtype):
+    """The probe's fused-kernel writes (and, int8, page re-encodes) are
+    undone: every pool and scale pool is bit-identical around each probe,
+    and the streams equal those with telemetry off."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.kernels import kv_quant
+    from repro_torch.serving.server import PagedServer
+
+    cfg, host = _tinylm_host_params()
+    params = _to(host, dev)
+    rng = np.random.default_rng(19)
+    trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 10)
+             for n in (13, 22, 17)]
+    kw = dict(page_size=8, num_pages=48, n_slots=2, prefill_chunk=16,
+              max_len=96, kernel_backend="fused", kv_dtype=kv_dtype,
+              device=dev)
+    outs, probes = {}, 0
+    for every in (0, 2):
+        srv = PagedServer(cfg, params, gcfg=GriffinConfig(sparsity=0.5),
+                          flocking_every=every, **kw)
+        if every:
+            probe = srv._run_flocking_probe
+
+            def checked(reqs, probe=probe, srv=srv):
+                nonlocal probes
+                before = [{k: kv_quant.as_bytes(v).clone() for k, v in p.items()}
+                          for p in srv.pools]
+                probe(reqs)
+                torch.cuda.synchronize()
+                probes += 1
+                for b, p in zip(before, srv.pools):
+                    for k in b:
+                        assert torch.equal(b[k], kv_quant.as_bytes(p[k])), k
+
+            srv._run_flocking_probe = checked
+        for i, (p, m) in enumerate(trace):
+            srv.submit(p, m, rid=i)
+        outs[every] = srv.drain()
+    assert outs[0] == outs[2]
+    assert probes > 0 and srv.flocking.probes.value > 0
+
+
+def test_launcher_on_card_equals_cpu(dev, tmp_path, capsys):
+    """``launch.serve.main`` on the card returns the streams of the same
+    call with ``--device cpu``, from one checkpoint the port wrote."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.launch import serve
+
+    cfg, host = _tinylm_host_params()
+    checkpointer.save(str(tmp_path), 1, {"params": bridge.params_to_jax(host, cfg)})
+    base = ["--arch", "tinylm", "--requests", "4", "--max-len", "64",
+            "--ckpt-dir", str(tmp_path)]
+    for extra in ([], ["--kv-dtype", "int8", "--spec-k", "3"]):
+        card = serve.main(base + extra + ["--device", "cuda"])
+        cpu = serve.main(base + extra + ["--device", "cpu"])
+        assert card == cpu and len({t for s in cpu.values() for t in s}) > 4
+    assert "[device] cuda" in capsys.readouterr().out
