@@ -86,7 +86,24 @@ Phases (any failure raises and the script exits non-zero):
    generator on the real clock over 8b's server: 6 chat sessions of at
    most 3 turns on 2 Zipf-shared 256-token system prompts, ``max_new`` at
    most 32 -- every session ends and the pool empties; goodput, shed
-   rate, prefix hit rate, COW copies and TTFT p99 reported.
+   rate, prefix hit rate, COW copies and TTFT p99 reported;
+9. the paper's contiguous path: (a) phase 3's tinylm weights, fp32, every
+   result equal to the same call on the CPU: ``GenerationEngine.generate``
+   greedy tokens (dense, GRIFFIN 0.5 ``topk`` and ``blocks``, the int8
+   cache), ``evaluate.generation_ppl`` and ``classification_sim`` for
+   every deterministic method within ``EVAL_RTOL`` (``agree_full`` and
+   ``acc`` exactly), and ``analysis.profile.derive_profile`` written to
+   JSON and served by ``launch.serve.main --tier 0.5 --sparsity-profile``;
+   ``expert_stat`` launched once per FF layer on every prefill with
+   statistics and nothing else launched; (b) phase 4's Yi-9B model:
+   ``GenerationEngine`` over 2 prompts of 512 tokens and 64 new tokens,
+   dense and GRIFFIN 0.5 (prefill ms, selection ms, decode tokens/s, TPOT
+   p50, peak memory, ``expert_stat`` launches per prefill -- 48 -- and
+   the token agreement of the two, no floor: random weights), then
+   ``generation_ppl`` at P=448, G=64 for full, griffin, magnitude and
+   wanda (finite, wall time each); ``expert_stat`` at the engine's shape
+   [2, 512, 11008] fp32 and bf16 against its plain version, the bf16 one
+   timed beside its bound and the launch floor.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -94,7 +111,8 @@ decode case; ``prefill_*`` and ``verify_*`` give the prefill chunk's and
 the verify call's time and bound, and ``launches_decode`` /
 ``launches_prefill`` / ``launches_verify`` split the launches by kind;
 ``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
-``compacted_ms``, the compacted products' time); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+``compacted_ms``, the compacted products' time; ``expert_stat`` adds
+``engine_*``, its numbers at phase 9b's prompt shape); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -287,14 +305,16 @@ def fenced_device_events(torch, fn, tries: int = 3, complete=None):
     trace may come back without some of them: on the H100 the first
     records after the profiler starts have been seen to go missing (one
     to a few hundred in a row), and nothing else.  So 16 short GPU spins,
-    finished before the call, go first to take that loss; the call runs
-    inside a ``record_function`` range, and its events are the device
-    events that start inside that range or after it, up to a closing spin
-    launched after the call.  A trace without the range or the closing
-    spin, with no event of the call, or whose events ``complete`` rejects
-    says nothing certain about ``fn`` and is taken again (``fn`` runs
-    again), at most ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    finished before the call, go first to take that loss, and one more
+    spin goes after it.  On the device timeline (one stream, so in launch
+    order) the call's events are those between the last leading spin and
+    the closing spin; the trace's own order is used, not the host clock,
+    whose offset to the device clock a trace does not fix.  A trace that
+    lost every leading spin (the loss may have reached the call), lacks
+    the closing spin, holds no event of the call, or whose events
+    ``complete`` rejects says nothing certain about ``fn`` and is taken
+    again (``fn`` runs again), at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
 
     names = []
     for _ in range(tries):
@@ -302,21 +322,16 @@ def fenced_device_events(torch, fn, tries: int = 3, complete=None):
             for _ in range(16):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            with record_function("fenced_call"):
-                fn()
+            fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        # the range shows on both timelines: its host span marks the call,
-        # its device twin is no kernel
-        on_card = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        marks = [e for e in prof.events() if e.name == "fenced_call"
-                 and not str(e.device_type).endswith("CUDA")]
-        evs = sorted((e for e in on_card if e.name != "fenced_call"),
+        evs = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
                      key=lambda e: e.time_range.start)
         names = [e.name for e in evs]
-        if marks and evs and "spin_kernel" in evs[-1].name:
-            t0 = marks[0].time_range.start
-            inner = [e for e in evs[:-1] if e.time_range.start >= t0]
+        spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if len(spins) >= 2 and spins[-1] == len(evs) - 1:
+            inner = evs[spins[-2] + 1 : -1]
             if inner and (complete is None or complete(inner)):
                 return inner
     raise AssertionError(f"torch.profiler traces lacked the call's events "
@@ -1615,13 +1630,300 @@ def phase_serving_edge(torch, np, dev, cfg, params, prompts, yi_streams):
     return fe_res, lg, drain_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's contiguous path (GenerationEngine, evaluation)
+# ---------------------------------------------------------------------------
+
+#: 9a's engines: name -> (config overrides, GRIFFIN config or None)
+ENGINE_VARIANTS = {"dense": ({}, None),
+                   "topk": ({}, dict(sparsity=0.5)),
+                   "blocks": ({}, dict(sparsity=0.5, mode="blocks", block_size=128)),
+                   "int8": (dict(kv_cache_int8=True), dict(sparsity=0.5))}
+#: 9a's deterministic evaluation methods, and the relative tolerance of
+#: their card numbers against the CPU's (fp32, TF32 off: sums in another
+#: order move the mean NLL by ~1e-6)
+EVAL_METHODS = ("full", "griffin", "griffin_batched", "magnitude", "wanda",
+                "blocks")
+EVAL_RTOL = 1e-4
+#: 9b: prompts, prompt length, new tokens; the PPL protocol's prompt and
+#: generation partitions and its methods
+YI_ENGINE = dict(B=2, S=512, steps=64)
+YI_PPL = dict(P=448, G=64, methods=("full", "griffin", "magnitude", "wanda"))
+
+
+def phase_engine_tinylm(torch, np, dev, tmp: Path):
+    """9a, phase 3's tinylm weights (fp32, TF32 off), every result held to
+    the same call on the CPU: ``GenerationEngine.generate`` greedy tokens
+    (dense, GRIFFIN 0.5 ``topk`` and ``blocks``, the int8 cache); the
+    evaluation protocols for every deterministic method within
+    ``EVAL_RTOL``; a ``derive_profile`` profile, written to JSON and
+    served through ``launch.serve.main --tier 0.5 --sparsity-profile``.
+    ``expert_stat`` must launch once per FF layer on every prefill with
+    statistics.  Returns the card runs' launches and the results."""
+    from repro_torch import bridge
+    from repro_torch.analysis.profile import derive_profile
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.core import evaluate
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg, host, _, _ = tinylm_setup(np)
+    card = to_device(host, dev)
+    n_ff = len(decoder.extract_ffn_tree(host, cfg))
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    seqs = rng.integers(0, cfg.vocab_size, (3, 32)).astype(np.int32)
+    total, res = {}, {}
+
+    def on_both(fn):
+        """fn(device, params) on the card, then the CPU: (card, CPU, card
+        launches); the CPU run must launch nothing."""
+        out, counts = [], []
+        for d, p in ((dev, card), (torch.device("cpu"), host)):
+            reset_launches()
+            out.append(fn(d, p))
+            counts.append(launches())
+        check(sum(counts[1].values()) == 0, f"9a CPU run launched {counts[1]}")
+        add_counts(total, counts[0])
+        return out[0], out[1], counts[0]
+
+    def only(counts, **want):
+        return all(counts[k] == want.get(k, 0) for k in counts)
+
+    for name, (over, g) in ENGINE_VARIANTS.items():
+        c = cfg.replace(**over)
+        gcfg = None if g is None else GriffinConfig(**g)
+        got, want, counts = on_both(lambda d, p: GenerationEngine(
+            c, p, gcfg, max_len=48, device=d).generate(prompts, 16).cpu())
+        check(torch.equal(got, want), f"9a engine {name}: card {got} != CPU {want}")
+        check(len(torch.unique(want)) > 4, f"9a engine {name}: degenerate {want}")
+        check(only(counts, expert_stat=n_ff if gcfg else 0),
+              f"9a engine {name} launches {counts}")
+        res[f"engine_{name}"] = want[0, :8].tolist()
+
+    for method in EVAL_METHODS:
+        got, want, counts = on_both(lambda d, p: (
+            evaluate.generation_ppl(p, cfg, seqs, 24, method),
+            evaluate.classification_sim(p, cfg, seqs, method)))
+        (ppl_c, cls_c), (ppl_h, cls_h) = got, want
+        rel = max(abs(ppl_c - ppl_h) / ppl_h,
+                  abs(cls_c["nll"] - cls_h["nll"]) / abs(cls_h["nll"]))
+        check(rel <= EVAL_RTOL, f"9a {method}: card ppl {ppl_c} nll {cls_c} "
+              f"vs CPU {ppl_h} {cls_h}: relative {rel:.3g}")
+        check(cls_c["agree_full"] == cls_h["agree_full"]
+              and cls_c["acc"] == cls_h["acc"], f"9a {method}: {cls_c} vs {cls_h}")
+        # one prompt pass with statistics per protocol
+        check(only(counts, expert_stat=2 * n_ff), f"9a {method} launches {counts}")
+        res[f"eval_{method}"] = dict(ppl=ppl_c, **cls_c, rel_vs_cpu=rel)
+
+    got, want, counts = on_both(lambda d, p: derive_profile(cfg, p, seqs[:2]))
+    check([q for q, _ in got.weights] == [q for q, _ in want.weights],
+          f"9a profile paths {got.weights} vs {want.weights}")
+    diff = max(abs(a - b) for (_, wa), (_, wb) in zip(got.weights, want.weights)
+               for a, b in zip(wa, wb))
+    check(diff <= 1e-4 and only(counts, expert_stat=2 * n_ff),
+          f"9a profile: weights differ by {diff}, launches {counts}")
+    path = tmp / "profile.json"
+    got.save(path)
+    ckpt = tmp / "ckpt"
+    checkpointer.save(str(ckpt), 1, {"params": bridge.params_to_jax(host, cfg)})
+    base = ["--arch", "tinylm", "--requests", "4", "--ckpt-dir", str(ckpt),
+            "--tier", "0.5", "--sparsity-profile", str(path)]
+    (out_c, text), (out_h, _), counts = on_both(
+        lambda d, p: launcher(base + ["--device", d.type]))
+    check(out_c == out_h, f"9a profiled launcher: card {out_c} != CPU {out_h}")
+    check(f"[profile] {path}" in text and counts["expert_stat"] > 0,
+          f"9a profiled launcher: {text} launches {counts}")
+    res["profile"] = dict(weights=dict(got.weights), max_diff_vs_cpu=diff,
+                          rid0=out_c[0][:8])
+    return total, res
+
+
+def profile_engine(torch, eng, prompts, n_steps: int = 4):
+    """Device time by kernel of one ``GenerationEngine`` prefill (with
+    GRIFFIN's statistics and selection) and of ``n_steps`` decode steps on
+    the compacted FF (``torch.profiler``, fenced as ``device_kernels``
+    fences a call), beside their host-clock wall; the prefill trace is
+    taken again when it lacks an ``expert_stat`` record of any layer."""
+    from repro_torch.models import decoder
+
+    B, S = prompts.shape
+    state, walls = {}, {"prefill": [], "decode": []}
+
+    def prefill():
+        t0 = time.perf_counter()
+        _, aux = eng.prefill(prompts)
+        state["pruned"] = eng.select_and_compact(aux.stats)
+        state["cache"] = decoder.fill_cache_from_prefill(
+            eng.cfg, decoder.init_cache(eng.cfg, B, eng.max_len, prompts.device),
+            aux.kv)
+        torch.cuda.synchronize()
+        walls["prefill"].append(time.perf_counter() - t0)
+
+    def decode():
+        tok = prompts[:, -1:]
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, _ = eng.decode(state["cache"], state["pruned"], tok, S + i)
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        walls["decode"].append((time.perf_counter() - t0) / n_steps)
+
+    out = {}
+    for name, fn, per, complete in (
+            ("prefill", prefill, 1, lambda evs: sum(
+                "expert_stat" in e.name for e in evs) == eng.cfg.num_layers),
+            ("decode_step", decode, n_steps, None)):
+        evs = fenced_device_events(torch, fn, 3, complete=complete)
+        by_name = {}
+        for e in evs:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+        rows = sorted(((k, ms / per, c // per) for k, (ms, c) in by_name.items()),
+                      key=lambda r: -r[1])
+        wall = walls["prefill" if name == "prefill" else "decode"][-1] * 1e3
+        out[name] = dict(wall_ms=wall, device_busy_ms=sum(r[1] for r in rows),
+                         device_records=sum(r[2] for r in rows),
+                         top=[dict(kernel=k[:90], ms=ms, count=c)
+                              for k, ms, c in rows[:10]])
+    return out
+
+
+def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
+    """9b, Yi-9B at full size (bf16, random weights from seed 0):
+    ``GenerationEngine`` over B=2 prompts of 512 tokens and 64 new tokens,
+    dense and with GRIFFIN 0.5 ``topk`` (prefill, GRIFFIN's selection and
+    every decode step timed on the host clock after a ``synchronize``;
+    every decode logit finite; ``expert_stat`` launched once per FF layer
+    of a GRIFFIN prefill), each after an untimed warm-up call of its
+    engine; then ``evaluate.generation_ppl`` at P=448, G=64 for full,
+    griffin, magnitude and wanda: every value finite.  ``profile`` adds
+    ``profile_engine``'s breakdown of the GRIFFIN engine.  Returns the
+    launches of both parts and the numbers."""
+    import gc
+
+    from repro_torch.core import evaluate
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.serving.engine import GenerationEngine
+
+    B, S, steps = YI_ENGINE["B"], YI_ENGINE["S"], YI_ENGINE["steps"]
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                               .astype(np.int32)).to(dev)
+    total, res, streams = {}, {}, {}
+    for name, gcfg in (("dense", None), ("griffin", GriffinConfig(sparsity=0.5))):
+        eng = GenerationEngine(cfg, params, gcfg, max_len=S + steps, device=dev)
+        eng.generate(prompts, 2)  # first calls at these shapes, untimed
+        times = {"prefill": [], "select": [], "decode": []}
+
+        def timed(fn, key, finite=False):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+                if finite:
+                    check(bool(torch.isfinite(out[0]).all()),
+                          f"9b {name}: non-finite logits")
+                return out
+            return run
+
+        eng.prefill = timed(eng.prefill, "prefill", finite=True)
+        eng.select_and_compact = timed(eng.select_and_compact, "select")
+        eng.decode = timed(eng.decode, "decode", finite=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        add_counts(total, counts)
+        n_stat = counts["expert_stat"]
+        check(n_stat == (cfg.num_layers if gcfg else 0)
+              and sum(counts.values()) == n_stat, f"9b {name} launches {counts}")
+        check(tuple(out.shape) == (B, steps)
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"9b {name}: tokens {out}")
+        streams[name] = out.cpu()
+        dec = times["decode"]
+        res[name] = dict(
+            prefill_ms=times["prefill"][0] * 1e3,
+            select_compact_ms=times["select"][0] * 1e3 if times["select"] else None,
+            decode_tokens_per_s=B * len(dec) / sum(dec),
+            tpot_p50_ms=statistics.median(dec) * 1e3,
+            generate_wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            expert_stat_per_prefill=n_stat, tokens=out[:, :8].tolist())
+        if profile and gcfg is not None:
+            del eng.prefill, eng.select_and_compact, eng.decode  # untimed
+            res["griffin_profile"] = profile_engine(torch, eng, prompts)
+        del eng
+    res["token_match_griffin_vs_dense"] = float(
+        (streams["griffin"] == streams["dense"]).float().mean())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    P, G = YI_PPL["P"], YI_PPL["G"]
+    seqs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P + G))
+                            .astype(np.int32)).to(dev)
+    res["ppl"] = {}
+    for method in YI_PPL["methods"]:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl = evaluate.generation_ppl(params, cfg, seqs, P, method)
+        wall = time.perf_counter() - t0
+        counts = launches()
+        add_counts(total, counts)
+        check(np.isfinite(ppl) and counts["expert_stat"] == cfg.num_layers,
+              f"9b generation_ppl {method}: {ppl}, launches {counts}")
+        res["ppl"][method] = dict(ppl=ppl, wall_s=wall,
+                                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, res
+
+
+def engine_shape_expert_stat(torch, dev, F: int):
+    """``expert_stat`` at the engine's whole-prompt shape [2, 512, F]
+    (fp32 and bf16) against its plain version under phase 2's tolerance;
+    the bf16 case timed beside its bound and its plain version (the
+    launches here count toward no path)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    B, S = YI_ENGINE["B"], YI_ENGINE["S"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(B, S, F, generator=gen, device=dev).to(dtype)
+        got, want = ops.griffin_stat(z), ref.expert_stat_ref(z)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        what = f"expert_stat [{B},{S},{F}] {dtype}"
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5), f"{what}: max err {err}")
+        check(torch.equal(got, ops.griffin_stat(z)), f"{what}: not deterministic")
+        ms = time_ms(torch, lambda: ops.griffin_stat(z), flush=flush)
+        plain_ms = time_ms(torch, lambda: ref.expert_stat_ref(z), flush=flush)
+        b_ms, b_by = bound(z.numel() * z.element_size() + B * F * 4, 3 * z.numel())
+        out["bf16" if dtype == torch.bfloat16 else "fp32"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, at=f"z [{B},{S},{F}]")
+    del flush
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile Yi-9B decode ticks (phases 4, 5 and "
-                    "7b's dense server) and spec rounds (7b) with "
-                    "torch.profiler; the attention kernels' share is "
-                    "named apart")
+                    "7b's dense server), spec rounds (7b) and 9b's GRIFFIN "
+                    "engine prefill and decode steps with torch.profiler; "
+                    "the attention kernels' share is named apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
     args = ap.parse_args()
 
@@ -1757,17 +2059,45 @@ def main() -> int:
         print(f"  {k}: {v}")
     print(f"phase 8 total: {time.perf_counter() - t8:.1f} s (8b-8c "
           f"{time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        eng_tiny_counts, eng_tiny = phase_engine_tinylm(torch, np, dev, Path(tmp))
+    print(f"phase 9a tinylm GenerationEngine (dense/topk/blocks/int8), "
+          f"evaluation ({'/'.join(EVAL_METHODS)}) and a derived profile "
+          f"served at tier 0.5, card == CPU: {time.perf_counter() - t0:.1f} s, "
+          f"launches {eng_tiny_counts}")
+    for k, v in eng_tiny.items():
+        print(f"  {k}: {v}")
+    t0 = time.perf_counter()
+    eng_yi_counts, eng_yi = phase_engine_yi9b(torch, np, dev, cfg, params,
+                                              args.profile)
     del params
+    stat_engine = engine_shape_expert_stat(torch, dev, cfg.d_ff)
+    print(f"phase 9b yi-9b GenerationEngine B={YI_ENGINE['B']} prompt "
+          f"{YI_ENGINE['S']} + {YI_ENGINE['steps']} new, generation_ppl "
+          f"P={YI_PPL['P']} G={YI_PPL['G']} ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {eng_yi_counts}")
+    for k, v in eng_yi.items():
+        print(f"  {k}: {v}")
+    for dt, r in stat_engine.items():
+        print(f"  expert_stat {r['at']} {dt}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})  launch floor {kernels['launch_floor_ms']:.4f} ms"
+              f"  max_abs_err {r['max_abs_err']:.3g}")
+    kernels["expert_stat"]["engine"] = stat_engine["bf16"]
 
     # launches on each kernel's main path: the serving runs for the
-    # attention, statistic and gather kernels, phase 6 for the FF kernels
+    # attention, statistic and gather kernels, phase 6 for the FF kernels,
+    # phase 9's engines, protocols and profiled launcher for the statistic
     paths = {"tinylm": tiny_counts, "yi9b": yi["launches"],
              "yi9b_int8": quant["int8"]["launches"],
              "yi9b_fp8": quant["fp8"]["launches"], "ffn_entry_points": ff_counts,
              "spec_tinylm": spec_tiny_counts, "yi9b_dense": spec_dense["launches"],
              "yi9b_spec": spec["launches"], "launcher_tinylm": launch_counts,
              "frontend_yi9b": fe_res["launches"], "loadgen_yi9b": lg_res["launches"],
-             "drain_yi9b": drain_counts}
+             "drain_yi9b": drain_counts, "engine_tinylm": eng_tiny_counts,
+             "engine_yi9b": eng_yi_counts}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -1796,6 +2126,8 @@ def main() -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "at": r["at"]}
         entry.update({k: r[k] for k in ("pass_ms", "compacted_ms") if k in r})
+        if "engine" in r:  # expert_stat at GenerationEngine's prompt shape
+            entry.update({f"engine_{k}": v for k, v in r["engine"].items()})
         if "prefill" in r:  # attention: decode (the fields above), prefill
             # and speculative verify
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
@@ -1815,6 +2147,8 @@ def main() -> int:
              "yi9b_quant": quant, "ffn_entry_points": ff,
              "spec_tinylm": spec_tiny, "yi9b_spec": spec, "yi9b_dense": spec_dense,
              "launcher": launch_lines, "frontend": fe_res, "loadgen": lg_res,
+             "engine_tinylm": eng_tiny, "engine_yi9b": eng_yi,
+             "expert_stat_engine_shape": stat_engine,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

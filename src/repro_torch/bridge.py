@@ -72,8 +72,9 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
 
 
 def tree_from_jax(tree: Dict, cfg, device=None) -> Dict[int, Any]:
-    """Any reference per-layer tree (statistics, compacted FF, ...) with
-    numpy leaves -> ``{li: leaf}`` of torch tensors on ``device``."""
+    """Any reference per-layer tree (statistics, decode caches, compacted
+    FF) with numpy leaves -> ``{li: leaf}`` of torch tensors on
+    ``device``; scan-stacked ``[n, ...]`` leaves are split per layer."""
     device = backend.resolve_device(device)
     return {li: _to_torch(leaf, device)
             for li, leaf in per_layer(tree, cfg).items()}

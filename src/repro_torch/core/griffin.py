@@ -1,5 +1,5 @@
 """GRIFFIN — Gating by Repetition In Feedforward Intermediate Neurons
-(port of ``repro/core/griffin.py``, the parts the paged server uses).
+(port of ``repro/core/griffin.py``).
 
 1. **Prompt phase**: the model runs its full FF blocks and emits, per FF
    layer, ``s_sq[b, j] = sum_t z[b,t,j]^2 / ||z[b,t]||^2`` (eq. 6
@@ -63,7 +63,7 @@ def tier_k(d_ff: int, tier: float, weight: float = 1.0,
 @dataclass(frozen=True)
 class GriffinConfig:
     sparsity: float = 0.5          # fraction of FF neurons REMOVED
-    mode: str = "topk"             # topk | blocks (sampling: later slice)
+    mode: str = "topk"             # topk | sampling | topk_sampling | blocks
     block_size: int = 128          # for mode="blocks"
     per_shard_topk: bool = DEFAULT_PER_SHARD_TOPK  # balanced TP selection
     tp_shards: int = 1             # logical shard count for balanced top-k
@@ -168,11 +168,14 @@ def select_experts(
     d_ff: Optional[int] = None,
     seq_lens: Optional[torch.Tensor] = None,
     k: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Reduce statistics to a sorted expert index set.
 
     s_sq: [B, F] (batch aggregated via eq. 7) or [F].  ``k`` overrides
-    the global ``gcfg.k_of(F)`` budget.  Returns idx [k] int64, sorted."""
+    the global ``gcfg.k_of(F)`` budget.  The sampling modes draw from
+    ``generator`` (on the statistics' device; the reference takes a
+    ``PRNGKey``).  Returns idx [k] int64, sorted."""
     s = (
         aggregate_stats(s_sq, seq_lens)
         if s_sq.ndim == 2
@@ -182,8 +185,10 @@ def select_experts(
     k = gcfg.k_of(F) if k is None else int(k)
     if gcfg.mode == "blocks":
         return selector_lib.select_blocks(s, k, gcfg.block_size)
-    if gcfg.mode in ("sampling", "topk_sampling"):
-        raise NotImplementedError(selector_lib.SAMPLING_TODO)
+    if gcfg.mode == "sampling":
+        return selector_lib.select_sampling(s, k, generator)
+    if gcfg.mode == "topk_sampling":
+        return selector_lib.select_topk_sampling(s, k, generator)
     if gcfg.per_shard_topk and gcfg.tp_shards > 1 and F % gcfg.tp_shards == 0 \
             and k % gcfg.tp_shards == 0:
         return selector_lib.select_topk_per_shard(s, k, gcfg.tp_shards)
@@ -206,9 +211,14 @@ def _s_sq(leaf) -> torch.Tensor:
 
 
 def select_tree(stats_tree: Dict[int, Any], gcfg: GriffinConfig,
-                seq_lens: Optional[torch.Tensor] = None) -> Dict[int, torch.Tensor]:
-    """Per-layer selection at the global budget: ``{li: idx [k]}``."""
-    return {li: select_experts(_s_sq(leaf), gcfg, seq_lens=seq_lens)
+                seq_lens: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[int, torch.Tensor]:
+    """Per-layer selection at the global budget: ``{li: idx [k]}``.  The
+    sampling modes draw each layer's noise from ``generator`` in turn
+    (the reference reuses one key for every layer)."""
+    return {li: select_experts(_s_sq(leaf), gcfg, seq_lens=seq_lens,
+                               generator=generator)
             for li, leaf in stats_tree.items()}
 
 
@@ -276,6 +286,7 @@ def select_and_compact(
     *,
     ks: Optional[Dict[int, int]] = None,
     seq_lens: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
     on_select=None,
 ) -> Tuple[Dict[int, Dict], Dict[int, int]]:
     """Selection + compaction with per-layer expert budgets — the one
@@ -286,7 +297,8 @@ def select_and_compact(
     the global ``gcfg.k_of`` budget everywhere).  Every layer has its own
     buffer, so each keeps its natural width (the reference pads the
     instances of a scan-stacked leaf to the widest one).
-    ``on_select(li, idx)`` observes each raw selection.
+    ``generator`` feeds the sampling modes.  ``on_select(li, idx)``
+    observes each raw selection.
     Returns ``(pruned_tree, widths)`` with ``widths[li]`` = the layer's
     buffer width."""
     out: Dict[int, Dict] = {}
@@ -295,7 +307,8 @@ def select_and_compact(
         s_sq = _s_sq(leaf)
         F = s_sq.shape[-1]
         idx = select_experts(s_sq, gcfg, seq_lens=seq_lens,
-                             k=None if ks is None else ks[li])
+                             k=None if ks is None else ks[li],
+                             generator=generator)
         if on_select is not None:
             on_select(li, idx)
         widths[li] = int(idx.shape[0])

@@ -1,5 +1,6 @@
-"""Model assembly for the paged serving path (port of the paged subset of
-``repro/models/decoder.py``).
+"""Model assembly for the attention families (port of
+``repro/models/decoder.py``: the contiguous prefill/decode path and the
+paged serving path).
 
 The reference stacks homogeneous runs of layers on a leading axis and
 scans them (``seg{i}/pos{j}`` leaves).  PyTorch runs eagerly, so the
@@ -13,6 +14,12 @@ Public API:
     build_plan(cfg)                          -> [Segment]
     model_specs(cfg)                         -> ParamSpec tree
     init_params(cfg, seed, device)           -> params
+    forward(params, cfg, tokens, ...)        -> logits, Aux
+    hidden_forward(params, cfg, tokens, ...) -> hidden states, Aux
+    cache_specs(cfg, batch, max_len)         -> ParamSpec list (decode cache)
+    init_cache(cfg, batch, max_len, device)  -> cache
+    fill_cache_from_prefill(cfg, cache, kv)  -> cache
+    decode_step(params, cfg, cache, token, pos, pruned=None) -> logits, cache
     init_paged_pools(cfg, num_pages, page_size, kv_dtype, device) -> pools
     copy_pool_pages(cfg, pools, src, dst)    -> pools (COW page forks)
     decode_step_paged(params, cfg, pools, bt, tokens, pos, ...) -> logits, pools, stats
@@ -130,7 +137,8 @@ def layer_specs(cfg, desc: LayerDesc) -> Dict:
 
 
 def model_specs(cfg) -> Dict:
-    assert supports_paged(cfg), f"{cfg.name}: the port covers attention families"
+    assert supports_contiguous(cfg), \
+        f"{cfg.name}: the port covers attention families"
     specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
     hs = head_specs(cfg)
     if hs:
@@ -148,19 +156,213 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# Paged-KV serving path (block-table pools; see serving/paged.py)
+# Aux container
 # ---------------------------------------------------------------------------
 
-def supports_paged(cfg) -> bool:
-    """The paged path covers the GQA/MQA attention families (dense FF or
-    no FF)."""
+@dataclass
+class Aux:
+    """Per-forward side outputs, per layer: ``kv`` a list of ``{k, v}``
+    (prefill cache material), ``stats`` ``{li: {s_sq [B,F], x_sq [D],
+    z_sq [F], (z [B,S,F])}}`` for the layers with a dense FF block.  The
+    reference's ``moe_aux`` belongs to the MoE families the port does not
+    cover; its ``x_norms``/``z_norms`` are never set (the Adaptive Wanda
+    norms are ``stats``' ``x_sq``/``z_sq``)."""
+    kv: Optional[List[Dict]] = None
+    stats: Optional[Dict[int, Dict]] = None
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill / teacher-forced evaluation)
+# ---------------------------------------------------------------------------
+
+def supports_contiguous(cfg) -> bool:
+    """The contiguous path covers the GQA/MQA attention families (dense
+    FF or no FF), with an fp or int8 decode cache."""
     return (
         all(d.mixer == "attn" for d in layer_descs(cfg))
         and not cfg.use_mla
         and not cfg.num_experts
-        and not getattr(cfg, "kv_cache_int8", False)
         and not cfg.frontend
     )
+
+
+def _apply_layer(
+    lp: Dict,
+    desc: LayerDesc,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg,
+    collect_stats: bool,
+    q_chunk: int,
+    pruned_ffn: Optional[Dict] = None,
+    want_z: bool = False,
+    rope=None,
+):
+    h = apply_norm(lp["mixer_norm"], x, cfg)
+    y, (k, v) = attn_lib.attn_forward(lp["mixer"], h, positions, cfg,
+                                      kind=desc.attn_kind, q_chunk=q_chunk,
+                                      rope=rope)
+    x = x + y
+    stats = None
+    if desc.ffn == "dense":
+        h = apply_norm(lp["ffn_norm"], x, cfg)
+        fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
+        y, stats = ffn_lib.ffn_forward(fp, h, cfg, collect_stats, want_z)
+        x = x + y
+    return x, {"k": k, "v": v}, stats
+
+
+@torch.no_grad()
+def forward(
+    params: Dict,
+    cfg,
+    tokens: Optional[torch.Tensor] = None,
+    prefix_emb: Optional[torch.Tensor] = None,
+    *,
+    collect_stats: bool = False,
+    want_kv: bool = False,
+    q_chunk: int = 1024,
+    logits_mode: str = "all",  # "all" | "last" | "none" (hidden states)
+    pruned: Optional[Dict[int, Dict]] = None,
+    want_z: bool = False,
+) -> Tuple[torch.Tensor, Aux]:
+    """Full-sequence forward over ``tokens`` [B, S] (after an optional
+    ``prefix_emb`` [B, P, D]).
+
+    ``logits_mode="last"`` projects only the final position (prefill:
+    no [B,S,V] tensor); ``"none"`` returns the final hidden states.
+    ``collect_stats`` streams each FF layer's statistics (on the card
+    ``s_sq`` is one ``expert_stat`` launch per FF layer); ``want_z``
+    adds the activations.  ``pruned``: GRIFFIN-compacted FF blocks
+    ``{li: ffn}`` — the *generation-phase* model over a full
+    (teacher-forced) sequence, as the paper's evaluation protocol runs
+    it.  The reference's ``remat`` is a training option (not ported)."""
+    if logits_mode not in ("all", "last", "none"):
+        raise ValueError(f"logits_mode must be all|last|none, got {logits_mode!r}")
+    parts = []
+    if prefix_emb is not None:
+        parts.append(prefix_emb.to(param_lib.torch_dtype(cfg.dtype)))
+    if tokens is not None:
+        parts.append(embed_lookup(params["embed"], tokens.long(), cfg))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    kv_list: List[Dict] = []
+    stats_tree: Dict[int, Dict] = {}
+    for li, desc in enumerate(layer_descs(cfg)):
+        x, kv, st = _apply_layer(
+            params["layers"][li], desc, x, positions, cfg, collect_stats,
+            q_chunk, (pruned or {}).get(li), want_z, rope,
+        )
+        if want_kv:
+            kv_list.append(kv)
+        if st is not None:
+            stats_tree[li] = st
+
+    x = apply_norm(params["final_norm"], x, cfg)
+    if logits_mode == "none":
+        out = x
+    elif logits_mode == "last":
+        out = lm_logits(params.get("head", {}), params["embed"], x[:, -1:], cfg)
+    else:
+        out = lm_logits(params.get("head", {}), params["embed"], x, cfg)
+    return out, Aux(kv=kv_list if want_kv else None,
+                    stats=stats_tree if collect_stats else None)
+
+
+def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
+                   q_chunk: int = 1024) -> Tuple[torch.Tensor, Aux]:
+    """Final hidden states (pre-head)."""
+    return forward(params, cfg, tokens, prefix_emb, q_chunk=q_chunk,
+                   logits_mode="none")
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode caches
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg, batch: int, max_len: int) -> List[Dict]:
+    """Per-layer decode cache specs (one dict per layer)."""
+    assert supports_contiguous(cfg), cfg.name
+    return [attn_lib.init_cache_specs(cfg, d.attn_kind, batch, max_len)
+            for d in layer_descs(cfg)]
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> List[Dict]:
+    """Zeroed decode caches on ``device`` (default: the card)."""
+    dev = backend_lib.resolve_device(device)
+    return param_lib.init_params(cache_specs(cfg, batch, max_len), 0,
+                                 cfg.dtype, dev)
+
+
+def fill_cache_from_prefill(cfg, cache: List[Dict], kv: List[Dict]) -> List[Dict]:
+    """Scatter prefill K/V (``Aux.kv``) into the decode caches, in place."""
+    for c, layer_kv in zip(cache, kv):
+        attn_lib.fill_cache(c, layer_kv["k"], layer_kv["v"])
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+
+def _apply_layer_decode(lp: Dict, desc: LayerDesc, cache: Dict,
+                        x: torch.Tensor, pos: int, cfg,
+                        pruned_ffn: Optional[Dict], rope=None):
+    h = apply_norm(lp["mixer_norm"], x, cfg)
+    y, cache = attn_lib.attn_decode(lp["mixer"], cache, h, pos, cfg,
+                                    kind=desc.attn_kind, rope=rope)
+    x = x + y
+    if desc.ffn == "dense":
+        h = apply_norm(lp["ffn_norm"], x, cfg)
+        fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
+        y, _ = ffn_lib.ffn_forward(fp, h, cfg)
+        x = x + y
+    return x, cache
+
+
+@torch.no_grad()
+def decode_step(
+    params: Dict,
+    cfg,
+    cache: List[Dict],
+    token: torch.Tensor,
+    pos: int,
+    pruned: Optional[Dict[int, Dict]] = None,
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """One generation step.  token: [B,1] int; ``pos``: tokens so far, a
+    host int shared by the batch.
+
+    ``pruned``: optional GRIFFIN-compacted FF blocks ``{li: ffn}``
+    (``extract_ffn_tree`` / ``griffin.compact_tree``); when given, the
+    dense FF blocks use the expert neurons only — the paper's generation
+    phase.  The caches are written **in place** (the reference's are
+    functional): see ``attention.attn_decode`` for the order that keeps
+    two steps from one cache at one ``pos`` equal to the reference's.
+    Returns (logits [B,1,V] fp32, cache)."""
+    pos = int(pos)
+    x = embed_lookup(params["embed"], token.long(), cfg)
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for li, desc in enumerate(layer_descs(cfg)):
+        x, _ = _apply_layer_decode(params["layers"][li], desc, cache[li], x,
+                                   pos, cfg, (pruned or {}).get(li), rope)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params.get("head", {}), params["embed"], x, cfg)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged-KV serving path (block-table pools; see serving/paged.py)
+# ---------------------------------------------------------------------------
+
+def supports_paged(cfg) -> bool:
+    """The paged path covers the contiguous path's families with fp
+    caches (an int8 contiguous cache has no paged form: the paged pools
+    quantize through ``kv_dtype``)."""
+    return supports_contiguous(cfg) and not getattr(cfg, "kv_cache_int8", False)
 
 
 def paged_pool_specs(cfg, num_pages: int, page_size: int,

@@ -1,17 +1,28 @@
-"""GQA/MQA attention on paged KV caches (port of the paged half of
-``repro/models/layers/attention.py``).
+"""GQA/MQA attention (port of ``repro/models/layers/attention.py``).
 
-The pool of one attention layer holds ``num_pages + 1`` fixed-size pages
-shared by all live requests; the extra final page is a write-off
-("trash") target for padded tokens on the gather path.  A request's
-logical KV positions map to pool pages through its block table (page
-ids, -1 = unallocated).  All softmax math runs in fp32.
+Two cache forms:
+
+* **contiguous** (``GenerationEngine``, the evaluation protocols):
+  exact chunked-causal prefill (``chunked_attention``) and a decode
+  cache of ``[B, C, KV, hd]`` per layer, a ring buffer of ``window``
+  slots for sliding-window layers, optionally int8 with per-(token,
+  head) scales (``cfg.kv_cache_int8``).  Attention here is plain
+  PyTorch, as it is plain ``jnp`` in the reference.
+* **paged** (``PagedServer``): the pool of one attention layer holds
+  ``num_pages + 1`` fixed-size pages shared by all live requests; the
+  extra final page is a write-off ("trash") target for padded tokens on
+  the gather path.  A request's logical KV positions map to pool pages
+  through its block table (page ids, -1 = unallocated).
+
+All softmax math runs in fp32; the products stay in the activation
+dtype, as in the reference.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import kv_quant, ops, ref
@@ -86,11 +97,195 @@ def _out_proj(params, ctx, cfg):
 
 def _attend(q, k, v, mask, scale):
     """q [B,Sq,KV,G,hd]; k,v [B,Sk,KV,hd]; mask broadcastable to
-    [B,KV,G,Sq,Sk].  fp32 in, fp32 out."""
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
+    [B,KV,G,Sq,Sk].  Scores and softmax in fp32, products in the inputs'
+    dtype; returns ctx in v's dtype."""
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    q_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Exact attention over full sequences, chunked over queries.
+
+    q: [B,S,H,hd]; k,v: [B,Sk,KV,hd].  Returns [B,S,H,hd].  Chunk ``i``
+    reads only keys ``[k_start, (i+1)*chunk)`` (``k_start`` clamped by
+    the sliding window), so causal work is ~S^2/2.  S is padded to a
+    multiple of the chunk; ``q_offset`` is the absolute position of
+    q[:, 0] relative to k[:, 0]."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, KV, G, hd)
+
+    chunk = min(q_chunk, S)
+    if S % chunk != 0:  # pad to a multiple (rare: tiny shapes)
+        pad = chunk - S % chunk
+        qg = torch.cat([qg, qg.new_zeros((B, pad, KV, G, hd))], dim=1)
+    n_chunks = qg.shape[1] // chunk
+
+    outs = []
+    for i in range(n_chunks):
+        q_i = qg[:, i * chunk : (i + 1) * chunk]
+        q_lo = q_offset + i * chunk
+        q_hi = q_lo + chunk
+        if causal:
+            k_end = min(Sk, q_hi)
+            k_start = max(0, q_lo - window) if window else 0
+        else:
+            k_start, k_end = 0, Sk
+        qpos = q_lo + np.arange(chunk)[:, None]
+        kpos = k_start + np.arange(k_end - k_start)[None, :]
+        if causal:
+            m = kpos <= qpos
+            if window:
+                m &= kpos > qpos - window
+        else:
+            m = np.ones((chunk, k_end - k_start), bool)
+        mask = torch.from_numpy(m).to(q.device)[None, None, None]
+        outs.append(_attend(q_i, k[:, k_start:k_end], v[:, k_start:k_end],
+                            mask, scale))
+    out = torch.cat(outs, dim=1)[:, :S]
+    return out.reshape(B, S, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill / teacher-forced evaluation)
+# ---------------------------------------------------------------------------
+
+def attn_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+                 kind: str = "global", q_chunk: int = 1024, rope=None
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (out [B,S,D], (k, v) for cache construction).  ``rope``:
+    precomputed ``common.rope_cos_sin(positions, ...)``."""
+    use_rope = cfg.family != "encoder"
+    q, k, v = _project_qkv(params, x, positions, cfg, use_rope, rope=rope)
+    window = cfg.sliding_window if kind == "local" else 0
+    ctx = chunked_attention(q, k, v, causal=cfg.is_causal, window=window,
+                            q_chunk=q_chunk)
+    return _out_proj(params, ctx, cfg), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode cache
+# ---------------------------------------------------------------------------
+
+def cache_capacity(cfg, kind: str, max_len: int) -> int:
+    if kind == "local" and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def _kv_int8(cfg) -> bool:
+    return getattr(cfg, "kv_cache_int8", False)
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[...,hd] -> (int8 [...,hd], f32 scale [...,1]).  Per-(token, head)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp(s, min=1e-8)).to(torch.int8)
+    return q, s
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * s).to(dtype)
+
+
+def init_cache_specs(cfg, kind: str, batch: int, max_len: int) -> Dict[str, ParamSpec]:
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    C = cache_capacity(cfg, kind, max_len)
+    seq_ax = "window" if (kind == "local" and cfg.sliding_window) else "kv_seq"
+    axes = ("batch", seq_ax, "kv_heads", "head_dim")
+    if _kv_int8(cfg):
+        # int8 KV cache: halves (bf16) or quarters (fp32) the cache read
+        # that dominates long-context decode; scales are 1/hd of it
+        specs = {name: ParamSpec((batch, C, KV, hd), axes, init="zeros",
+                                 dtype="int8") for name in ("k", "v")}
+        for name in ("k_scale", "v_scale"):
+            specs[name] = ParamSpec((batch, C, KV, 1), axes, init="zeros",
+                                    dtype="float32")
+        return specs
+    return {name: ParamSpec((batch, C, KV, hd), axes, init="zeros")
+            for name in ("k", "v")}
+
+
+def fill_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
+    """Write prefill K/V [B,S,...] into a cache buffer, **in place** (the
+    reference returns a new one).  For ring (window) caches the last C
+    entries land at slot ``pos % C``."""
+    C = cache["k"].shape[1]
+    S = k.shape[1]
+    entries = {"k": k, "v": v}
+    if cache["k"].dtype == torch.int8:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        entries = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for name, val in entries.items():
+        buf = cache[name]
+        if S <= C:
+            buf[:, :S] = val.to(buf.dtype)
+        else:
+            slots = torch.from_numpy(np.arange(S - C, S) % C).to(buf.device)
+            buf[:, slots] = val[:, S - C:].to(buf.dtype)
+    return cache
+
+
+def attn_decode(params: Dict, cache: Dict, x: torch.Tensor, pos: int, cfg,
+                kind: str = "global", rope=None) -> Tuple[torch.Tensor, Dict]:
+    """One decode step.  x: [B,1,D]; ``pos``: tokens so far (a host int).
+
+    The new K/V are written into the cache **in place** at slot ``pos``
+    (ring: ``pos % C``; int8: quantized, then the whole cache read back
+    dequantized) before attending over the slots at or before ``pos``.
+    Callers that run two steps from one cache (``evaluate.
+    classification_sim``) rely on that order: each step rewrites slot
+    ``pos`` before reading it, and no slot it reads is one another step
+    at the same ``pos`` writes.  Returns (y [B,1,D], cache)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, positions, cfg, use_rope=True,
+                                   rope=rope)
+
+    C = cache["k"].shape[1]
+    is_ring = bool(kind == "local" and cfg.sliding_window
+                   and C == cfg.sliding_window)
+    slot = pos % C if is_ring else min(pos, C - 1)
+    if cache["k"].dtype == torch.int8:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            cache[name][:, slot:slot + 1] = val
+        k_cache = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        v_cache = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][:, slot:slot + 1] = k_new
+        cache["v"][:, slot:slot + 1] = v_new
+        k_cache, v_cache = cache["k"], cache["v"]
+
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    H = cfg.num_heads
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    slots_idx = torch.arange(C, device=x.device)
+    if is_ring:
+        # ring slot s holds global position: the latest p <= pos with p%C==s
+        valid = (pos - slots_idx) % C < min(pos + 1, C)  # age < n_valid
+    else:
+        valid = slots_idx <= pos
+    ctx = _attend(qg, k_cache, v_cache, valid, 1.0 / math.sqrt(hd))
+    y = _out_proj(params, ctx.reshape(B, 1, H, hd), cfg)
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

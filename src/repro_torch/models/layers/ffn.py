@@ -1,5 +1,5 @@
 """Feed-forward blocks with GRIFFIN instrumentation (port of
-``repro/models/layers/ffn.py``, the parts the serving path uses).
+``repro/models/layers/ffn.py``).
 
     FF(x)  = FF2(FF1(x)),      z = FF1(x)            (eq. 1)
     FF1(x) = sigma(W_g x) * (W_1 x)                   (GLU, eq. 3)
@@ -7,7 +7,7 @@
 
 ``griffin_stat_sq`` is the per-sample squared GRIFFIN statistic (eq. 6,
 the ``expert_stat`` kernel on the card), ``ffn_forward`` the dense block
-with the statistics on request; ``compact_ffn_params`` is the
+with the statistics on request (eq. 6 and the Adaptive Wanda norms); ``compact_ffn_params`` is the
 paper's reparameterization: keep the expert neurons' columns of W_g/W_1
 and rows of W_2.
 """
@@ -62,13 +62,27 @@ def griffin_stat_sq(z: torch.Tensor) -> torch.Tensor:
     return ops.griffin_stat(z)
 
 
-def ffn_forward(params: Dict, x: torch.Tensor, cfg, collect_stats: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+def ffn_forward(
+    params: Dict,
+    x: torch.Tensor,
+    cfg,
+    collect_stats: bool = False,
+    want_z: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: [B,S,D] -> (y [B,S,D], stats or None).
 
-    stats = {s_sq [B,F]}, the GRIFFIN statistic (eq. 6)."""
+    stats = {s_sq [B,F] (GRIFFIN eq. 6), x_sq [D], z_sq [F] (Adaptive
+    Wanda norms, fp32), (z [B,S,F] if want_z — flocking heat maps)}."""
     z = ffn_activations(params, x, cfg)
-    stats = {"s_sq": griffin_stat_sq(z)} if collect_stats else None
+    stats = None
+    if collect_stats:
+        stats = {
+            "s_sq": griffin_stat_sq(z),
+            "x_sq": x.float().square().sum(dim=(0, 1)),
+            "z_sq": z.float().square().sum(dim=(0, 1)),
+        }
+        if want_z:
+            stats["z"] = z
     y = z @ params["w2"]
     if "b2" in params:
         y = y + params["b2"]

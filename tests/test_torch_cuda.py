@@ -236,6 +236,8 @@ def test_paged_attn_refuses_another_row_tile(dev):
     ((1, 32, 11008), torch.float32),    # 2752 vectors: 344 a CTA, 2 a thread
     ((1, 17, 301), torch.bfloat16),     # rows not 16-byte aligned: 2-byte loads
     ((2, 20, 8193), torch.bfloat16),    # 1025 vectors a CTA: 5 a thread
+    ((2, 512, 11008), torch.float32),   # GenerationEngine's whole-prompt
+    ((2, 512, 11008), torch.bfloat16),  # prefill at Yi-9B width: 16 tiles
 ])
 def test_expert_stat_kernel_matches_plain(dev, shape, dtype):
     from repro_torch.kernels import expert_stat
@@ -712,3 +714,26 @@ def test_launcher_on_card_equals_cpu(dev, tmp_path, capsys):
         cpu = serve.main(base + extra + ["--device", "cpu"])
         assert card == cpu and len({t for s in cpu.values() for t in s}) > 4
     assert "[device] cuda" in capsys.readouterr().out
+
+
+def test_generation_engine_on_card_equals_cpu(dev):
+    """``GenerationEngine`` with GRIFFIN 0.5 ``topk`` on the card: the
+    greedy tokens of the same call on the CPU, one ``expert_stat`` launch
+    per FF layer of the prefill."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.kernels import expert_stat
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg, host = _tinylm_host_params()
+    prompts = np.random.default_rng(23).integers(0, cfg.vocab_size, (3, 20)) \
+        .astype(np.int32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        eng = GenerationEngine(cfg, _to(host, d), GriffinConfig(sparsity=0.5),
+                               max_len=48, device=d)
+        before = expert_stat.launches
+        out[d.type] = eng.generate(prompts, 16).cpu()
+        launched = expert_stat.launches - before
+        assert launched == (cfg.num_layers if d.type == "cuda" else 0)
+    assert torch.equal(out["cuda"], out["cpu"])
+    assert len(torch.unique(out["cpu"])) > 4

@@ -252,9 +252,10 @@ def test_ffn_forward_and_block_selection_match_jax():
     y_t, st_t = tffn.ffn_forward(pt, torch.from_numpy(x), tcfg,
                                  collect_stats=True)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-5)
-    assert set(st_t) == {"s_sq"}
-    np.testing.assert_allclose(st_t["s_sq"].numpy(), np.asarray(st_j["s_sq"]),
-                               rtol=1e-5, atol=1e-5)
+    assert set(st_t) == set(st_j) == {"s_sq", "x_sq", "z_sq"}
+    for k in st_j:
+        np.testing.assert_allclose(st_t[k].numpy(), np.asarray(st_j[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
     assert tffn.ffn_forward(pt, torch.from_numpy(x), tcfg)[1] is None
     # block ids: random statistics, then pooled ties (every block equal)
     rng = np.random.default_rng(0)
