@@ -103,7 +103,25 @@ Phases (any failure raises and the script exits non-zero):
    ``generation_ppl`` at P=448, G=64 for full, griffin, magnitude and
    wanda (finite, wall time each); ``expert_stat`` at the engine's shape
    [2, 512, 11008] fp32 and bf16 against its plain version, the bf16 one
-   timed beside its bound and the launch floor.
+   timed beside its bound and the launch floor;
+10. the MoE and MLA families: (a) the smoke Moonshot-v1-16B-A3B and
+   DeepSeek-V3 configs (fp32, weights drawn on the CPU), every result
+   equal to the same call on the CPU: ``GenerationEngine`` dense and
+   GRIFFIN 0.5, a ``ContinuousBatcher`` of 2 slots over 4 requests of
+   mixed lengths, and ``launch.serve.main`` through its slot-batcher
+   fallback; (b) Moonshot-v1-16B-A3B at full width and depth (bf16,
+   random weights from seed 0 drawn on the card after Yi-9B is freed):
+   ``GenerationEngine`` over 2 prompts of 512 tokens and 32 new tokens,
+   dense, GRIFFIN 0.5 and GRIFFIN 0.0 (equal to dense token for token;
+   its compaction at k = F keeps every column in order), prefill ms,
+   selection ms, TPOT p50, decode tokens/s, peak memory and 48
+   ``expert_stat`` launches per GRIFFIN prefill; a ``ContinuousBatcher``
+   of 2 slots over 4 requests of 200/350/480/600 prompt tokens and 16
+   new tokens (tokens/s); (c) DeepSeek-V3 at full width, depth 4 (3
+   dense MLA layers and one MoE layer of 256 experts, no MTP block): the
+   same engine runs, 4 ``expert_stat`` launches per GRIFFIN prefill.
+   Phase 2 adds ``expert_stat`` at [2, 512, F] bf16 for phase 10's
+   widths F = 2816, 11264, 2048, 18432.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -112,12 +130,14 @@ the verify call's time and bound, and ``launches_decode`` /
 ``launches_prefill`` / ``launches_verify`` split the launches by kind;
 ``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
 ``compacted_ms``, the compacted products' time; ``expert_stat`` adds
-``engine_*``, its numbers at phase 9b's prompt shape); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+``engine_*``, its numbers at phase 9b's prompt shape, and ``moe_engine``,
+its numbers at phase 10's widths); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -304,10 +324,11 @@ def fenced_device_events(torch, fn, tries: int = 3, complete=None):
     CUPTI hands the profiler its device records asynchronously, and a
     trace may come back without some of them: on the H100 the first
     records after the profiler starts have been seen to go missing (one
-    to a few hundred in a row), and nothing else.  So 16 short GPU spins,
-    finished before the call, go first to take that loss, and one more
-    spin goes after it.  On the device timeline (one stream, so in launch
-    order) the call's events are those between the last leading spin and
+    to a few hundred in a row), and nothing else.  So 256 short GPU spins
+    (16 have been lost whole in eight traces running, before a
+    DeepSeek-V3 decode step), finished before the call, go first to take
+    that loss, and one more spin goes after it.  On the device timeline
+    (one stream, so in launch order) the call's events are those between the last leading spin and
     the closing spin; the trace's own order is used, not the host clock,
     whose offset to the device clock a trace does not fix.  A trace that
     lost every leading spin (the loss may have reached the call), lacks
@@ -319,7 +340,7 @@ def fenced_device_events(torch, fn, tries: int = 3, complete=None):
     names = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(16):
+            for _ in range(256):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             fn()
@@ -1593,8 +1614,6 @@ def phase_loadgen(torch, np, srv, fe, cfg):
 def phase_serving_edge(torch, np, dev, cfg, params, prompts, yi_streams):
     """Phase 8: 8b and 8c on one Yi-9B server and frontend, then 8b's SSE streams held
     to a fresh server's ``drain()`` (the first server freed before)."""
-    import gc
-
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.serving.server import PagedServer
 
@@ -1651,6 +1670,26 @@ YI_ENGINE = dict(B=2, S=512, steps=64)
 YI_PPL = dict(P=448, G=64, methods=("full", "griffin", "magnitude", "wanda"))
 
 
+def on_both(torch, dev, card, host, total, what, fn):
+    """fn(device, params) on the card, then the CPU: (card result, CPU
+    result, card launches); the CPU run must launch nothing, the card
+    run's launches are added to ``total``."""
+    out, counts = [], []
+    for d, p in ((dev, card), (torch.device("cpu"), host)):
+        reset_launches()
+        out.append(fn(d, p))
+        counts.append(launches())
+    check(sum(counts[1].values()) == 0, f"{what}: CPU run launched {counts[1]}")
+    add_counts(total, counts[0])
+    return out[0], out[1], counts[0]
+
+
+def only(counts, **want) -> bool:
+    """Every counted kernel launched exactly as ``want`` says (0 if not
+    named)."""
+    return all(counts[k] == want.get(k, 0) for k in counts)
+
+
 def phase_engine_tinylm(torch, np, dev, tmp: Path):
     """9a, phase 3's tinylm weights (fp32, TF32 off), every result held to
     the same call on the CPU: ``GenerationEngine.generate`` greedy tokens
@@ -1676,25 +1715,13 @@ def phase_engine_tinylm(torch, np, dev, tmp: Path):
     seqs = rng.integers(0, cfg.vocab_size, (3, 32)).astype(np.int32)
     total, res = {}, {}
 
-    def on_both(fn):
-        """fn(device, params) on the card, then the CPU: (card, CPU, card
-        launches); the CPU run must launch nothing."""
-        out, counts = [], []
-        for d, p in ((dev, card), (torch.device("cpu"), host)):
-            reset_launches()
-            out.append(fn(d, p))
-            counts.append(launches())
-        check(sum(counts[1].values()) == 0, f"9a CPU run launched {counts[1]}")
-        add_counts(total, counts[0])
-        return out[0], out[1], counts[0]
-
-    def only(counts, **want):
-        return all(counts[k] == want.get(k, 0) for k in counts)
+    def both(fn):
+        return on_both(torch, dev, card, host, total, "9a", fn)
 
     for name, (over, g) in ENGINE_VARIANTS.items():
         c = cfg.replace(**over)
         gcfg = None if g is None else GriffinConfig(**g)
-        got, want, counts = on_both(lambda d, p: GenerationEngine(
+        got, want, counts = both(lambda d, p: GenerationEngine(
             c, p, gcfg, max_len=48, device=d).generate(prompts, 16).cpu())
         check(torch.equal(got, want), f"9a engine {name}: card {got} != CPU {want}")
         check(len(torch.unique(want)) > 4, f"9a engine {name}: degenerate {want}")
@@ -1703,7 +1730,7 @@ def phase_engine_tinylm(torch, np, dev, tmp: Path):
         res[f"engine_{name}"] = want[0, :8].tolist()
 
     for method in EVAL_METHODS:
-        got, want, counts = on_both(lambda d, p: (
+        got, want, counts = both(lambda d, p: (
             evaluate.generation_ppl(p, cfg, seqs, 24, method),
             evaluate.classification_sim(p, cfg, seqs, method)))
         (ppl_c, cls_c), (ppl_h, cls_h) = got, want
@@ -1717,7 +1744,7 @@ def phase_engine_tinylm(torch, np, dev, tmp: Path):
         check(only(counts, expert_stat=2 * n_ff), f"9a {method} launches {counts}")
         res[f"eval_{method}"] = dict(ppl=ppl_c, **cls_c, rel_vs_cpu=rel)
 
-    got, want, counts = on_both(lambda d, p: derive_profile(cfg, p, seqs[:2]))
+    got, want, counts = both(lambda d, p: derive_profile(cfg, p, seqs[:2]))
     check([q for q, _ in got.weights] == [q for q, _ in want.weights],
           f"9a profile paths {got.weights} vs {want.weights}")
     diff = max(abs(a - b) for (_, wa), (_, wb) in zip(got.weights, want.weights)
@@ -1730,7 +1757,7 @@ def phase_engine_tinylm(torch, np, dev, tmp: Path):
     checkpointer.save(str(ckpt), 1, {"params": bridge.params_to_jax(host, cfg)})
     base = ["--arch", "tinylm", "--requests", "4", "--ckpt-dir", str(ckpt),
             "--tier", "0.5", "--sparsity-profile", str(path)]
-    (out_c, text), (out_h, _), counts = on_both(
+    (out_c, text), (out_h, _), counts = both(
         lambda d, p: launcher(base + ["--device", d.type]))
     check(out_c == out_h, f"9a profiled launcher: card {out_c} != CPU {out_h}")
     check(f"[profile] {path}" in text and counts["expert_stat"] > 0,
@@ -1740,12 +1767,14 @@ def phase_engine_tinylm(torch, np, dev, tmp: Path):
     return total, res
 
 
-def profile_engine(torch, eng, prompts, n_steps: int = 4):
+def profile_engine(torch, eng, prompts, n_steps: int = 4, strict: bool = True):
     """Device time by kernel of one ``GenerationEngine`` prefill (with
     GRIFFIN's statistics and selection) and of ``n_steps`` decode steps on
     the compacted FF (``torch.profiler``, fenced as ``device_kernels``
-    fences a call), beside their host-clock wall; the prefill trace is
-    taken again when it lacks an ``expert_stat`` record of any layer."""
+    fences a call), beside their host-clock wall.  ``strict``: the
+    prefill trace is taken again when it lacks an ``expert_stat`` record
+    of any layer; otherwise the trace is kept and ``expert_stat_records``
+    says how many it holds (a trace short of ``n_stat`` lost records)."""
     from repro_torch.models import decoder
 
     B, S = prompts.shape
@@ -1771,11 +1800,15 @@ def profile_engine(torch, eng, prompts, n_steps: int = 4):
         walls["decode"].append((time.perf_counter() - t0) / n_steps)
 
     out = {}
-    for name, fn, per, complete in (
-            ("prefill", prefill, 1, lambda evs: sum(
-                "expert_stat" in e.name for e in evs) == eng.cfg.num_layers),
-            ("decode_step", decode, n_steps, None)):
-        evs = fenced_device_events(torch, fn, 3, complete=complete)
+    def n_stat(evs):
+        return sum("expert_stat" in e.name for e in evs)
+
+    full = (lambda evs: n_stat(evs) == eng.cfg.num_layers) if strict else None
+    for name, fn, per, complete in (("prefill", prefill, 1, full),
+                                    ("decode_step", decode, n_steps, None)):
+        # traces of a whole prefill (~6,000 device records) have come back
+        # without some records three times running: take up to 8
+        evs = fenced_device_events(torch, fn, 8, complete=complete)
         by_name = {}
         for e in evs:
             ms, count = by_name.get(e.name, (0.0, 0))
@@ -1785,34 +1818,29 @@ def profile_engine(torch, eng, prompts, n_steps: int = 4):
         wall = walls["prefill" if name == "prefill" else "decode"][-1] * 1e3
         out[name] = dict(wall_ms=wall, device_busy_ms=sum(r[1] for r in rows),
                          device_records=sum(r[2] for r in rows),
+                         expert_stat_records=n_stat(evs) // per,
                          top=[dict(kernel=k[:90], ms=ms, count=c)
                               for k, ms, c in rows[:10]])
     return out
 
 
-def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
-    """9b, Yi-9B at full size (bf16, random weights from seed 0):
-    ``GenerationEngine`` over B=2 prompts of 512 tokens and 64 new tokens,
-    dense and with GRIFFIN 0.5 ``topk`` (prefill, GRIFFIN's selection and
-    every decode step timed on the host clock after a ``synchronize``;
-    every decode logit finite; ``expert_stat`` launched once per FF layer
-    of a GRIFFIN prefill), each after an untimed warm-up call of its
-    engine; then ``evaluate.generation_ppl`` at P=448, G=64 for full,
-    griffin, magnitude and wanda: every value finite.  ``profile`` adds
-    ``profile_engine``'s breakdown of the GRIFFIN engine.  Returns the
-    launches of both parts and the numbers."""
-    import gc
-
-    from repro_torch.core import evaluate
-    from repro_torch.core.griffin import GriffinConfig
+def engine_runs(torch, dev, cfg, params, prompts, steps: int, variants,
+                n_stat: int, tag: str, profile: bool = False,
+                profile_kw=None):
+    """``GenerationEngine`` over ``prompts`` [B, S] (on the card) and
+    ``steps`` new tokens for each ``(name, gcfg)`` of ``variants``:
+    prefill, GRIFFIN's selection and every decode step timed on the host
+    clock after a ``synchronize``, each engine after an untimed warm-up
+    call; every decode logit finite; ``expert_stat`` launched ``n_stat``
+    times per GRIFFIN prefill and nothing else launched.  ``profile``
+    adds ``profile_engine``'s breakdown of the ``griffin`` variant
+    (``profile_kw``: its options).
+    Returns (launches, numbers by variant, token streams by variant)."""
     from repro_torch.serving.engine import GenerationEngine
 
-    B, S, steps = YI_ENGINE["B"], YI_ENGINE["S"], YI_ENGINE["steps"]
-    rng = np.random.default_rng(5)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
-                               .astype(np.int32)).to(dev)
+    B, S = prompts.shape
     total, res, streams = {}, {}, {}
-    for name, gcfg in (("dense", None), ("griffin", GriffinConfig(sparsity=0.5))):
+    for name, gcfg in variants:
         eng = GenerationEngine(cfg, params, gcfg, max_len=S + steps, device=dev)
         eng.generate(prompts, 2)  # first calls at these shapes, untimed
         times = {"prefill": [], "select": [], "decode": []}
@@ -1826,7 +1854,7 @@ def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
                 times[key].append(time.perf_counter() - t0)
                 if finite:
                     check(bool(torch.isfinite(out[0]).all()),
-                          f"9b {name}: non-finite logits")
+                          f"{tag} {name}: non-finite logits")
                 return out
             return run
 
@@ -1841,12 +1869,12 @@ def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
         wall = time.perf_counter() - t0
         counts = launches()
         add_counts(total, counts)
-        n_stat = counts["expert_stat"]
-        check(n_stat == (cfg.num_layers if gcfg else 0)
-              and sum(counts.values()) == n_stat, f"9b {name} launches {counts}")
+        got_stat = counts["expert_stat"]
+        check(got_stat == (n_stat if gcfg else 0)
+              and sum(counts.values()) == got_stat, f"{tag} {name} launches {counts}")
         check(tuple(out.shape) == (B, steps)
               and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-              f"9b {name}: tokens {out}")
+              f"{tag} {name}: tokens {out}")
         streams[name] = out.cpu()
         dec = times["decode"]
         res[name] = dict(
@@ -1855,11 +1883,34 @@ def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
             decode_tokens_per_s=B * len(dec) / sum(dec),
             tpot_p50_ms=statistics.median(dec) * 1e3,
             generate_wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            expert_stat_per_prefill=n_stat, tokens=out[:, :8].tolist())
-        if profile and gcfg is not None:
+            expert_stat_per_prefill=got_stat, tokens=out[:, :8].tolist())
+        if profile and name == "griffin":
             del eng.prefill, eng.select_and_compact, eng.decode  # untimed
-            res["griffin_profile"] = profile_engine(torch, eng, prompts)
+            res["griffin_profile"] = profile_engine(torch, eng, prompts,
+                                                    **(profile_kw or {}))
         del eng
+    return total, res, streams
+
+
+def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
+    """9b, Yi-9B at full size (bf16, random weights from seed 0):
+    ``engine_runs`` over B=2 prompts of 512 tokens and 64 new tokens,
+    dense and with GRIFFIN 0.5 ``topk`` (``expert_stat`` launched once per
+    FF layer of a GRIFFIN prefill); then ``evaluate.generation_ppl`` at
+    P=448, G=64 for full, griffin, magnitude and wanda: every value
+    finite.  ``profile`` adds ``profile_engine``'s breakdown of the
+    GRIFFIN engine.  Returns the launches of both parts and the numbers."""
+    from repro_torch.core import evaluate
+    from repro_torch.core.griffin import GriffinConfig
+
+    B, S, steps = YI_ENGINE["B"], YI_ENGINE["S"], YI_ENGINE["steps"]
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                               .astype(np.int32)).to(dev)
+    total, res, streams = engine_runs(
+        torch, dev, cfg, params, prompts, steps,
+        (("dense", None), ("griffin", GriffinConfig(sparsity=0.5))),
+        cfg.num_layers, "9b", profile)
     res["token_match_griffin_vs_dense"] = float(
         (streams["griffin"] == streams["dense"]).float().mean())
     gc.collect()
@@ -1887,11 +1938,11 @@ def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
     return total, res
 
 
-def engine_shape_expert_stat(torch, dev, F: int):
+def engine_shape_expert_stat(torch, dev, F: int, dtypes=None):
     """``expert_stat`` at the engine's whole-prompt shape [2, 512, F]
-    (fp32 and bf16) against its plain version under phase 2's tolerance;
-    the bf16 case timed beside its bound and its plain version (the
-    launches here count toward no path)."""
+    (``dtypes``: fp32 and bf16 unless given) against its plain version
+    under phase 2's tolerance, each timed beside its bound and its plain
+    version (the launches here count toward no path)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -1899,7 +1950,7 @@ def engine_shape_expert_stat(torch, dev, F: int):
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     B, S = YI_ENGINE["B"], YI_ENGINE["S"]
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         z = torch.randn(B, S, F, generator=gen, device=dev).to(dtype)
         got, want = ops.griffin_stat(z), ref.expert_stat_ref(z)
         torch.cuda.synchronize()
@@ -1917,13 +1968,195 @@ def engine_shape_expert_stat(torch, dev, F: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE and MLA families (GenerationEngine, ContinuousBatcher,
+# the launcher's slot-batcher fallback)
+# ---------------------------------------------------------------------------
+
+#: the archs of phase 10
+FAMILIES = ("moonshot-v1-16b-a3b", "deepseek-v3-671b")
+#: 10b/10c engines: prompts, prompt length, new tokens
+FAMILY_ENGINE = dict(B=2, S=512, steps=32)
+#: 10b's batcher: prompt lengths, new tokens each, slots
+FAMILY_BATCHER = dict(lens=(200, 350, 480, 600), new=16, slots=2)
+#: FF widths of phase 10's GRIFFIN prefills (Moonshot's shared experts and
+#: dense layer, DeepSeek-V3's shared expert and dense layers), for phase 2's
+#: ``expert_stat`` rows at the engine's [2, 512, F] bf16 shape
+MOE_STAT_WIDTHS = (2816, 11264, 2048, 18432)
+
+
+def phase_families_smoke(torch, np, dev):
+    """10a, the smoke configs of both families (fp32, TF32 off, weights
+    drawn on the CPU from seed 0 and copied to the card), every result
+    held to the same call on the CPU: ``GenerationEngine`` greedy tokens
+    dense and with GRIFFIN 0.5; a ``ContinuousBatcher`` of 2 slots over 4
+    requests of mixed lengths with GRIFFIN 0.5; ``launch.serve.main``
+    through its slot-batcher fallback.  ``expert_stat`` launches once per
+    prunable FF block (dense layer or shared experts) of every prefill
+    with statistics, and nothing else launches.  Returns the card runs'
+    launches and the results."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import ContinuousBatcher, GenerationEngine
+
+    total, res = {}, {}
+    rng = np.random.default_rng(10)
+    for arch in FAMILIES:
+        cfg = get_config(arch, smoke=True)
+        host = decoder.init_params(cfg, seed=0, device="cpu")
+        card = to_device(host, dev)
+        n_ff = len(decoder.extract_ffn_tree(host, cfg))
+
+        def both(what, fn):
+            return on_both(torch, dev, card, host, total, f"10a {arch} {what}", fn)
+
+        prompts = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+        for name, g in (("dense", None), ("griffin", dict(sparsity=0.5))):
+            gcfg = None if g is None else GriffinConfig(**g)
+            got, want, counts = both(f"engine {name}", lambda d, p: GenerationEngine(
+                cfg, p, gcfg, max_len=48, device=d).generate(prompts, 16).cpu())
+            check(torch.equal(got, want), f"10a {arch} engine {name}: card {got} "
+                  f"!= CPU {want}")
+            check(len(torch.unique(want)) > 4, f"10a {arch} engine {name}: "
+                  f"degenerate {want}")
+            check(only(counts, expert_stat=n_ff if gcfg else 0),
+                  f"10a {arch} engine {name} launches {counts}")
+            res[f"{arch} engine_{name}"] = want[0, :8].tolist()
+
+        reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+                for n, m in ((6, 3), (17, 6), (11, 4), (25, 5))]
+
+        def batch(d, p):
+            cb = ContinuousBatcher(cfg, p, n_slots=2, max_len=48,
+                                   gcfg=GriffinConfig(sparsity=0.5), device=d)
+            for rid, (prompt, m) in enumerate(reqs):
+                cb.submit(prompt, m, rid)
+            return cb.run()
+
+        got, want, counts = both("batcher", batch)
+        check(got == want, f"10a {arch} batcher: card {got} != CPU {want}")
+        check({k: len(v) for k, v in got.items()} == {i: m for i, (_, m) in
+                                                      enumerate(reqs)},
+              f"10a {arch} batcher lengths {got}")
+        check(only(counts, expert_stat=n_ff * len(reqs)),
+              f"10a {arch} batcher launches {counts}")
+        res[f"{arch} batcher"] = got[0]
+
+        argv = ["--arch", arch, "--requests", "4", "--max-len", "64"]
+        (out_c, text), (out_h, _), counts = both("launcher", lambda d, p: launcher(
+            argv + ["--device", d.type]))
+        check(out_c == out_h, f"10a {arch} launcher: card {out_c} != CPU {out_h}")
+        check("slots: served 4 requests" in text and counts["expert_stat"] > 0,
+              f"10a {arch} launcher: {text} launches {counts}")
+        res[f"{arch} launcher"] = [ln for ln in text.splitlines() if "slots:" in ln]
+    return total, res
+
+
+def family_model(torch, dev, arch: str, **over):
+    """``arch``'s full config (``over`` cuts it), bf16, random weights
+    from seed 0 drawn on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = get_config(arch).replace(**over)
+    t0 = time.perf_counter()
+    params = decoder.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+
+    def numel(tree):
+        if isinstance(tree, dict):
+            return sum(numel(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(numel(v) for v in tree)
+        return tree.numel()
+
+    return cfg, params, dict(layers=cfg.num_layers, params=numel(params),
+                             init_s=t_init,
+                             weights_gb=torch.cuda.memory_allocated() / 1e9)
+
+
+def phase_family_full(torch, np, dev, cfg, params, tag: str, batcher: bool,
+                      profile: bool = False):
+    """10b / 10c: ``engine_runs`` over B=2 prompts of 512 tokens and 32 new
+    tokens, dense, GRIFFIN 0.5 and GRIFFIN 0.0 (``expert_stat`` once per
+    prunable FF block of a GRIFFIN prefill).  GRIFFIN 0.0 must give the
+    dense stream token for token, and its compaction (k = F) every
+    column in order.  ``batcher`` adds a ``ContinuousBatcher`` of 2 slots
+    serving 4 requests of 200/350/480/600 prompt tokens and 16 new
+    tokens with GRIFFIN 0.5.  ``profile`` adds ``profile_engine``'s
+    breakdown of the GRIFFIN 0.5 engine.  Returns the launches and the
+    numbers."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import ContinuousBatcher, GenerationEngine
+
+    B, S, steps = FAMILY_ENGINE["B"], FAMILY_ENGINE["S"], FAMILY_ENGINE["steps"]
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                               .astype(np.int32)).to(dev)
+    n_ff = len(decoder.extract_ffn_tree(params, cfg))
+    total, res, streams = engine_runs(
+        torch, dev, cfg, params, prompts, steps,
+        (("dense", None), ("griffin", GriffinConfig(sparsity=0.5)),
+         ("griffin0", GriffinConfig(sparsity=0.0))), n_ff, tag, profile,
+        # a Moonshot prefill is ~9,000 device records: its traces have
+        # come back short of records in every try, so keep them
+        dict(n_steps=2, strict=False))
+    check(torch.equal(streams["griffin0"], streams["dense"]),
+          f"{tag}: GRIFFIN 0.0 {streams['griffin0']} != dense {streams['dense']}")
+    res["token_match_griffin_vs_dense"] = float(
+        (streams["griffin"] == streams["dense"]).float().mean())
+    eng = GenerationEngine(cfg, params, GriffinConfig(sparsity=0.0),
+                           max_len=S + steps, device=dev)
+    _, aux = eng.prefill(prompts)
+    full = decoder.extract_ffn_tree(params, cfg)
+    for li, ffn in eng.select_and_compact(aux.stats).items():
+        check(all(torch.equal(ffn[k], full[li][k]) for k in full[li]),
+              f"{tag}: layer {li} compacted at k = F is not its FF block")
+    del eng, aux, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not batcher:
+        return total, res
+
+    lens, new = FAMILY_BATCHER["lens"], FAMILY_BATCHER["new"]
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    cb = ContinuousBatcher(cfg, params, n_slots=FAMILY_BATCHER["slots"],
+                           max_len=max(lens) + new + 8,
+                           gcfg=GriffinConfig(sparsity=0.5), device=dev)
+    for rid, prompt in enumerate(reqs):
+        cb.submit(prompt, new, rid)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    add_counts(total, counts)
+    check(only(counts, expert_stat=n_ff * len(reqs)),
+          f"{tag} batcher launches {counts}")
+    check(all(len(out[i]) == new and all(0 <= t < cfg.vocab_size for t in out[i])
+              for i in range(len(reqs))), f"{tag} batcher: streams {out}")
+    n_tok = sum(len(v) for v in out.values())
+    res["batcher"] = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
+                          tokens_per_s=n_tok / wall,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          expert_stat=counts["expert_stat"], rid0=out[0][:8])
+    return total, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile Yi-9B decode ticks (phases 4, 5 and "
-                    "7b's dense server), spec rounds (7b) and 9b's GRIFFIN "
-                    "engine prefill and decode steps with torch.profiler; "
-                    "the attention kernels' share is named apart")
+                    "7b's dense server), spec rounds (7b) and the GRIFFIN "
+                    "engines' prefill and decode steps (9b, 10b, 10c) with "
+                    "torch.profiler; the attention kernels' share is named "
+                    "apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
     args = ap.parse_args()
 
@@ -1954,6 +2187,15 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels, lines = phase_kernels(torch, dev, flush)
     del flush
+    # expert_stat at phase 10's GRIFFIN prefill widths, bf16
+    moe_stat = {F: engine_shape_expert_stat(torch, dev, F, (torch.bfloat16,))["bf16"]
+                for F in MOE_STAT_WIDTHS}
+    for r in moe_stat.values():
+        lines.append(f"expert_stat {r['at']} bf16 (phase 10's widths): kernel "
+                     f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+                     f"{r['bound_ms']:.5f} ms ({r['bound_by']})  max_abs_err "
+                     f"{r['max_abs_err']:.3g}")
+    kernels["expert_stat"]["moe_engine"] = list(moe_stat.values())
     print(f"phase 2 kernels vs plain versions ({card}):")
     for line in lines:
         print("  " + line)
@@ -2087,6 +2329,39 @@ def main() -> int:
               f"  max_abs_err {r['max_abs_err']:.3g}")
     kernels["expert_stat"]["engine"] = stat_engine["bf16"]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t10 = t0 = time.perf_counter()
+    fam_smoke_counts, fam_smoke = phase_families_smoke(torch, np, dev)
+    print(f"phase 10a moonshot/deepseek-v3 smoke configs, GenerationEngine "
+          f"(dense/GRIFFIN 0.5), ContinuousBatcher and launch.serve slot "
+          f"fallback, card == CPU: {time.perf_counter() - t0:.1f} s, launches "
+          f"{fam_smoke_counts}")
+    for k, v in fam_smoke.items():
+        print(f"  {k}: {v}")
+    family = {}
+    for arch, tag, over, batcher in (
+            ("moonshot-v1-16b-a3b", "10b", {}, True),
+            ("deepseek-v3-671b", "10c", dict(num_layers=4, mtp_depth=0), False)):
+        t0 = time.perf_counter()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        fcfg, fparams, fmodel = family_model(torch, dev, arch, **over)
+        counts, res = phase_family_full(torch, np, dev, fcfg, fparams, tag, batcher,
+                                        args.profile)
+        del fparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        family[tag] = dict(arch=arch, model=fmodel, launches=counts, **res)
+        print(f"{tag} {arch} {fcfg.num_layers} layers, "
+              f"{fmodel['params'] / 1e9:.2f}B params ({fmodel['weights_gb']:.1f} GB "
+              f"on the card, {before_gb:.2f} GB before the draw), init "
+              f"{fmodel['init_s']:.1f} s; GenerationEngine B={FAMILY_ENGINE['B']} "
+              f"prompt {FAMILY_ENGINE['S']} + {FAMILY_ENGINE['steps']} new "
+              f"({card}): {time.perf_counter() - t0:.1f} s, launches {counts}")
+        for k, v in res.items():
+            print(f"  {k}: {v}")
+    print(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -2097,7 +2372,9 @@ def main() -> int:
              "yi9b_spec": spec["launches"], "launcher_tinylm": launch_counts,
              "frontend_yi9b": fe_res["launches"], "loadgen_yi9b": lg_res["launches"],
              "drain_yi9b": drain_counts, "engine_tinylm": eng_tiny_counts,
-             "engine_yi9b": eng_yi_counts}
+             "engine_yi9b": eng_yi_counts, "families_smoke": fam_smoke_counts,
+             "moonshot": family["10b"]["launches"],
+             "deepseek_v3": family["10c"]["launches"]}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -2128,6 +2405,7 @@ def main() -> int:
         entry.update({k: r[k] for k in ("pass_ms", "compacted_ms") if k in r})
         if "engine" in r:  # expert_stat at GenerationEngine's prompt shape
             entry.update({f"engine_{k}": v for k, v in r["engine"].items()})
+            entry["moe_engine"] = r["moe_engine"]  # and at phase 10's widths
         if "prefill" in r:  # attention: decode (the fields above), prefill
             # and speculative verify
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
@@ -2149,6 +2427,7 @@ def main() -> int:
              "launcher": launch_lines, "frontend": fe_res, "loadgen": lg_res,
              "engine_tinylm": eng_tiny, "engine_yi9b": eng_yi,
              "expert_stat_engine_shape": stat_engine,
+             "families_smoke": fam_smoke, "families": family,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

@@ -3,7 +3,8 @@
 The reference (``repro.models.decoder``) stacks the layers of a scan
 segment on a leading axis (``seg{i}/pos{j}`` leaves, ``[n, ...]``) and
 keeps the rest unrolled (``seg{i}/layer{j}``); the port keeps one entry
-per layer.  These helpers take trees whose leaves are already numpy
+per layer.  The DeepSeek MTP block (``mtp``, unstacked) is carried as it
+is.  These helpers take trees whose leaves are already numpy
 arrays (``jax.tree.map(np.asarray, tree)`` on the reference side) and
 return torch tensors on a device, bit for bit — no weights are
 downloaded or re-drawn (leaves that are torch tensors already, such as
@@ -66,8 +67,9 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
         "layers": [_to_torch(layers[li], device) for li in range(cfg.num_layers)],
         "final_norm": _to_torch(tree["final_norm"], device),
     }
-    if "head" in tree:
-        out["head"] = _to_torch(tree["head"], device)
+    for k in ("head", "mtp"):
+        if k in tree:
+            out[k] = _to_torch(tree[k], device)
     return out
 
 
@@ -96,8 +98,9 @@ def params_to_jax(params: Dict, cfg) -> Dict:
 
     out: Dict[str, Any] = {"embed": cpu(params["embed"]),
                            "final_norm": cpu(params["final_norm"])}
-    if "head" in params:
-        out["head"] = cpu(params["head"])
+    for k in ("head", "mtp"):
+        if k in params:
+            out[k] = cpu(params[k])
     groups: Dict[tuple, list] = {}
     for li, (path, _, _) in enumerate(decoder.layer_paths(cfg)):
         groups.setdefault(tuple(path.split("/")), []).append(

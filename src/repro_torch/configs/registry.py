@@ -4,12 +4,20 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import smollm_360m, tinylm, yi_9b
+from repro_torch.configs import (
+    deepseek_v3_671b,
+    moonshot_v1_16b_a3b,
+    smollm_360m,
+    tinylm,
+    yi_9b,
+)
 from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "yi-9b": yi_9b.config,
     "smollm-360m": smollm_360m.config,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.config,
+    "deepseek-v3-671b": deepseek_v3_671b.config,
     "tinylm": tinylm.config,
     "tinylm-tp": tinylm.config_tp,
     "lm100m": tinylm.config_100m,

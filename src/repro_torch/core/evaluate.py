@@ -78,11 +78,20 @@ def build_pruned(
 
 
 def replace_ffn_tree(params: Dict, cfg, new_ffn: Dict[int, Dict]) -> Dict:
-    """A copy of ``params`` (sharing every untouched tensor) whose dense
-    FF blocks ``new_ffn[li]`` replace the originals."""
+    """A copy of ``params`` (sharing every untouched tensor) whose
+    prunable FF blocks (dense FF / MoE shared experts) are replaced by
+    ``new_ffn[li]``."""
+    descs = decoder.layer_descs(cfg)
+
+    def one(li, lp):
+        if li not in new_ffn:
+            return lp
+        if descs[li].ffn == "moe":
+            return dict(lp, ffn=dict(lp["ffn"], shared=new_ffn[li]))
+        return dict(lp, ffn=new_ffn[li])
+
     out = dict(params)
-    out["layers"] = [dict(lp, ffn=new_ffn[li]) if li in new_ffn else lp
-                     for li, lp in enumerate(params["layers"])]
+    out["layers"] = [one(li, lp) for li, lp in enumerate(params["layers"])]
     return out
 
 

@@ -230,12 +230,18 @@ def compact_tree(ffn_params_tree: Dict[int, Dict],
 
 
 def ffn_widths(cfg) -> Dict[int, int]:
-    """``{li: d_ff}`` for every GRIFFIN-prunable FF block (mirrors
+    """``{li: d_ff}`` for every GRIFFIN-prunable FF block: a dense FF, or
+    the MoE shared experts at ``moe_d_ff * num_shared_experts`` (mirrors
     ``decoder.extract_ffn_tree``)."""
     from repro_torch.models import decoder
 
-    return {li: cfg.d_ff for li, d in enumerate(decoder.layer_descs(cfg))
-            if d.ffn == "dense"}
+    out: Dict[int, int] = {}
+    for li, d in enumerate(decoder.layer_descs(cfg)):
+        if d.ffn == "dense":
+            out[li] = cfg.d_ff
+        elif d.ffn == "moe" and cfg.num_shared_experts:
+            out[li] = cfg.moe_d_ff * cfg.num_shared_experts
+    return out
 
 
 def plan_k_tree(

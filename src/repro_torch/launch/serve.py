@@ -1,6 +1,8 @@
 """Serving launcher of the port: prefill -> GRIFFIN select/compact ->
-pruned decode over the paged-KV ``PagedServer``, on the card by default
-(port of ``repro/launch/serve.py``).
+pruned decode over the paged-KV ``PagedServer``, or the
+``ContinuousBatcher`` slot fallback for the archs the paged path does
+not cover (MoE, MLA), on the card by default (port of
+``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinylm \\
       --requests 8 --sparsity 0.5
@@ -17,12 +19,14 @@ Flags, defaults, checks and summary lines are the reference's, except:
   ``torch.profiler`` trace of the drain to ``DIR/trace.json``;
 * ``--device`` picks the device (default: the card);
 * ``--mesh`` is refused: tensor parallelism is not ported;
-* an arch the paged path does not cover is refused: the port has no
-  ``ContinuousBatcher`` fallback.
+* the SSM, hybrid, encoder and VLM archs are refused: their model
+  families are not ported.
 
-Without a checkpoint (``--ckpt-dir``, default
-``artifacts/models/<arch>-s500``) tinylm serves an untrained init drawn
-on the CPU from seed 0 (so the card and the CPU serve the same weights;
+The slot fallback refuses ``--spec-k``, the observability flags and
+``--http``, as the reference does.  Without a checkpoint (``--ckpt-dir``,
+default ``artifacts/models/<arch>-s500``) tinylm serves an untrained
+init, and every other arch its smoke-size config with an init, drawn on
+the CPU from seed 0 (so the card and the CPU serve the same weights;
 they are not the reference's ``PRNGKey(0)`` draw).  ``main(argv)``
 returns the drained ``{rid: tokens}`` (None in ``--http`` mode).
 """
@@ -47,6 +51,7 @@ from repro_torch.kernels import backend
 from repro_torch.models import decoder
 from repro_torch.obs.export import write_trace
 from repro_torch.obs.trace import Tracer
+from repro_torch.serving.engine import ContinuousBatcher
 from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.server import PagedServer
 from repro_torch.serving.slo import SLO_CLASSES
@@ -60,9 +65,8 @@ ARCHS = ["yi-9b", "gemma3-27b", "smollm-360m", "command-r-plus-104b",
 
 _NO_MESH = ("--mesh: tensor parallelism is not ported to the PyTorch "
             "server (ROADMAP Queue A item 10)")
-_NO_BATCHER = ("{arch} needs the ContinuousBatcher fallback (or a model "
-               "family) the port does not have yet (ROADMAP Queue A item "
-               "11); the port serves paged attention archs only")
+_NO_FAMILY = ("{arch}: its model family (SSM, hybrid, encoder or VLM) is "
+              "not ported yet (ROADMAP Queue A item 11)")
 
 
 def parse_mesh(spec: str):
@@ -211,10 +215,9 @@ def main(argv: Optional[Sequence[str]] = None
     if args.mesh is not None:
         ap.error(_NO_MESH)
     if args.arch not in list_archs():
-        ap.error(_NO_BATCHER.format(arch=args.arch))
+        ap.error(_NO_FAMILY.format(arch=args.arch))
     cfg = get_config(args.arch, smoke=args.arch not in ("tinylm", "tinylm-tp"))
-    if not decoder.supports_paged(cfg):
-        ap.error(_NO_BATCHER.format(arch=cfg.name))
+    paged = decoder.supports_paged(cfg)
     device = backend.resolve_device(args.device)
     print(f"[device] {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                   if device.type == "cuda" else ""))
@@ -237,9 +240,20 @@ def main(argv: Optional[Sequence[str]] = None
         mode = f"GRIFFIN tier={args.tier}" + ("+profile" if profile else "")
     if args.spec_k and gcfg is None:
         ap.error("--spec-k requires GRIFFIN (drop --no-griffin)")
+    if args.spec_k and not paged:
+        ap.error(f"--spec-k requires the paged serving path; "
+                 f"{cfg.name} falls back to the slot batcher")
     if args.spec_k:
         mode += f"+spec{args.spec_k}"
+    obs_flags = (args.trace_out, args.metrics_snapshot,
+                 args.flocking_telemetry, args.torch_profile)
+    if any(obs_flags) and not paged:
+        ap.error(f"observability flags need the paged serving path; "
+                 f"{cfg.name} falls back to the slot batcher")
     if args.http is not None:
+        if not paged:
+            ap.error(f"--http requires the paged serving path; "
+                     f"{cfg.name} falls back to the slot batcher")
         try:
             http_host, http_port = args.http.rsplit(":", 1)
             http_port = int(http_port)
@@ -251,6 +265,8 @@ def main(argv: Optional[Sequence[str]] = None
 
     params = load_params(cfg, args.arch, args.ckpt_dir, device)
     reqs = synthetic_requests(cfg, args.requests, args.max_len)
+    if not paged:
+        return serve_slots(cfg, params, gcfg, reqs, args, mode, device)
     tracer = None
     if args.trace_out:
         tracer = Tracer(annotate_profiler=bool(args.torch_profile))
@@ -341,6 +357,25 @@ def main(argv: Optional[Sequence[str]] = None
     if args.metrics_snapshot:
         path = srv.metrics.write_snapshot(args.metrics_snapshot)
         print(f"[obs] metrics snapshot -> {path}")
+    return results
+
+
+def serve_slots(cfg, params, gcfg, reqs, args, mode: str, device
+                ) -> Dict[int, List[int]]:
+    """The reference's slot-batcher fallback: drain ``reqs`` through a
+    ``ContinuousBatcher`` of ``--slots`` slots."""
+    cb = ContinuousBatcher(cfg, params, n_slots=args.slots,
+                           max_len=args.max_len, gcfg=gcfg, device=device)
+    for rid, (prompt, gen) in enumerate(reqs):
+        cb.submit(prompt, max_new=gen, rid=rid)
+    t0 = time.perf_counter()
+    results = cb.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in results.values())
+    print(f"[{mode}] slots: served {args.requests} requests / {total} tokens "
+          f"in {dt:.2f}s ({total/dt:.1f} tok/s, {args.slots} slots)")
     return results
 
 

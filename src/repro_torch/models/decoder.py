@@ -1,6 +1,6 @@
-"""Model assembly for the attention families (port of
-``repro/models/decoder.py``: the contiguous prefill/decode path and the
-paged serving path).
+"""Model assembly for the attention families, dense, MoE and MLA (port
+of ``repro/models/decoder.py``: the contiguous prefill/decode path and
+the paged serving path, which covers the dense GQA families only).
 
 The reference stacks homogeneous runs of layers on a leading axis and
 scans them (``seg{i}/pos{j}`` leaves).  PyTorch runs eagerly, so the
@@ -27,7 +27,7 @@ Public API:
     verify_step_paged(params, cfg, pools, bt, tokens, pos, mask, ...) -> logits, pools
     draft_verify_paged(params, cfg, pools, bt, token, pos, k_r, live, ...)
                                              -> drafts, logits, pools
-    extract_ffn_tree(params, cfg)            -> {li: dense-FF params}
+    extract_ffn_tree(params, cfg)            -> {li: dense-FF / MoE shared params}
     prune_stats_tree(stats, cfg)             -> {li: stats}
 """
 from __future__ import annotations
@@ -52,6 +52,9 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import ffn as ffn_lib
+from repro_torch.models.layers import mla as mla_lib
+from repro_torch.models.layers import moe as moe_lib
+from repro_torch.models.param import ParamSpec
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +131,14 @@ def layer_paths(cfg) -> List[Tuple[str, int, int]]:
 def layer_specs(cfg, desc: LayerDesc) -> Dict:
     s: Dict[str, Any] = {
         "mixer_norm": norm_specs(cfg),
-        "mixer": attn_lib.attn_specs(cfg),
+        "mixer": mla_lib.mla_specs(cfg) if cfg.use_mla else attn_lib.attn_specs(cfg),
     }
     if desc.ffn == "dense":
         s["ffn_norm"] = norm_specs(cfg)
         s["ffn"] = ffn_lib.ffn_specs(cfg)
+    elif desc.ffn == "moe":
+        s["ffn_norm"] = norm_specs(cfg)
+        s["ffn"] = moe_lib.moe_specs(cfg)
     return s
 
 
@@ -145,6 +151,15 @@ def model_specs(cfg) -> Dict:
         specs["head"] = hs
     specs["layers"] = [layer_specs(cfg, d) for d in layer_descs(cfg)]
     specs["final_norm"] = norm_specs(cfg)
+    if cfg.mtp_depth:
+        # DeepSeek-style MTP module: shared embed/head, 1 extra block.  No
+        # serving path reads it (its loss is a training term).
+        specs["mtp"] = {
+            "norm_h": norm_specs(cfg),
+            "norm_e": norm_specs(cfg),
+            "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), (None, "embed")),
+            "layer": layer_specs(cfg, layer_descs(cfg)[-1]),
+        }
     return specs
 
 
@@ -162,13 +177,15 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict:
 @dataclass
 class Aux:
     """Per-forward side outputs, per layer: ``kv`` a list of ``{k, v}``
-    (prefill cache material), ``stats`` ``{li: {s_sq [B,F], x_sq [D],
-    z_sq [F], (z [B,S,F])}}`` for the layers with a dense FF block.  The
-    reference's ``moe_aux`` belongs to the MoE families the port does not
-    cover; its ``x_norms``/``z_norms`` are never set (the Adaptive Wanda
+    (MLA: ``{ckv, kr}``, prefill cache material), ``stats`` ``{li: {s_sq
+    [B,F], x_sq [D], z_sq [F], (z [B,S,F])}}`` for the layers with a
+    dense FF block or MoE shared experts, ``moe_aux`` the routers'
+    load-balance losses summed over layers (fp32 scalar).  The
+    reference's ``x_norms``/``z_norms`` are never set (the Adaptive Wanda
     norms are ``stats``' ``x_sq``/``z_sq``)."""
     kv: Optional[List[Dict]] = None
     stats: Optional[Dict[int, Dict]] = None
+    moe_aux: Any = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -176,14 +193,15 @@ class Aux:
 # ---------------------------------------------------------------------------
 
 def supports_contiguous(cfg) -> bool:
-    """The contiguous path covers the GQA/MQA attention families (dense
-    FF or no FF), with an fp or int8 decode cache."""
-    return (
-        all(d.mixer == "attn" for d in layer_descs(cfg))
-        and not cfg.use_mla
-        and not cfg.num_experts
-        and not cfg.frontend
-    )
+    """The contiguous path covers the attention families: GQA/MQA or MLA
+    mixers, dense, MoE or no FF, with an fp or int8 decode cache (SSM,
+    RG-LRU and frontend families are not ported)."""
+    return all(d.mixer == "attn" for d in layer_descs(cfg)) and not cfg.frontend
+
+
+def _rope_width(cfg) -> int:
+    """Dims RoPE rotates per head: MLA rotates only its rope part."""
+    return cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
 
 
 def _apply_layer(
@@ -199,17 +217,29 @@ def _apply_layer(
     rope=None,
 ):
     h = apply_norm(lp["mixer_norm"], x, cfg)
-    y, (k, v) = attn_lib.attn_forward(lp["mixer"], h, positions, cfg,
-                                      kind=desc.attn_kind, q_chunk=q_chunk,
-                                      rope=rope)
+    if cfg.use_mla:
+        y, (ckv, kr) = mla_lib.mla_forward(lp["mixer"], h, positions, cfg,
+                                           q_chunk, rope=rope)
+        kv = {"ckv": ckv, "kr": kr}
+    else:
+        y, (k, v) = attn_lib.attn_forward(lp["mixer"], h, positions, cfg,
+                                          kind=desc.attn_kind, q_chunk=q_chunk,
+                                          rope=rope)
+        kv = {"k": k, "v": v}
     x = x + y
-    stats = None
-    if desc.ffn == "dense":
+    stats, aux = None, None
+    if desc.ffn != "none":
         h = apply_norm(lp["ffn_norm"], x, cfg)
-        fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
-        y, stats = ffn_lib.ffn_forward(fp, h, cfg, collect_stats, want_z)
+        if desc.ffn == "dense":
+            fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
+            y, stats = ffn_lib.ffn_forward(fp, h, cfg, collect_stats, want_z)
+        elif pruned_ffn is not None:
+            y = moe_lib.moe_decode(lp["ffn"], pruned_ffn, h, cfg)
+        else:
+            y, aux, stats = moe_lib.moe_forward(
+                lp["ffn"], h, cfg, collect_stats=collect_stats, want_z=want_z)
         x = x + y
-    return x, {"k": k, "v": v}, stats
+    return x, kv, stats, aux
 
 
 @torch.no_grad()
@@ -247,14 +277,17 @@ def forward(
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_cos_sin(positions, _rope_width(cfg), cfg.rope_theta)
     kv_list: List[Dict] = []
     stats_tree: Dict[int, Dict] = {}
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, desc in enumerate(layer_descs(cfg)):
-        x, kv, st = _apply_layer(
+        x, kv, st, aux = _apply_layer(
             params["layers"][li], desc, x, positions, cfg, collect_stats,
             q_chunk, (pruned or {}).get(li), want_z, rope,
         )
+        if aux is not None:
+            moe_aux = moe_aux + aux
         if want_kv:
             kv_list.append(kv)
         if st is not None:
@@ -268,7 +301,8 @@ def forward(
     else:
         out = lm_logits(params.get("head", {}), params["embed"], x, cfg)
     return out, Aux(kv=kv_list if want_kv else None,
-                    stats=stats_tree if collect_stats else None)
+                    stats=stats_tree if collect_stats else None,
+                    moe_aux=moe_aux)
 
 
 def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
@@ -283,8 +317,12 @@ def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg, batch: int, max_len: int) -> List[Dict]:
-    """Per-layer decode cache specs (one dict per layer)."""
+    """Per-layer decode cache specs (one dict per layer; MLA: the
+    compressed ``{ckv, kr}``)."""
     assert supports_contiguous(cfg), cfg.name
+    if cfg.use_mla:
+        return [mla_lib.mla_cache_specs(cfg, batch, max_len)
+                for _ in range(cfg.num_layers)]
     return [attn_lib.init_cache_specs(cfg, d.attn_kind, batch, max_len)
             for d in layer_descs(cfg)]
 
@@ -299,7 +337,10 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> List[Dict]:
 def fill_cache_from_prefill(cfg, cache: List[Dict], kv: List[Dict]) -> List[Dict]:
     """Scatter prefill K/V (``Aux.kv``) into the decode caches, in place."""
     for c, layer_kv in zip(cache, kv):
-        attn_lib.fill_cache(c, layer_kv["k"], layer_kv["v"])
+        if cfg.use_mla:
+            mla_lib.mla_fill_cache(c, layer_kv["ckv"], layer_kv["kr"])
+        else:
+            attn_lib.fill_cache(c, layer_kv["k"], layer_kv["v"])
     return cache
 
 
@@ -311,13 +352,19 @@ def _apply_layer_decode(lp: Dict, desc: LayerDesc, cache: Dict,
                         x: torch.Tensor, pos: int, cfg,
                         pruned_ffn: Optional[Dict], rope=None):
     h = apply_norm(lp["mixer_norm"], x, cfg)
-    y, cache = attn_lib.attn_decode(lp["mixer"], cache, h, pos, cfg,
-                                    kind=desc.attn_kind, rope=rope)
+    if cfg.use_mla:
+        y, cache = mla_lib.mla_decode(lp["mixer"], cache, h, pos, cfg, rope=rope)
+    else:
+        y, cache = attn_lib.attn_decode(lp["mixer"], cache, h, pos, cfg,
+                                        kind=desc.attn_kind, rope=rope)
     x = x + y
-    if desc.ffn == "dense":
+    if desc.ffn != "none":
         h = apply_norm(lp["ffn_norm"], x, cfg)
-        fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
-        y, _ = ffn_lib.ffn_forward(fp, h, cfg)
+        if desc.ffn == "dense":
+            fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
+            y, _ = ffn_lib.ffn_forward(fp, h, cfg)
+        else:
+            y = moe_lib.moe_decode(lp["ffn"], pruned_ffn, h, cfg)
         x = x + y
     return x, cache
 
@@ -336,16 +383,16 @@ def decode_step(
 
     ``pruned``: optional GRIFFIN-compacted FF blocks ``{li: ffn}``
     (``extract_ffn_tree`` / ``griffin.compact_tree``); when given, the
-    dense FF blocks use the expert neurons only — the paper's generation
-    phase.  The caches are written **in place** (the reference's are
-    functional): see ``attention.attn_decode`` for the order that keeps
+    dense FF blocks (and MoE shared experts) use the expert neurons
+    only — the paper's generation phase.  The caches are written **in
+    place** (the reference's are functional): see ``attention.attn_decode`` for the order that keeps
     two steps from one cache at one ``pos`` equal to the reference's.
     Returns (logits [B,1,V] fp32, cache)."""
     pos = int(pos)
     x = embed_lookup(params["embed"], token.long(), cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_cos_sin(positions, _rope_width(cfg), cfg.rope_theta)
     for li, desc in enumerate(layer_descs(cfg)):
         x, _ = _apply_layer_decode(params["layers"][li], desc, cache[li], x,
                                    pos, cfg, (pruned or {}).get(li), rope)
@@ -359,10 +406,19 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg) -> bool:
-    """The paged path covers the contiguous path's families with fp
-    caches (an int8 contiguous cache has no paged form: the paged pools
-    quantize through ``kv_dtype``)."""
-    return supports_contiguous(cfg) and not getattr(cfg, "kv_cache_int8", False)
+    """The paged path covers the GQA/MQA attention families (dense FF or
+    no FF) with fp caches: the reference's own predicate.  MLA / MoE
+    (and the unported SSM / RG-LRU / frontend families) take the
+    contiguous caches and the ``ContinuousBatcher``; an int8 contiguous
+    cache has no paged form (the paged pools quantize through
+    ``kv_dtype``)."""
+    return (
+        all(d.mixer == "attn" for d in layer_descs(cfg))
+        and not cfg.use_mla
+        and not cfg.num_experts
+        and not getattr(cfg, "kv_cache_int8", False)
+        and not cfg.frontend
+    )
 
 
 def paged_pool_specs(cfg, num_pages: int, page_size: int,
@@ -616,14 +672,25 @@ def draft_verify_paged(
 # GRIFFIN plumbing
 # ---------------------------------------------------------------------------
 
+def _prunable(cfg, desc: LayerDesc) -> bool:
+    """A GRIFFIN-prunable FF block: dense, or MoE with shared experts."""
+    return desc.ffn == "dense" or (desc.ffn == "moe"
+                                   and bool(cfg.num_shared_experts))
+
+
 def extract_ffn_tree(params: Dict, cfg) -> Dict[int, Dict]:
-    """``{li: ffn params}`` of every GRIFFIN-prunable (dense) FF block,
-    mirroring the stats tree of ``decode_step_paged(collect_stats=True)``."""
-    return {li: params["layers"][li]["ffn"]
-            for li, d in enumerate(layer_descs(cfg)) if d.ffn == "dense"}
+    """``{li: ffn params}`` of every GRIFFIN-prunable FF block (dense FF
+    or MoE shared experts), mirroring the stats tree of
+    ``forward(collect_stats=True)``."""
+    out: Dict[int, Dict] = {}
+    for li, d in enumerate(layer_descs(cfg)):
+        if _prunable(cfg, d):
+            ffn = params["layers"][li]["ffn"]
+            out[li] = ffn["shared"] if d.ffn == "moe" else ffn
+    return out
 
 
 def prune_stats_tree(stats: Dict[int, Dict], cfg) -> Dict[int, Dict]:
-    """Keep the stats of layers with a dense FF block."""
+    """Keep the stats of layers with a GRIFFIN-prunable FF block."""
     descs = layer_descs(cfg)
-    return {li: st for li, st in stats.items() if descs[li].ffn == "dense"}
+    return {li: st for li, st in stats.items() if _prunable(cfg, descs[li])}

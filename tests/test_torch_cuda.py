@@ -238,6 +238,12 @@ def test_paged_attn_refuses_another_row_tile(dev):
     ((2, 20, 8193), torch.bfloat16),    # 1025 vectors a CTA: 5 a thread
     ((2, 512, 11008), torch.float32),   # GenerationEngine's whole-prompt
     ((2, 512, 11008), torch.bfloat16),  # prefill at Yi-9B width: 16 tiles
+    # the engine's prompt shape at the MoE/MLA families' GRIFFIN widths:
+    # Moonshot's shared experts and dense layer, DeepSeek-V3's
+    ((2, 512, 2816), torch.bfloat16),
+    ((2, 512, 11264), torch.bfloat16),
+    ((2, 512, 2048), torch.bfloat16),
+    ((2, 512, 18432), torch.bfloat16),
 ])
 def test_expert_stat_kernel_matches_plain(dev, shape, dtype):
     from repro_torch.kernels import expert_stat
@@ -737,3 +743,67 @@ def test_generation_engine_on_card_equals_cpu(dev):
         assert launched == (cfg.num_layers if d.type == "cuda" else 0)
     assert torch.equal(out["cuda"], out["cpu"])
     assert len(torch.unique(out["cpu"])) > 4
+
+
+def test_moe_on_card_is_deterministic_and_equals_cpu(dev):
+    """One MoE call (smoke Moonshot experts, 64 tokens) run twice on the
+    card gives the same bits, bf16 and fp32 — the combine adds a token's
+    contributions in a fixed order, no atomics — and the fp32 call is
+    within 1e-5 of the CPU's; likewise ``moe_decode``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import param
+    from repro_torch.models.layers import moe
+
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    host = param.init_params(moe.moe_specs(cfg), 0, "float32", "cpu")
+    x = torch.tensor(np.random.default_rng(4).normal(size=(2, 32, cfg.d_model)),
+                     dtype=torch.float32)
+    want, aux_h, _ = moe.moe_forward(host, x, cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        # the router stays fp32 in a bf16 model, as its spec says
+        card = {k: v.to(dev) if k == "router" else
+                {n: w.to(dev, dtype) for n, w in v.items()} if isinstance(v, dict)
+                else v.to(dev, dtype) for k, v in host.items()}
+        xc = x.to(dev, dtype)
+        y1, a1, _ = moe.moe_forward(card, xc, cfg)
+        y2, a2, _ = moe.moe_forward(card, xc, cfg)
+        assert torch.equal(y1, y2) and torch.equal(a1, a2)
+        d1 = moe.moe_decode(card, None, xc[:, :1], cfg)
+        assert torch.equal(d1, moe.moe_decode(card, None, xc[:, :1], cfg))
+        if dtype == torch.float32:
+            torch.testing.assert_close(y1.cpu(), want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a1.cpu(), aux_h, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(
+                d1.cpu(), moe.moe_decode(host, None, x[:, :1], cfg),
+                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_continuous_batcher_on_card_equals_cpu(dev, arch):
+    """A smoke-config ``ContinuousBatcher`` (2 slots, 4 requests of mixed
+    lengths, GRIFFIN 0.5) at fp32 gives the CPU's streams, with one
+    ``expert_stat`` launch per prunable FF block of each insert."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.kernels import expert_stat
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import ContinuousBatcher
+
+    cfg = get_config(arch, smoke=True)
+    host = decoder.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in ((6, 3), (17, 6), (11, 4), (25, 5))]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cb = ContinuousBatcher(cfg, _to(host, d), n_slots=2, max_len=48,
+                               gcfg=GriffinConfig(sparsity=0.5), device=d)
+        for rid, (p, m) in enumerate(reqs):
+            cb.submit(p, m, rid)
+        before = expert_stat.launches
+        out[d.type] = cb.run()
+        n_ff = len(decoder.extract_ffn_tree(host, cfg))
+        assert expert_stat.launches - before == (
+            n_ff * len(reqs) if d.type == "cuda" else 0)
+    assert out["cuda"] == out["cpu"]
+    assert {k: len(v) for k, v in out["cpu"].items()} == {0: 3, 1: 6, 2: 4, 3: 5}

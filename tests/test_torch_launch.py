@@ -13,8 +13,8 @@ package.
 * Checkpoints cross both ways bit for bit, bf16 leaves included; the
   port's parameters go back to the reference layout
   (``bridge.params_to_jax``) unchanged.
-* ``--mesh``, an arch the paged path does not cover, and a missing card
-  without ``--device cpu`` are refused.
+* ``--mesh``, an arch whose model family is not ported, and a missing
+  card without ``--device cpu`` are refused.
 """
 import json
 
