@@ -121,7 +121,22 @@ Phases (any failure raises and the script exits non-zero):
    dense MLA layers and one MoE layer of 256 experts, no MTP block): the
    same engine runs, 4 ``expert_stat`` launches per GRIFFIN prefill.
    Phase 2 adds ``expert_stat`` at [2, 512, F] bf16 for phase 10's
-   widths F = 2816, 11264, 2048, 18432.
+   widths F = 2816, 11264, 2048, 18432;
+11. the recurrent families, after phase 10's models are freed: (a) the
+   smoke RecurrentGemma-9B (RG-LRU, RG-LRU, local attention with a
+   16-token window, GeGLU FF blocks) and Mamba2-1.3B (SSD, no FF) configs,
+   fp32, matrices scaled by 2 so that greedy streams vary, every result
+   equal to the same call on the CPU as in 10a (the prompts wrap the
+   hybrid's ring); (b) RecurrentGemma-9B whole (38 layers, 8.58 B
+   parameters, bf16, random weights from seed 0, matrices scaled by 2 as
+   in 11a): the engine runs of 10b
+   (dense, GRIFFIN 0.5 and 0.0, 38 ``expert_stat`` launches per GRIFFIN
+   prefill) and a ``ContinuousBatcher`` of 2 slots over 4 requests of
+   200/350/480/2100 prompt tokens and 16 new tokens (the last wraps the
+   2048-token ring); (c) Mamba2-1.3B whole (48 layers, scaled the same):
+   the dense engine run and the same batcher, with no kernel launched.  Phase 2 adds
+   ``expert_stat`` at [2, 512, 12288] bf16, RecurrentGemma-9B's width,
+   and says whether its time sits nearer F=11264's or 18432's.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -130,8 +145,9 @@ the verify call's time and bound, and ``launches_decode`` /
 ``launches_prefill`` / ``launches_verify`` split the launches by kind;
 ``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
 ``compacted_ms``, the compacted products' time; ``expert_stat`` adds
-``engine_*``, its numbers at phase 9b's prompt shape, and ``moe_engine``,
-its numbers at phase 10's widths); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+``engine_*``, its numbers at phase 9b's prompt shape, ``moe_engine``,
+its numbers at phase 10's widths, and ``recurrent_engine``, at phase
+11's); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -773,10 +789,12 @@ def phase_kernels_ffn(torch, dev, flush, gen, lines):
 # ---------------------------------------------------------------------------
 
 def scale_matrices(params, s: float) -> None:
+    """Every layer's projection matrices times ``s`` (not the RG-LRU gate
+    blocks ``w_a`` / ``w_i``)."""
     for lp in params["layers"]:
         for group in ("mixer", "ffn"):
-            for k, v in lp[group].items():
-                if k.startswith("w"):
+            for k, v in lp.get(group, {}).items():
+                if k.startswith("w") and k not in ("w_a", "w_i"):
                     v.mul_(s)
 
 
@@ -1774,7 +1792,11 @@ def profile_engine(torch, eng, prompts, n_steps: int = 4, strict: bool = True):
     fences a call), beside their host-clock wall.  ``strict``: the
     prefill trace is taken again when it lacks an ``expert_stat`` record
     of any layer; otherwise the trace is kept and ``expert_stat_records``
-    says how many it holds (a trace short of ``n_stat`` lost records)."""
+    says how many it holds (a trace short of ``n_stat`` lost records).
+    An engine without GRIFFIN decodes on the dense FF.  Each traced try
+    of the decode steps starts from the cache the last one left: KV slots
+    are rewritten, recurrent states move on, which changes no step's
+    work."""
     from repro_torch.models import decoder
 
     B, S = prompts.shape
@@ -1783,7 +1805,7 @@ def profile_engine(torch, eng, prompts, n_steps: int = 4, strict: bool = True):
     def prefill():
         t0 = time.perf_counter()
         _, aux = eng.prefill(prompts)
-        state["pruned"] = eng.select_and_compact(aux.stats)
+        state["pruned"] = eng.select_and_compact(aux.stats) if eng.gcfg else None
         state["cache"] = decoder.fill_cache_from_prefill(
             eng.cfg, decoder.init_cache(eng.cfg, B, eng.max_len, prompts.device),
             aux.kv)
@@ -1826,14 +1848,14 @@ def profile_engine(torch, eng, prompts, n_steps: int = 4, strict: bool = True):
 
 def engine_runs(torch, dev, cfg, params, prompts, steps: int, variants,
                 n_stat: int, tag: str, profile: bool = False,
-                profile_kw=None):
+                profile_kw=None, profiled: str = "griffin"):
     """``GenerationEngine`` over ``prompts`` [B, S] (on the card) and
     ``steps`` new tokens for each ``(name, gcfg)`` of ``variants``:
     prefill, GRIFFIN's selection and every decode step timed on the host
     clock after a ``synchronize``, each engine after an untimed warm-up
     call; every decode logit finite; ``expert_stat`` launched ``n_stat``
     times per GRIFFIN prefill and nothing else launched.  ``profile``
-    adds ``profile_engine``'s breakdown of the ``griffin`` variant
+    adds ``profile_engine``'s breakdown of the ``profiled`` variant
     (``profile_kw``: its options).
     Returns (launches, numbers by variant, token streams by variant)."""
     from repro_torch.serving.engine import GenerationEngine
@@ -1884,9 +1906,9 @@ def engine_runs(torch, dev, cfg, params, prompts, steps: int, variants,
             tpot_p50_ms=statistics.median(dec) * 1e3,
             generate_wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             expert_stat_per_prefill=got_stat, tokens=out[:, :8].tolist())
-        if profile and name == "griffin":
+        if profile and name == profiled:
             del eng.prefill, eng.select_and_compact, eng.decode  # untimed
-            res["griffin_profile"] = profile_engine(torch, eng, prompts,
+            res[f"{name}_profile"] = profile_engine(torch, eng, prompts,
                                                     **(profile_kw or {}))
         del eng
     return total, res, streams
@@ -1984,17 +2006,33 @@ FAMILY_BATCHER = dict(lens=(200, 350, 480, 600), new=16, slots=2)
 #: ``expert_stat`` rows at the engine's [2, 512, F] bf16 shape
 MOE_STAT_WIDTHS = (2816, 11264, 2048, 18432)
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families (Mamba2 SSD, the RG-LRU hybrid) through
+# the same engines and fallback (phase 10's functions)
+# ---------------------------------------------------------------------------
 
-def phase_families_smoke(torch, np, dev):
-    """10a, the smoke configs of both families (fp32, TF32 off, weights
-    drawn on the CPU from seed 0 and copied to the card), every result
-    held to the same call on the CPU: ``GenerationEngine`` greedy tokens
-    dense and with GRIFFIN 0.5; a ``ContinuousBatcher`` of 2 slots over 4
-    requests of mixed lengths with GRIFFIN 0.5; ``launch.serve.main``
-    through its slot-batcher fallback.  ``expert_stat`` launches once per
-    prunable FF block (dense layer or shared experts) of every prefill
-    with statistics, and nothing else launches.  Returns the card runs'
-    launches and the results."""
+#: the archs of phase 11
+RECURRENT = ("recurrentgemma-9b", "mamba2-1.3b")
+#: 11b/11c's batcher prompt lengths: the last wraps RecurrentGemma's
+#: 2048-token local-attention ring at full width
+RECURRENT_BATCHER_LENS = (200, 350, 480, 2100)
+#: RecurrentGemma-9B's FF width, for phase 2's ``expert_stat`` row at the
+#: engine's [2, 512, F] bf16 shape
+RECURRENT_STAT_WIDTH = 12288
+
+
+def phase_families_smoke(torch, np, dev, archs=FAMILIES, tag="10a", scale=None):
+    """10a / 11a, the smoke configs of ``archs`` (fp32, TF32 off, weights
+    drawn on the CPU from seed 0, their matrices times ``scale`` if
+    given, and copied to the card), every result held to the same call
+    on the CPU: ``GenerationEngine`` greedy tokens dense and with GRIFFIN
+    0.5; a ``ContinuousBatcher`` of 2 slots over 4 requests of mixed
+    lengths with GRIFFIN 0.5; ``launch.serve.main`` through its
+    slot-batcher fallback.  ``expert_stat`` launches once per prunable FF
+    block (dense layer, shared experts, a hybrid block's GeGLU) of every
+    prefill with statistics, and nothing else launches (an arch without
+    an FF block runs GRIFFIN-free and launches nothing).  Returns the
+    card runs' launches and the results."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.models import decoder
@@ -2002,26 +2040,28 @@ def phase_families_smoke(torch, np, dev):
 
     total, res = {}, {}
     rng = np.random.default_rng(10)
-    for arch in FAMILIES:
+    for arch in archs:
         cfg = get_config(arch, smoke=True)
         host = decoder.init_params(cfg, seed=0, device="cpu")
+        if scale is not None:
+            scale_matrices(host, scale)
         card = to_device(host, dev)
         n_ff = len(decoder.extract_ffn_tree(host, cfg))
 
         def both(what, fn):
-            return on_both(torch, dev, card, host, total, f"10a {arch} {what}", fn)
+            return on_both(torch, dev, card, host, total, f"{tag} {arch} {what}", fn)
 
         prompts = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
         for name, g in (("dense", None), ("griffin", dict(sparsity=0.5))):
             gcfg = None if g is None else GriffinConfig(**g)
             got, want, counts = both(f"engine {name}", lambda d, p: GenerationEngine(
                 cfg, p, gcfg, max_len=48, device=d).generate(prompts, 16).cpu())
-            check(torch.equal(got, want), f"10a {arch} engine {name}: card {got} "
+            check(torch.equal(got, want), f"{tag} {arch} engine {name}: card {got} "
                   f"!= CPU {want}")
-            check(len(torch.unique(want)) > 4, f"10a {arch} engine {name}: "
+            check(len(torch.unique(want)) > 4, f"{tag} {arch} engine {name}: "
                   f"degenerate {want}")
             check(only(counts, expert_stat=n_ff if gcfg else 0),
-                  f"10a {arch} engine {name} launches {counts}")
+                  f"{tag} {arch} engine {name} launches {counts}")
             res[f"{arch} engine_{name}"] = want[0, :8].tolist()
 
         reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
@@ -2035,20 +2075,21 @@ def phase_families_smoke(torch, np, dev):
             return cb.run()
 
         got, want, counts = both("batcher", batch)
-        check(got == want, f"10a {arch} batcher: card {got} != CPU {want}")
+        check(got == want, f"{tag} {arch} batcher: card {got} != CPU {want}")
         check({k: len(v) for k, v in got.items()} == {i: m for i, (_, m) in
                                                       enumerate(reqs)},
-              f"10a {arch} batcher lengths {got}")
+              f"{tag} {arch} batcher lengths {got}")
         check(only(counts, expert_stat=n_ff * len(reqs)),
-              f"10a {arch} batcher launches {counts}")
+              f"{tag} {arch} batcher launches {counts}")
         res[f"{arch} batcher"] = got[0]
 
         argv = ["--arch", arch, "--requests", "4", "--max-len", "64"]
         (out_c, text), (out_h, _), counts = both("launcher", lambda d, p: launcher(
             argv + ["--device", d.type]))
-        check(out_c == out_h, f"10a {arch} launcher: card {out_c} != CPU {out_h}")
-        check("slots: served 4 requests" in text and counts["expert_stat"] > 0,
-              f"10a {arch} launcher: {text} launches {counts}")
+        check(out_c == out_h, f"{tag} {arch} launcher: card {out_c} != CPU {out_h}")
+        check("slots: served 4 requests" in text
+              and (counts["expert_stat"] > 0) == (n_ff > 0),
+              f"{tag} {arch} launcher: {text} launches {counts}")
         res[f"{arch} launcher"] = [ln for ln in text.splitlines() if "slots:" in ln]
     return total, res
 
@@ -2077,37 +2118,56 @@ def family_model(torch, dev, arch: str, **over):
                              weights_gb=torch.cuda.memory_allocated() / 1e9)
 
 
-def phase_family_full(torch, np, dev, cfg, params, tag: str, batcher: bool,
+def phase_family_full(torch, np, dev, cfg, params, tag: str, batcher_lens=None,
                       profile: bool = False):
-    """10b / 10c: ``engine_runs`` over B=2 prompts of 512 tokens and 32 new
-    tokens, dense, GRIFFIN 0.5 and GRIFFIN 0.0 (``expert_stat`` once per
-    prunable FF block of a GRIFFIN prefill).  GRIFFIN 0.0 must give the
-    dense stream token for token, and its compaction (k = F) every
-    column in order.  ``batcher`` adds a ``ContinuousBatcher`` of 2 slots
-    serving 4 requests of 200/350/480/600 prompt tokens and 16 new
-    tokens with GRIFFIN 0.5.  ``profile`` adds ``profile_engine``'s
-    breakdown of the GRIFFIN 0.5 engine.  Returns the launches and the
-    numbers."""
+    """10b / 10c / 11b / 11c: ``engine_runs`` over B=2 prompts of 512
+    tokens and 32 new tokens, dense, GRIFFIN 0.5 and GRIFFIN 0.0
+    (``expert_stat`` once per prunable FF block of a GRIFFIN prefill).
+    GRIFFIN 0.0 must give the dense stream token for token, and its
+    compaction (k = F) every column in order.  A model without an FF
+    block (Mamba2) runs dense only and launches nothing.  ``batcher_lens``
+    adds a ``ContinuousBatcher`` of 2 slots serving one request of each
+    prompt length with 16 new tokens and GRIFFIN 0.5.  ``profile`` adds
+    ``profile_engine``'s breakdown of the GRIFFIN 0.5 engine (of the
+    dense one without GRIFFIN).  Returns the launches and the numbers."""
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.models import decoder
-    from repro_torch.serving.engine import ContinuousBatcher, GenerationEngine
 
     B, S, steps = FAMILY_ENGINE["B"], FAMILY_ENGINE["S"], FAMILY_ENGINE["steps"]
     rng = np.random.default_rng(5)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
                                .astype(np.int32)).to(dev)
     n_ff = len(decoder.extract_ffn_tree(params, cfg))
+    griffin = cfg.griffin and n_ff > 0
+    variants = (("dense", None), ("griffin", GriffinConfig(sparsity=0.5)),
+                ("griffin0", GriffinConfig(sparsity=0.0))) if griffin \
+        else (("dense", None),)
     total, res, streams = engine_runs(
-        torch, dev, cfg, params, prompts, steps,
-        (("dense", None), ("griffin", GriffinConfig(sparsity=0.5)),
-         ("griffin0", GriffinConfig(sparsity=0.0))), n_ff, tag, profile,
+        torch, dev, cfg, params, prompts, steps, variants, n_ff, tag, profile,
         # a Moonshot prefill is ~9,000 device records: its traces have
         # come back short of records in every try, so keep them
-        dict(n_steps=2, strict=False))
+        dict(n_steps=2, strict=False), profiled="griffin" if griffin else "dense")
+    if griffin:
+        check_griffin_zero(torch, dev, cfg, params, prompts, steps, streams, res, tag)
+    return batcher_run(torch, np, dev, cfg, params, rng, n_ff, batcher_lens,
+                       total, res, tag)
+
+
+def check_griffin_zero(torch, dev, cfg, params, prompts, steps, streams, res, tag):
+    """GRIFFIN 0.0 gives the dense stream, and its compaction (k = F)
+    keeps every column of every prunable FF block in order."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import GenerationEngine
+
+    S = prompts.shape[1]
     check(torch.equal(streams["griffin0"], streams["dense"]),
           f"{tag}: GRIFFIN 0.0 {streams['griffin0']} != dense {streams['dense']}")
     res["token_match_griffin_vs_dense"] = float(
         (streams["griffin"] == streams["dense"]).float().mean())
+    # how much the equality above says: one distinct token is a stream
+    # that repeats itself
+    res["distinct_tokens_dense"] = len(torch.unique(streams["dense"]))
     eng = GenerationEngine(cfg, params, GriffinConfig(sparsity=0.0),
                            max_len=S + steps, device=dev)
     _, aux = eng.prefill(prompts)
@@ -2118,10 +2178,20 @@ def phase_family_full(torch, np, dev, cfg, params, tag: str, batcher: bool,
     del eng, aux, full
     gc.collect()
     torch.cuda.empty_cache()
-    if not batcher:
-        return total, res
 
-    lens, new = FAMILY_BATCHER["lens"], FAMILY_BATCHER["new"]
+
+def batcher_run(torch, np, dev, cfg, params, rng, n_ff, lens, total, res, tag):
+    """A ``ContinuousBatcher`` of 2 slots over one request of each prompt
+    length in ``lens`` (none when ``lens`` is None), 16 new tokens each,
+    GRIFFIN 0.5 (dropped by a model without an FF block): tokens/s, peak
+    memory, ``expert_stat`` once per prunable FF block of each insert
+    and nothing else launched.  Returns (launches, numbers)."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.serving.engine import ContinuousBatcher
+
+    if lens is None:
+        return total, res
+    new = FAMILY_BATCHER["new"]
     reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     cb = ContinuousBatcher(cfg, params, n_slots=FAMILY_BATCHER["slots"],
                            max_len=max(lens) + new + 8,
@@ -2154,7 +2224,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile Yi-9B decode ticks (phases 4, 5 and "
                     "7b's dense server), spec rounds (7b) and the GRIFFIN "
-                    "engines' prefill and decode steps (9b, 10b, 10c) with "
+                    "engines' prefill and decode steps (9b, 10b, 10c, 11b; "
+                    "11c's dense engine) with "
                     "torch.profiler; the attention kernels' share is named "
                     "apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
@@ -2196,6 +2267,18 @@ def main() -> int:
                      f"{r['bound_ms']:.5f} ms ({r['bound_by']})  max_abs_err "
                      f"{r['max_abs_err']:.3g}")
     kernels["expert_stat"]["moe_engine"] = list(moe_stat.values())
+    # and at phase 11's (RecurrentGemma-9B's), between 11264 and 18432
+    rec_stat = engine_shape_expert_stat(torch, dev, RECURRENT_STAT_WIDTH,
+                                        (torch.bfloat16,))["bf16"]
+    lo, hi = moe_stat[11264]["ms"], moe_stat[18432]["ms"]
+    rec_stat["cliff_side"] = "11264's" if abs(rec_stat["ms"] - lo) <= \
+        abs(rec_stat["ms"] - hi) else "18432's"
+    lines.append(f"expert_stat {rec_stat['at']} bf16 (phase 11's width): kernel "
+                 f"{rec_stat['ms']:.4f} ms  plain {rec_stat['plain_ms']:.4f} ms  "
+                 f"bound {rec_stat['bound_ms']:.5f} ms ({rec_stat['bound_by']})  "
+                 f"max_abs_err {rec_stat['max_abs_err']:.3g}  nearer "
+                 f"{rec_stat['cliff_side']} time (F=11264 {lo:.4f}, 18432 {hi:.4f} ms)")
+    kernels["expert_stat"]["recurrent_engine"] = rec_stat
     print(f"phase 2 kernels vs plain versions ({card}):")
     for line in lines:
         print("  " + line)
@@ -2341,8 +2424,8 @@ def main() -> int:
         print(f"  {k}: {v}")
     family = {}
     for arch, tag, over, batcher in (
-            ("moonshot-v1-16b-a3b", "10b", {}, True),
-            ("deepseek-v3-671b", "10c", dict(num_layers=4, mtp_depth=0), False)):
+            ("moonshot-v1-16b-a3b", "10b", {}, FAMILY_BATCHER["lens"]),
+            ("deepseek-v3-671b", "10c", dict(num_layers=4, mtp_depth=0), None)):
         t0 = time.perf_counter()
         before_gb = torch.cuda.memory_allocated() / 1e9
         fcfg, fparams, fmodel = family_model(torch, dev, arch, **over)
@@ -2362,6 +2445,43 @@ def main() -> int:
             print(f"  {k}: {v}")
     print(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
 
+    t11 = t0 = time.perf_counter()
+    rec_smoke_counts, rec_smoke = phase_families_smoke(torch, np, dev, RECURRENT,
+                                                       "11a", scale=2.0)
+    print(f"phase 11a recurrentgemma/mamba2 smoke configs, GenerationEngine "
+          f"(dense/GRIFFIN 0.5), ContinuousBatcher and launch.serve slot "
+          f"fallback, card == CPU: {time.perf_counter() - t0:.1f} s, launches "
+          f"{rec_smoke_counts}")
+    for k, v in rec_smoke.items():
+        print(f"  {k}: {v}")
+    for arch, tag in zip(RECURRENT, ("11b", "11c")):
+        t0 = time.perf_counter()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        fcfg, fparams, fmodel = family_model(torch, dev, arch)
+        # at the init's scale RecurrentGemma's greedy streams repeat one
+        # token (as the smoke config's do), which would make GRIFFIN 0.0
+        # == dense hold trivially
+        scale_matrices(fparams, 2.0)
+        counts, res = phase_family_full(torch, np, dev, fcfg, fparams, tag,
+                                        RECURRENT_BATCHER_LENS, args.profile)
+        del fparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not fcfg.has_ffn:
+            check(sum(counts.values()) == 0, f"{tag} {arch} launched {counts}")
+        family[tag] = dict(arch=arch, model=fmodel, launches=counts, **res)
+        print(f"{tag} {arch} {fcfg.num_layers} layers, "
+              f"{fmodel['params'] / 1e9:.2f}B params ({fmodel['weights_gb']:.1f} GB "
+              f"on the card, {before_gb:.2f} GB before the draw), init "
+              f"{fmodel['init_s']:.1f} s; GenerationEngine B={FAMILY_ENGINE['B']} "
+              f"prompt {FAMILY_ENGINE['S']} + {FAMILY_ENGINE['steps']} new, "
+              f"ContinuousBatcher prompts {RECURRENT_BATCHER_LENS} + "
+              f"{FAMILY_BATCHER['new']} new ({card}): "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        for k, v in res.items():
+            print(f"  {k}: {v}")
+    print(f"phase 11 total: {time.perf_counter() - t11:.1f} s")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -2374,7 +2494,10 @@ def main() -> int:
              "drain_yi9b": drain_counts, "engine_tinylm": eng_tiny_counts,
              "engine_yi9b": eng_yi_counts, "families_smoke": fam_smoke_counts,
              "moonshot": family["10b"]["launches"],
-             "deepseek_v3": family["10c"]["launches"]}
+             "deepseek_v3": family["10c"]["launches"],
+             "recurrent_smoke": rec_smoke_counts,
+             "recurrentgemma": family["11b"]["launches"],
+             "mamba2": family["11c"]["launches"]}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -2406,6 +2529,7 @@ def main() -> int:
         if "engine" in r:  # expert_stat at GenerationEngine's prompt shape
             entry.update({f"engine_{k}": v for k, v in r["engine"].items()})
             entry["moe_engine"] = r["moe_engine"]  # and at phase 10's widths
+            entry["recurrent_engine"] = r["recurrent_engine"]  # and phase 11's
         if "prefill" in r:  # attention: decode (the fields above), prefill
             # and speculative verify
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
@@ -2427,7 +2551,8 @@ def main() -> int:
              "launcher": launch_lines, "frontend": fe_res, "loadgen": lg_res,
              "engine_tinylm": eng_tiny, "engine_yi9b": eng_yi,
              "expert_stat_engine_shape": stat_engine,
-             "families_smoke": fam_smoke, "families": family,
+             "families_smoke": fam_smoke, "recurrent_smoke": rec_smoke,
+             "families": family,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

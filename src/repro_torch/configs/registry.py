@@ -6,7 +6,9 @@ from typing import Callable, Dict
 
 from repro_torch.configs import (
     deepseek_v3_671b,
+    mamba2_1_3b,
     moonshot_v1_16b_a3b,
+    recurrentgemma_9b,
     smollm_360m,
     tinylm,
     yi_9b,
@@ -18,6 +20,8 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "smollm-360m": smollm_360m.config,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.config,
     "deepseek-v3-671b": deepseek_v3_671b.config,
+    "mamba2-1.3b": mamba2_1_3b.config,
+    "recurrentgemma-9b": recurrentgemma_9b.config,
     "tinylm": tinylm.config,
     "tinylm-tp": tinylm.config_tp,
     "lm100m": tinylm.config_100m,

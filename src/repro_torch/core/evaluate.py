@@ -157,8 +157,10 @@ def classification_sim(
     The pruned and the full step both start from the prompt's cache.  The
     port's ``decode_step`` writes the cache in place, so the full step
     sees the slot ``S-2`` the pruned step wrote — and rewrites it before
-    reading it, so both steps see what the reference's functional caches
-    give them."""
+    reading it.  Recurrent layers (SSM, RG-LRU) advance their state in
+    place instead, so their leaves are saved before the pruned step and
+    put back before the full one: both steps see what the reference's
+    functional caches give them."""
     tokens = torch.as_tensor(tokens, device=_device(params))
     B, S = tokens.shape
     prompt = tokens[:, : S - 1]
@@ -170,8 +172,10 @@ def classification_sim(
     cache = decoder.init_cache(cfg, B, S, tokens.device)
     cache = decoder.fill_cache_from_prefill(cfg, cache, aux.kv)
     last = tokens[:, S - 2 : S - 1]
+    saved = decoder.recurrent_state(cfg, cache)
     logits, cache = decoder.decode_step(run_params, cfg, cache, last, S - 2,
                                         pruned)
+    decoder.restore_recurrent_state(cache, saved)
     logits_full, _ = decoder.decode_step(params, cfg, cache, last, S - 2, None)
     logp = torch.log_softmax(logits[:, 0].float(), dim=-1)
     gold = tokens[:, -1].long()

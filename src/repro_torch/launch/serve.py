@@ -1,7 +1,7 @@
 """Serving launcher of the port: prefill -> GRIFFIN select/compact ->
 pruned decode over the paged-KV ``PagedServer``, or the
 ``ContinuousBatcher`` slot fallback for the archs the paged path does
-not cover (MoE, MLA), on the card by default (port of
+not cover (MoE, MLA, SSM, the RG-LRU hybrid), on the card by default (port of
 ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinylm \\
@@ -19,8 +19,8 @@ Flags, defaults, checks and summary lines are the reference's, except:
   ``torch.profiler`` trace of the drain to ``DIR/trace.json``;
 * ``--device`` picks the device (default: the card);
 * ``--mesh`` is refused: tensor parallelism is not ported;
-* the SSM, hybrid, encoder and VLM archs are refused: their model
-  families are not ported.
+* the encoder and VLM archs are refused: their frontends are not
+  ported.
 
 The slot fallback refuses ``--spec-k``, the observability flags and
 ``--http``, as the reference does.  Without a checkpoint (``--ckpt-dir``,
@@ -65,8 +65,8 @@ ARCHS = ["yi-9b", "gemma3-27b", "smollm-360m", "command-r-plus-104b",
 
 _NO_MESH = ("--mesh: tensor parallelism is not ported to the PyTorch "
             "server (ROADMAP Queue A item 10)")
-_NO_FAMILY = ("{arch}: its model family (SSM, hybrid, encoder or VLM) is "
-              "not ported yet (ROADMAP Queue A item 11)")
+_NO_FAMILY = ("{arch}: its model family (encoder or VLM) is not ported "
+              "yet (ROADMAP Queue A item 11)")
 
 
 def parse_mesh(spec: str):

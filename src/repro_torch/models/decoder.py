@@ -1,6 +1,7 @@
-"""Model assembly for the attention families, dense, MoE and MLA (port
-of ``repro/models/decoder.py``: the contiguous prefill/decode path and
-the paged serving path, which covers the dense GQA families only).
+"""Model assembly for the decoder families: dense, MoE and MLA attention,
+Mamba-2 (SSD) and the RG-LRU + local-attention hybrid (port of
+``repro/models/decoder.py``: the contiguous prefill/decode path and the
+paged serving path, which covers the dense GQA families only).
 
 The reference stacks homogeneous runs of layers on a leading axis and
 scans them (``seg{i}/pos{j}`` leaves).  PyTorch runs eagerly, so the
@@ -19,6 +20,7 @@ Public API:
     cache_specs(cfg, batch, max_len)         -> ParamSpec list (decode cache)
     init_cache(cfg, batch, max_len, device)  -> cache
     fill_cache_from_prefill(cfg, cache, kv)  -> cache
+    recurrent_state(cfg, cache) / restore_recurrent_state(cache, saved)
     decode_step(params, cfg, cache, token, pos, pruned=None) -> logits, cache
     init_paged_pools(cfg, num_pages, page_size, kv_dtype, device) -> pools
     copy_pool_pages(cfg, pools, src, dst)    -> pools (COW page forks)
@@ -54,6 +56,8 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import ffn as ffn_lib
 from repro_torch.models.layers import mla as mla_lib
 from repro_torch.models.layers import moe as moe_lib
+from repro_torch.models.layers import rglru as rglru_lib
+from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.param import ParamSpec
 
 
@@ -128,10 +132,18 @@ def layer_paths(cfg) -> List[Tuple[str, int, int]]:
 # Param specs
 # ---------------------------------------------------------------------------
 
+def _mixer_specs(cfg, desc: LayerDesc) -> Dict:
+    if desc.mixer == "attn":
+        return mla_lib.mla_specs(cfg) if cfg.use_mla else attn_lib.attn_specs(cfg)
+    if desc.mixer == "ssm":
+        return ssm_lib.ssm_specs(cfg)
+    return rglru_lib.rglru_specs(cfg)
+
+
 def layer_specs(cfg, desc: LayerDesc) -> Dict:
     s: Dict[str, Any] = {
         "mixer_norm": norm_specs(cfg),
-        "mixer": mla_lib.mla_specs(cfg) if cfg.use_mla else attn_lib.attn_specs(cfg),
+        "mixer": _mixer_specs(cfg, desc),
     }
     if desc.ffn == "dense":
         s["ffn_norm"] = norm_specs(cfg)
@@ -144,7 +156,7 @@ def layer_specs(cfg, desc: LayerDesc) -> Dict:
 
 def model_specs(cfg) -> Dict:
     assert supports_contiguous(cfg), \
-        f"{cfg.name}: the port covers attention families"
+        f"{cfg.name}: the port does not cover frontend families"
     specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
     hs = head_specs(cfg)
     if hs:
@@ -177,7 +189,8 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict:
 @dataclass
 class Aux:
     """Per-forward side outputs, per layer: ``kv`` a list of ``{k, v}``
-    (MLA: ``{ckv, kr}``, prefill cache material), ``stats`` ``{li: {s_sq
+    (MLA: ``{ckv, kr}``; SSM: ``{state, conv}``; RG-LRU: ``{h, conv}``:
+    prefill cache material), ``stats`` ``{li: {s_sq
     [B,F], x_sq [D], z_sq [F], (z [B,S,F])}}`` for the layers with a
     dense FF block or MoE shared experts, ``moe_aux`` the routers'
     load-balance losses summed over layers (fp32 scalar).  The
@@ -193,10 +206,11 @@ class Aux:
 # ---------------------------------------------------------------------------
 
 def supports_contiguous(cfg) -> bool:
-    """The contiguous path covers the attention families: GQA/MQA or MLA
-    mixers, dense, MoE or no FF, with an fp or int8 decode cache (SSM,
-    RG-LRU and frontend families are not ported)."""
-    return all(d.mixer == "attn" for d in layer_descs(cfg)) and not cfg.frontend
+    """The contiguous path covers every family without a modality
+    frontend: GQA/MQA or MLA attention, Mamba-2 SSD and RG-LRU mixers,
+    dense, MoE or no FF, with an fp or int8 decode cache (the encoder
+    and VLM frontends are not ported)."""
+    return not cfg.frontend
 
 
 def _rope_width(cfg) -> int:
@@ -217,7 +231,11 @@ def _apply_layer(
     rope=None,
 ):
     h = apply_norm(lp["mixer_norm"], x, cfg)
-    if cfg.use_mla:
+    if desc.mixer == "ssm":
+        y, kv = ssm_lib.ssm_forward(lp["mixer"], h, cfg)
+    elif desc.mixer == "rec":
+        y, kv = rglru_lib.rglru_forward(lp["mixer"], h, cfg)
+    elif cfg.use_mla:
         y, (ckv, kr) = mla_lib.mla_forward(lp["mixer"], h, positions, cfg,
                                            q_chunk, rope=rope)
         kv = {"ckv": ckv, "kr": kr}
@@ -316,15 +334,22 @@ def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
 # Contiguous decode caches
 # ---------------------------------------------------------------------------
 
+def _layer_cache_specs(cfg, desc: LayerDesc, batch: int, max_len: int) -> Dict:
+    if desc.mixer == "ssm":
+        return ssm_lib.ssm_cache_specs(cfg, batch)
+    if desc.mixer == "rec":
+        return rglru_lib.rglru_cache_specs(cfg, batch)
+    if cfg.use_mla:
+        return mla_lib.mla_cache_specs(cfg, batch, max_len)
+    return attn_lib.init_cache_specs(cfg, desc.attn_kind, batch, max_len)
+
+
 def cache_specs(cfg, batch: int, max_len: int) -> List[Dict]:
     """Per-layer decode cache specs (one dict per layer; MLA: the
-    compressed ``{ckv, kr}``)."""
+    compressed ``{ckv, kr}``; SSM / RG-LRU: the fp32 ``state`` / ``h``
+    and the conv tail in the model dtype)."""
     assert supports_contiguous(cfg), cfg.name
-    if cfg.use_mla:
-        return [mla_lib.mla_cache_specs(cfg, batch, max_len)
-                for _ in range(cfg.num_layers)]
-    return [attn_lib.init_cache_specs(cfg, d.attn_kind, batch, max_len)
-            for d in layer_descs(cfg)]
+    return [_layer_cache_specs(cfg, d, batch, max_len) for d in layer_descs(cfg)]
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> List[Dict]:
@@ -335,13 +360,36 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> List[Dict]:
 
 
 def fill_cache_from_prefill(cfg, cache: List[Dict], kv: List[Dict]) -> List[Dict]:
-    """Scatter prefill K/V (``Aux.kv``) into the decode caches, in place."""
-    for c, layer_kv in zip(cache, kv):
-        if cfg.use_mla:
+    """Scatter prefill K/V (``Aux.kv``) into the decode caches, and copy
+    recurrent states and conv tails across (cast to the cache's dtype),
+    all in place."""
+    for desc, c, layer_kv in zip(layer_descs(cfg), cache, kv):
+        if desc.mixer != "attn":
+            for name, buf in c.items():
+                buf.copy_(layer_kv[name])
+        elif cfg.use_mla:
             mla_lib.mla_fill_cache(c, layer_kv["ckv"], layer_kv["kr"])
         else:
             attn_lib.fill_cache(c, layer_kv["k"], layer_kv["v"])
     return cache
+
+
+def recurrent_state(cfg, cache: List[Dict]) -> Dict[int, Dict]:
+    """Copies of every layer's recurrent cache leaves (SSM ``state`` /
+    RG-LRU ``h`` and their conv tails), ``{li: {name: tensor}}``.  A
+    decode step advances them in place, so a caller that runs two steps
+    from one cache at one ``pos`` saves them first and puts them back
+    with ``restore_recurrent_state`` (KV slots need no such care: each
+    step rewrites slot ``pos`` before reading it)."""
+    return {li: {k: v.clone() for k, v in cache[li].items()}
+            for li, d in enumerate(layer_descs(cfg)) if d.mixer != "attn"}
+
+
+def restore_recurrent_state(cache: List[Dict], saved: Dict[int, Dict]) -> None:
+    """Write ``recurrent_state``'s copies back into ``cache``, in place."""
+    for li, leaves in saved.items():
+        for k, v in leaves.items():
+            cache[li][k].copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +400,11 @@ def _apply_layer_decode(lp: Dict, desc: LayerDesc, cache: Dict,
                         x: torch.Tensor, pos: int, cfg,
                         pruned_ffn: Optional[Dict], rope=None):
     h = apply_norm(lp["mixer_norm"], x, cfg)
-    if cfg.use_mla:
+    if desc.mixer == "ssm":
+        y, cache = ssm_lib.ssm_decode(lp["mixer"], cache, h, cfg)
+    elif desc.mixer == "rec":
+        y, cache = rglru_lib.rglru_decode(lp["mixer"], cache, h, cfg)
+    elif cfg.use_mla:
         y, cache = mla_lib.mla_decode(lp["mixer"], cache, h, pos, cfg, rope=rope)
     else:
         y, cache = attn_lib.attn_decode(lp["mixer"], cache, h, pos, cfg,
@@ -386,7 +438,9 @@ def decode_step(
     dense FF blocks (and MoE shared experts) use the expert neurons
     only — the paper's generation phase.  The caches are written **in
     place** (the reference's are functional): see ``attention.attn_decode`` for the order that keeps
-    two steps from one cache at one ``pos`` equal to the reference's.
+    two steps from one cache at one ``pos`` equal to the reference's; a
+    recurrent layer's state moves on at every step, so such a caller
+    restores it in between (``recurrent_state``).
     Returns (logits [B,1,V] fp32, cache)."""
     pos = int(pos)
     x = embed_lookup(params["embed"], token.long(), cfg)
@@ -407,9 +461,9 @@ def decode_step(
 
 def supports_paged(cfg) -> bool:
     """The paged path covers the GQA/MQA attention families (dense FF or
-    no FF) with fp caches: the reference's own predicate.  MLA / MoE
-    (and the unported SSM / RG-LRU / frontend families) take the
-    contiguous caches and the ``ContinuousBatcher``; an int8 contiguous
+    no FF) with fp caches: the reference's own predicate.  MLA / MoE,
+    SSM and RG-LRU take the contiguous caches and the
+    ``ContinuousBatcher`` (the frontend families are not ported); an int8 contiguous
     cache has no paged form (the paged pools quantize through
     ``kv_dtype``)."""
     return (

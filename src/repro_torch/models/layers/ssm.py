@@ -1,0 +1,233 @@
+"""Mamba-2 (SSD / state-space duality) mixer (port of
+``repro/models/layers/ssm.py``).
+
+Prefill runs the chunked SSD algorithm (intra-chunk quadratic
+attention-like block as einsums, inter-chunk linear state recurrence as
+a Python loop over the ``S / chunk`` chunks: the reference's
+``lax.scan``); decode is the O(1) recurrent update.  fp32 state math
+throughout, as in the reference.
+
+Layout follows the Mamba-2 reference: in_proj emits [z | x | B | C | dt],
+a causal depthwise conv (SiLU after it) runs over [x | B | C], heads of
+size P share B/C within ``ssm_ngroups`` groups.  The cache holds the
+fp32 state ``[B, H, P, N]`` and the last ``conv_width - 1`` **pre-conv**
+inputs; ``ssm_decode`` writes both in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import rms_normalize
+from repro_torch.models.param import ParamSpec
+
+
+def _dims(cfg):
+    d_in = cfg.d_inner_ssm
+    H = cfg.ssm_nheads
+    P = cfg.ssm_head_dim
+    G = cfg.ssm_ngroups
+    N = cfg.ssm_state
+    conv_dim = d_in + 2 * G * N
+    return d_in, H, P, G, N, conv_dim
+
+
+def ssm_specs(cfg) -> Dict[str, ParamSpec]:
+    D = cfg.d_model
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    return {
+        "w_in": ParamSpec((D, 2 * d_in + 2 * G * N + H), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.conv_width, conv_dim), ("conv", "ssm_inner")),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "norm": ParamSpec((d_in,), ("ssm_inner",), init="ones"),
+        "w_out": ParamSpec((d_in, D), ("ssm_inner", "embed")),
+    }
+
+
+def _split_proj(proj, cfg):
+    d_in, H, P, G, N, _ = _dims(cfg)
+    z = proj[..., :d_in]
+    x = proj[..., d_in : 2 * d_in]
+    Bv = proj[..., 2 * d_in : 2 * d_in + G * N]
+    Cv = proj[..., 2 * d_in + G * N : 2 * d_in + 2 * G * N]
+    dt = proj[..., 2 * d_in + 2 * G * N :]
+    return z, x, Bv, Cv, dt
+
+
+def conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The last ``width - 1`` pre-conv inputs of x [B,S,C] (the decode
+    cache's ``conv``), left-padded with zeros when S is shorter."""
+    S = x.shape[1]
+    if S >= width - 1:
+        return x[:, S - (width - 1):]
+    return F.pad(x, (0, 0, width - 1 - S, 0))
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv (no activation). x: [B,S,Cc]; w: [W,Cc]."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(W):  # small static width (4), the reference's order
+        out = out + xp[:, i : i + S] * w[i]
+    return out + b
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA: [..., Q] -> L [..., Q, Q]: L[i,j] = sum_{j<k<=i} dA[k], -inf above diag."""
+    Q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # [.., i, j] = cs_i - cs_j
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dA.device))
+    return torch.where(mask, diff, torch.full_like(diff, float("-inf")))
+
+
+def ssd_chunked(xh, dt, A, Bv, Cv, init_state, chunk: int):
+    """Chunked SSD scan.
+
+    xh: [B,S,H,P]; dt: [B,S,H] (post-softplus); A: [H] (negative);
+    Bv, Cv: [B,S,G,N]; init_state: [B,H,P,N].
+    Returns (y [B,S,H,P], final_state [B,H,P,N]).  fp32 internally.  S
+    is padded to a multiple of ``Q = min(chunk, S)`` with ``dt = 0``
+    (padded steps neither decay nor feed the state)."""
+    Bt, S, H, P = xh.shape
+    G, N = Bv.shape[2], Bv.shape[3]
+    hpg = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bv = F.pad(Bv, (0, 0, 0, 0, 0, pad))
+        Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // Q
+
+    f32 = torch.float32
+    xh = xh.to(f32).reshape(Bt, nc, Q, H, P)
+    dt = dt.to(f32).reshape(Bt, nc, Q, H)
+    Bv = Bv.to(f32).reshape(Bt, nc, Q, G, N)
+    Cv = Cv.to(f32).reshape(Bt, nc, Q, G, N)
+    dA = dt * A.to(f32)  # [B,nc,Q,H]
+    dx = xh * dt[..., None]  # dt-weighted input
+
+    # ---- intra-chunk ("diagonal") term: quadratic within chunk ----------
+    L = torch.exp(_segsum(dA.transpose(-1, -2)))  # [B,nc,H,Q,Q]
+    # scores[b,c,g,q,k] = C_q . B_k  (shared within group)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cv, Bv)
+    scores = scores[:, :, :, None].expand(Bt, nc, G, hpg, Q, Q).reshape(
+        Bt, nc, H, Q, Q)  # expand groups -> heads
+    y_diag = torch.einsum("bchqk,bchqk,bckhp->bcqhp", scores, L, dx)
+
+    # ---- chunk-final local states ---------------------------------------
+    cums = torch.cumsum(dA, dim=2)  # [B,nc,Q,H]
+    decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)  # [B,nc,Q,H]
+    # broadcast group-shared B to heads: [B,nc,Q,H,N]
+    Bh = Bv[:, :, :, :, None].expand(Bt, nc, Q, G, hpg, N).reshape(Bt, nc, Q, H, N)
+    # state_c = sum_k B_k (decay_k dx_k)   -> [B,nc,H,P,N]
+    states = torch.einsum("bckhn,bckh,bckhp->bchpn", Bh, decay_to_end, dx)
+
+    # ---- inter-chunk recurrence (the reference's lax.scan) ---------------
+    chunk_decay = torch.exp(cums[:, :, -1, :])  # [B,nc,H]
+    carry = init_state.to(f32)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)  # the *incoming* state of chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # [B,nc,H,P,N]
+
+    # ---- off-diagonal (cross-chunk) output term --------------------------
+    decay_from_start = torch.exp(cums)  # [B,nc,Q,H]
+    Ch = Cv[:, :, :, :, None].expand(Bt, nc, Q, G, hpg, N).reshape(Bt, nc, Q, H, N)
+    y_off = torch.einsum("bcqhn,bcqh,bchpn->bcqhp", Ch, decay_from_start,
+                         prev_states)
+
+    y = (y_diag + y_off).reshape(Bt, nc * Q, H, P)[:, :S]
+    return y, carry
+
+
+def _gated_out(params, y, z, x):
+    """Gated RMSNorm (mamba2): norm(y * silu(z)) * scale, then out-proj."""
+    y = rms_normalize(y * F.silu(z)) * params["norm"].to(x.dtype)
+    return y @ params["w_out"]
+
+
+def ssm_forward(params: Dict, x: torch.Tensor, cfg, init_state=None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence Mamba-2 mixer. x: [B,S,D] -> (y [B,S,D], cache
+    material ``{state [B,H,P,N] fp32, conv [B,W-1,conv_dim]}``)."""
+    B, S, D = x.shape
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    proj = x @ params["w_in"]
+    z, xc, Bv, Cv, dt = _split_proj(proj, cfg)
+    xbc = torch.cat([xc, Bv, Cv], dim=-1)
+    tail = conv_tail(xbc, cfg.conv_width)
+    xbc = F.silu(causal_conv(xbc, params["conv_w"], params["conv_b"]))
+    xc = xbc[..., :d_in].reshape(B, S, H, P)
+    Bv = xbc[..., d_in : d_in + G * N].reshape(B, S, G, N)
+    Cv = xbc[..., d_in + G * N :].reshape(B, S, G, N)
+
+    f32 = torch.float32
+    dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))
+    A = -torch.exp(params["a_log"].to(f32))
+    if init_state is None:
+        init_state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    y, state = ssd_chunked(xc, dt, A, Bv, Cv, init_state, cfg.ssm_chunk)
+    y = y + xc.to(f32) * params["d_skip"].to(f32)[:, None]
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    return _gated_out(params, y, z, x), {"state": state, "conv": tail}
+
+
+def ssm_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    return {
+        "state": ParamSpec((batch, H, P, N),
+                           ("batch", "ssm_heads", None, "ssm_state"),
+                           init="zeros", dtype="float32"),
+        "conv": ParamSpec((batch, cfg.conv_width - 1, conv_dim),
+                          ("batch", "conv", "ssm_inner"), init="zeros"),
+    }
+
+
+def ssm_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrent update. x: [B,1,D].  The cache's ``state``
+    and ``conv`` are advanced **in place** (the reference returns new
+    ones): a caller that runs two steps from one cache must restore
+    them in between (``evaluate.classification_sim``)."""
+    B = x.shape[0]
+    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    proj = x @ params["w_in"]
+    z, xc, Bv, Cv, dt = _split_proj(proj, cfg)
+    xbc_new = torch.cat([xc, Bv, Cv], dim=-1)  # [B,1,conv_dim]
+
+    # conv window: cache["conv"] holds the previous W-1 inputs
+    win = torch.cat([cache["conv"].to(x.dtype), xbc_new], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", win, params["conv_w"]) + params["conv_b"]
+    xbc = F.silu(conv_out)[:, None]  # [B,1,conv_dim]
+
+    xh = xbc[..., :d_in].reshape(B, H, P)
+    Bv = xbc[..., d_in : d_in + G * N].reshape(B, G, N)
+    Cv = xbc[..., d_in + G * N :].reshape(B, G, N)
+    hpg = H // G
+    Bh = Bv[:, :, None].expand(B, G, hpg, N).reshape(B, H, N)
+    Ch = Cv[:, :, None].expand(B, G, hpg, N).reshape(B, H, N)
+
+    f32 = torch.float32
+    dt = F.softplus(dt.to(f32)[:, 0] + params["dt_bias"].to(f32))  # [B,H]
+    A = -torch.exp(params["a_log"].to(f32))
+    dA = torch.exp(dt * A)  # [B,H]
+    dx = xh.to(f32) * dt[..., None]  # [B,H,P]
+    state = cache["state"].to(f32) * dA[..., None, None] \
+        + torch.einsum("bhp,bhn->bhpn", dx, Bh.to(f32))
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch.to(f32))
+    y = y + xh.to(f32) * params["d_skip"].to(f32)[:, None]
+    y = y.reshape(B, 1, d_in).to(x.dtype)
+    out = _gated_out(params, y, z, x)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(win[:, 1:])
+    return out, cache

@@ -16,7 +16,9 @@ Two serving modes:
 
 The production serving path for the dense attention families is
 ``serving/server.py::PagedServer``; the ``ContinuousBatcher`` is the
-fallback for the families the paged path does not cover (MoE, MLA).
+fallback for the families the paged path does not cover (MoE, MLA, SSM
+and the RG-LRU hybrid, whose caches hold recurrent states beside or
+instead of KV).
 """
 from __future__ import annotations
 

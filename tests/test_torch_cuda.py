@@ -244,6 +244,7 @@ def test_paged_attn_refuses_another_row_tile(dev):
     ((2, 512, 11264), torch.bfloat16),
     ((2, 512, 2048), torch.bfloat16),
     ((2, 512, 18432), torch.bfloat16),
+    ((2, 512, 12288), torch.bfloat16),  # RecurrentGemma-9B's GeGLU width
 ])
 def test_expert_stat_kernel_matches_plain(dev, shape, dtype):
     from repro_torch.kernels import expert_stat
@@ -807,3 +808,38 @@ def test_continuous_batcher_on_card_equals_cpu(dev, arch):
             n_ff * len(reqs) if d.type == "cuda" else 0)
     assert out["cuda"] == out["cpu"]
     assert {k: len(v) for k, v in out["cpu"].items()} == {0: 3, 1: 6, 2: 4, 3: 5}
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_recurrent_engine_on_card_equals_cpu(dev, arch):
+    """The smoke RG-LRU hybrid and Mamba2 (fp32, matrices scaled by 2 so
+    that greedy streams vary): ``GenerationEngine`` greedy tokens dense
+    and with GRIFFIN 0.5 on the card equal the CPU's, 16-token prompts
+    and 12 new tokens (the hybrid's 16-slot ring wraps); one
+    ``expert_stat`` launch per FF block of a GRIFFIN prefill, none for
+    Mamba2, which has no FF block."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.kernels import expert_stat
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg = get_config(arch, smoke=True)
+    host = decoder.init_params(cfg, seed=0, device="cpu")
+    for lp in host["layers"]:
+        for group in ("mixer", "ffn"):
+            for k, v in lp.get(group, {}).items():
+                if k.startswith("w") and k not in ("w_a", "w_i"):
+                    v.mul_(2.0)
+    prompts = np.random.default_rng(29).integers(0, cfg.vocab_size, (2, 16)) \
+        .astype(np.int32)
+    for gcfg in (None, GriffinConfig(sparsity=0.5)):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            eng = GenerationEngine(cfg, _to(host, d), gcfg, max_len=32, device=d)
+            before = expert_stat.launches
+            out[d.type] = eng.generate(prompts, 12).cpu()
+            want = cfg.num_layers if (d.type == "cuda" and eng.gcfg) else 0
+            assert expert_stat.launches - before == want
+        assert torch.equal(out["cuda"], out["cpu"])
+        assert len(torch.unique(out["cpu"])) > 4

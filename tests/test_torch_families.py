@@ -23,7 +23,8 @@ are the port's seeded draw, handed to the reference in its own layout by
   included), and ``params_to_jax(params_from_jax(tree))`` gives it back;
 * ``supports_paged`` is the reference's for every arch of its registry;
 * ``launch.serve`` serves the MoE/MLA archs through the slot batcher and
-  refuses what the reference refuses there.
+  refuses what the reference refuses there (the hybrid's ``--http``
+  included).
 """
 import ml_dtypes
 import numpy as np
@@ -273,14 +274,13 @@ def test_bridge_round_trip_carries_mtp_and_dtypes(models):
 @pytest.mark.parametrize("arch", jreg.list_archs())
 def test_supports_paged_is_the_reference_predicate(arch):
     """For every arch of the reference's registry, full and smoke size
-    and with the int8 cache; the contiguous path admits the attention
-    families and nothing else."""
+    and with the int8 cache; the contiguous path admits every family
+    without a frontend (attention, SSM, the RG-LRU hybrid)."""
     for smoke in (False, True):
         cfg = jreg.get_config(arch, smoke=smoke)
         for c in (cfg, cfg.replace(kv_cache_int8=True)):
             assert tdec.supports_paged(c) == jdec.supports_paged(c), (arch, smoke)
-        attn = all(d.mixer == "attn" for d in jdec.layer_descs(cfg))
-        assert tdec.supports_contiguous(cfg) == (attn and not cfg.frontend)
+        assert tdec.supports_contiguous(cfg) == (not cfg.frontend)
 
 
 def test_launcher_serves_moe_through_the_slot_batcher(capsys):
@@ -308,7 +308,7 @@ def test_launcher_serves_moe_through_the_slot_batcher(capsys):
     (["--arch", "deepseek-v3-671b", "--http", "127.0.0.1:0"], "--http requires"),
     (["--arch", "moonshot-v1-16b-a3b", "--trace-out", "t.json"], "observability"),
     (["--arch", "moonshot-v1-16b-a3b", "--flocking-telemetry", "2"], "observability"),
-    (["--arch", "recurrentgemma-9b"], "item 11"),
+    (["--arch", "recurrentgemma-9b", "--http", "127.0.0.1:0"], "--http requires"),
     (["--arch", "hubert-xlarge"], "item 11"),
     (["--arch", "llava-next-34b"], "item 11"),
 ])

@@ -150,7 +150,7 @@ def test_launcher_summary_trace_and_snapshot(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--mesh", "model=2"], "item 10"),
-    (["--arch", "mamba2-1.3b"], "item 11"),
+    (["--arch", "mamba2-1.3b", "--spec-k", "2"], "requires GRIFFIN"),
     (["--no-griffin", "--flocking-telemetry", "2"], "requires GRIFFIN"),
     (["--no-griffin", "--spec-k", "2"], "requires GRIFFIN"),
 ])
