@@ -136,7 +136,32 @@ Phases (any failure raises and the script exits non-zero):
    2048-token ring); (c) Mamba2-1.3B whole (48 layers, scaled the same):
    the dense engine run and the same batcher, with no kernel launched.  Phase 2 adds
    ``expert_stat`` at [2, 512, 12288] bf16, RecurrentGemma-9B's width,
-   and says whether its time sits nearer F=11264's or 18432's.
+   and says whether its time sits nearer F=11264's or 18432's;
+12. the last four families, after phase 11's models are freed, each
+   model freed before the next loads: (a) the smoke Gemma-3-27B (5 local
+   layers with a 16-token window, one global), Command-R+, LLaVA-NeXT-34B
+   and HuBERT-XLarge configs, fp32, matrices scaled by 2, every result
+   equal to the same call on the CPU: Gemma-3 and Command-R+ through
+   ``PagedServer`` fused and gather over prompts longer than the window,
+   LLaVA's ``build_prefill_step`` over 8 patch embeddings and text then
+   ``build_decode_step``, HuBERT's ``forward`` over frames and its
+   per-layer flocking scores, ``launch.serve.main`` on all four;
+   (b) Gemma-3-27B whole (62 layers, bf16): ``PagedServer`` with one slot
+   and GRIFFIN 0.5 (one compacted copy: half its FF weights), then dense, over
+   prompts of 700 and 1,300 tokens (the second crosses the 1024 window)
+   and 32 new tokens; (c) Command-R+ at full width, cut to 8 layers: the
+   same with 2 slots over phase 4's request lengths; (d) LLaVA-NeXT-34B
+   at full width, cut to 30 layers: ``build_prefill_step`` at B=1 over
+   2,880 patch embeddings and 256 text tokens and 32 decode steps, dense
+   and GRIFFIN 0.5 (30 ``expert_stat`` launches at S=3,136), then the
+   launcher's text-only ``ContinuousBatcher`` of 2 slots over
+   200/350/480-token prompts; (e) HuBERT-XLarge whole: ``forward`` over
+   [2, 1500, 1280] frames with statistics (48 ``expert_stat`` launches),
+   wall, device time and busy time, and the per-layer flocking scores.
+   Phase 2 adds ``paged_attn`` at Gemma-3's shape (H=32, KV=16, window
+   1024, decode and a 32-row chunk past 1,100 cached tokens) and
+   Command-R+'s (H=96, KV=8: a group of 12), and ``expert_stat`` at
+   [1,32,21504], [1,32,33792], [1,3136,20480] and [2,1500,5120] bf16.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -146,9 +171,11 @@ the verify call's time and bound, and ``launches_decode`` /
 ``griffin_ffn`` adds ``pass_ms``, its passes' device times, and
 ``compacted_ms``, the compacted products' time; ``expert_stat`` adds
 ``engine_*``, its numbers at phase 9b's prompt shape, ``moe_engine``,
-its numbers at phase 10's widths, and ``recurrent_engine``, at phase
-11's); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-outside a checkout, it exits non-zero and prints no result.
+its numbers at phase 10's widths, ``recurrent_engine``, at phase 11's,
+and ``frontend_engine``, at phase 12's shapes; ``paged_attn`` adds
+``gemma3_*`` and ``cmdr_*``, its phase 12 shapes); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -287,10 +314,12 @@ def verify_case(torch, dev, pool_dtype, in_dtype, shape):
     return args
 
 
-def paged_attn_work(args, lens, scales=None):
+def paged_attn_work(args, lens, scales=None, window: int = 0):
     """(bytes, operations) the step must at least move and do: read the
     cached K/V rows, the queries, the new rows, the table, positions and
-    mask once; write the context and the new rows that exist once.
+    mask once; write the context and the new rows that exist once.  With
+    a sliding ``window`` only the cached rows some query of the step sees
+    are read, and a query attends at most ``window`` keys.
 
     Quantized pools pass ``scales``: the K and V scale pools before the
     step and after the plain version's run of it.  The step then also
@@ -323,13 +352,15 @@ def paged_attn_work(args, lens, scales=None):
                 moved += grown * ((page - cached - n) * hd * isz  # stale rows read
                                   + (page - n) * hd * isz         # old rows rewritten
                                   + 4)                            # scale written
-    byts = (sum(lens) * KV * hd * 2 * isz                   # cached K/V rows
+    seen = [n - max(0, n + 1 - window) if window else n for n in lens]
+    byts = (sum(seen) * KV * hd * 2 * isz                   # cached K/V rows
             + (q.numel() + kn.numel() + vn.numel()) * q.element_size()
             + bt.numel() * 4 + pos.numel() * 4 + wm.numel()
             + B * S * H * hd * 4                            # ctx (fp32)
             + moved)
     # causal: query s of a request attends n + s + 1 keys; QK^T and PV
-    flops = sum(4 * H * hd * (n + s + 1) for n in lens for s in range(S))
+    flops = sum(4 * H * hd * min(n + s + 1, window or n + s + 1)
+                for n in lens for s in range(S))
     return byts, flops
 
 
@@ -406,6 +437,20 @@ def kernel_times(torch, fn, flush, reps: int = 10):
             for n in dict.fromkeys(names)}
 
 
+def device_breakdown(evs, n: int = 6):
+    """Device busy time, record count and the ``n`` kernels (by short
+    name) with the most device time, from ``fenced_device_events``."""
+    import re
+
+    by = {}
+    for e in evs:
+        name = re.sub(r"^.*?(\w+)[<(].*$", r"\1", e.name)[:60]
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
+    return dict(busy_ms=sum(by.values()), records=len(evs),
+                top_ms=[(k, round(v, 3)) for k, v in top])
+
+
 def gather_work(pool, bt, out):
     """Bytes a gather must move: each distinct page the clamped table
     names read once, the table read once, the output written once."""
@@ -432,10 +477,18 @@ def phase_kernels(torch, dev, flush):
     lines.append(f"launch floor (one-element fill_): {floor_ms:.4f} ms")
     yi = dict(H=32, KV=4, hd=128, page=16, W=640 // 16)  # max_len 640
     tiny = dict(H=6, KV=3, hd=32, page=8, W=8)  # page 8, max_len 64
+    # phase 12's paged models: Gemma-3-27B's local layers (window 1024,
+    # 12b's one-slot table) and Command-R+'s group of 12 (12c's tables)
+    gemma = dict(H=32, KV=16, hd=128, page=16, W=GEMMA_MAX_LEN // 16,
+                 window=GEMMA_WINDOW)
+    cmdr = dict(H=96, KV=8, hd=128, page=16, W=640 // 16)
 
     # -- paged_attn: decode (B=2, S=1), one prefill chunk (B=1) and a
     # speculative verify (B=2, S=5) ----------------------------------------
     worst = 0.0
+    phase12 = {}
+    gen12 = torch.Generator(device=dev)
+    gen12.manual_seed(12)
     cases = [("yi-9b", "decode", 2, 1, [583, 431], dt, yi)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [("yi-9b", "prefill", 1, 32, [448], dt, yi)
@@ -444,13 +497,24 @@ def phase_kernels(torch, dev, flush):
               for dt in (torch.float32, torch.bfloat16)]
     cases += [("tinylm", "decode", 2, 1, [43, 28], torch.float32, tiny),
               ("tinylm", "prefill", 1, 16, [32], torch.float32, tiny)]
+    # past 1,100 cached tokens, so whole pages fall below the window; the
+    # chunk's rows straddle the window's lower edge
+    cases += [("gemma3", "decode", 1, 1, [1331], torch.bfloat16, gemma),
+              ("gemma3", "prefill", 1, 32, [1120], torch.bfloat16, gemma),
+              ("cmdr", "decode", 2, 1, [583, 431], torch.bfloat16, cmdr),
+              ("cmdr", "prefill", 1, 32, [448], torch.bfloat16, cmdr)]
     for model, label, B, S, lens, pool_dtype, shape in cases:
+        shape = dict(shape)
+        win = shape.pop("window", 0)
+        # phase 12's cases draw from a generator of their own (the other
+        # cases keep the draws they had before)
+        g = gen12 if model in ("gemma3", "cmdr") else gen
         args = verify_case(torch, dev, pool_dtype, None, shape) if label == "verify" \
-            else paged_attn_case(torch, gen, B, S, lens, pool_dtype, dev, **shape)
+            else paged_attn_case(torch, g, B, S, lens, pool_dtype, dev, **shape)
         kern = [a.clone() for a in args]
         plain = [a.clone() for a in args]
-        ctx_k, pk_k, pv_k = ops.paged_attention(*kern)
-        ctx_r, pk_r, pv_r = ref.paged_attn_ref(*plain)
+        ctx_k, pk_k, pv_k = ops.paged_attention(*kern, window=win)
+        ctx_r, pk_r, pv_r = ref.paged_attn_ref(*plain, window=win)
         torch.cuda.synchronize()
         what = f"paged_attn {model} {label} {pool_dtype}"
         err = (ctx_k - ctx_r).abs().max().item()
@@ -465,13 +529,22 @@ def phase_kernels(torch, dev, flush):
             check(len(names) == 1, f"{what}: one call ran {names}")
             lines.append(f"paged_attn {model} {label} pool={dt}: one call = "
                          f"{len(names)} device kernel")
-        ms = time_ms(torch, lambda: ops.paged_attention(*kern), flush=flush)
-        plain_ms = time_ms(torch, lambda: ref.paged_attn_ref(*plain), flush=flush)
-        byts, flops = paged_attn_work(args, lens)
+        ms = time_ms(torch, lambda: ops.paged_attention(*kern, window=win),
+                     flush=flush)
+        plain_ms = time_ms(torch, lambda: ref.paged_attn_ref(*plain, window=win),
+                           flush=flush)
+        byts, flops = paged_attn_work(args, lens, window=win)
         b_ms, b_by = bound(byts, flops, str(pool_dtype).split(".")[-1])
+        at = f"{label} B={B} S={S} ctx={lens} H={shape['H']} KV={shape['KV']}" \
+            + (f" window={win}" if win else "") + f" {dt} pool"
         lines.append(f"paged_attn {model} {label:7s} pool={dt} B={B} S={S} "
-                     f"ctx={lens}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                     f"ctx={lens}" + (f" window={win}" if win else "")
+                     + f": kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                      f"bound {b_ms:.5f} ms ({b_by})  max_abs_err {err:.3g}")
+        if model in ("gemma3", "cmdr"):
+            phase12[f"{model}_{label}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, at=at)
         if model == "yi-9b" and dt == "bf16":
             kind = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         at=f"{label} B={B} S={S} ctx={lens} bf16 pool")
@@ -480,6 +553,7 @@ def phase_kernels(torch, dev, flush):
             else:
                 results["paged_attn"][label] = kind
     results["paged_attn"]["max_abs_err"] = worst
+    results["paged_attn"]["phase12"] = phase12
     results["paged_attn_quant"] = phase_kernels_quant(torch, dev, flush, gen,
                                                       lines, yi, tiny)
 
@@ -1053,27 +1127,31 @@ def yi9b_model(torch, np, dev):
                                       init_s=t_init)
 
 
-def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
-               profile: bool = False, griffin: bool = True, spec_k: int = 0):
+def serve_paged(torch, np, dev, cfg, params, prompts, kv_dtype: str,
+               profile: bool = False, griffin: bool = True, spec_k: int = 0,
+               name: str = "yi-9b", n_slots: int = 2, max_len: int = 640,
+               num_pages: int = 256):
     """``PagedServer`` (GRIFFIN 0.5, or dense with ``griffin=False``;
     speculative rounds of up to ``spec_k`` drafts, fused and adaptive, when
-    ``spec_k`` is set; ``kernel_backend="auto"``) over the 4 requests;
-    returns the numbers and the full token streams.  Every logit the
-    server reads must be finite.  Each tick is timed on the host clock up
-    to a ``synchronize``: the median decode tick (no prefill chunk, a
-    one-token decode) and spec round (no prefill chunk, a verify) are
-    reported.  The server is dropped before returning."""
+    ``spec_k`` is set; ``kernel_backend="auto"``; pages of 16, chunks of
+    32, ``n_slots`` slots) over ``prompts``, the 4 Yi-9B requests unless
+    another model's are given; returns the numbers and the full token
+    streams.  Every logit the server reads must be finite.  Each tick is
+    timed on the host clock up to a ``synchronize``: the median decode
+    tick (no prefill chunk, a one-token decode) and spec round (no
+    prefill chunk, a verify) are reported.  The server is dropped before
+    returning."""
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.serving.server import PagedServer
 
-    what = f"yi-9b {kv_dtype}" + (" dense" if not griffin else "") \
+    what = f"{name} {kv_dtype}" + (" dense" if not griffin else "") \
         + (f" spec_k={spec_k}" if spec_k else "")
     torch.cuda.reset_peak_memory_stats()
     srv = PagedServer(cfg, params,
                       gcfg=GriffinConfig(sparsity=0.5) if griffin else None,
-                      page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
-                      max_len=640, kernel_backend="auto", device=dev,
-                      kv_dtype=kv_dtype, spec_k=spec_k)
+                      page_size=16, num_pages=num_pages, n_slots=n_slots,
+                      prefill_chunk=32, max_len=max_len, kernel_backend="auto",
+                      device=dev, kv_dtype=kv_dtype, spec_k=spec_k)
     check(srv.backend == "fused", f"auto resolved to {srv.backend}")
     step_model, draft_verify = srv._step_model, srv._draft_verify
 
@@ -1093,6 +1171,7 @@ def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
         srv.submit(p, n, rid=i)
     reset_launches()
     ticks = []
+    compacted_gb = None  # allocated once the first request has compacted
     t0 = time.perf_counter()
     while True:
         before = launches()
@@ -1102,14 +1181,17 @@ def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
         t_tick = time.perf_counter() - t_tick
         after = launches()
         ticks.append(({k: after[k] - before[k] for k in after}, t_tick))
+        if compacted_gb is None and srv._compacted:
+            compacted_gb = torch.cuda.memory_allocated() / 1e9
         if not more:
             break
     wall = time.perf_counter() - t0
     counts = launches()
     out = {rid: r.generated for rid, r in srv.sched.finished.items()}
-    check(sorted(out) == [0, 1, 2, 3], f"{what} finished {sorted(out)}")
+    check(sorted(out) == list(range(len(prompts))), f"{what} finished {sorted(out)}")
     for rid, toks in out.items():
-        check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+        check(len(toks) == prompts[rid][1]
+              and all(0 <= t < cfg.vocab_size for t in toks),
               f"{what} rid {rid}: {toks}")
     attn = "paged_attn_quant" if kv_dtype in ("int8", "fp8") else "paged_attn"
     kinds = attn_kinds(counts)
@@ -1127,6 +1209,7 @@ def serve_yi9b(torch, np, dev, cfg, params, prompts, kv_dtype: str,
         prefill_chunks=m["prefill_chunks"], preemptions=m["preemptions"],
         attn_bytes_per_token=m["attn_bytes_per_token"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        allocated_after_first_compaction_gb=compacted_gb,
         launches=counts, attn_launches_by_kind=kinds,
         attn_calls_per_decode_tick=min((k["decode"] for k, _ in decode_ticks),
                                        default=0),
@@ -1960,17 +2043,18 @@ def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
     return total, res
 
 
-def engine_shape_expert_stat(torch, dev, F: int, dtypes=None):
-    """``expert_stat`` at the engine's whole-prompt shape [2, 512, F]
-    (``dtypes``: fp32 and bf16 unless given) against its plain version
-    under phase 2's tolerance, each timed beside its bound and its plain
-    version (the launches here count toward no path)."""
+def engine_shape_expert_stat(torch, dev, F: int, dtypes=None, B=None, S=None):
+    """``expert_stat`` at [B, S, F], by default the engine's whole-prompt
+    shape [2, 512, F] (``dtypes``: fp32 and bf16 unless given), against
+    its plain version under phase 2's tolerance, each timed beside its
+    bound and its plain version (the launches here count toward no
+    path)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    B, S = YI_ENGINE["B"], YI_ENGINE["S"]
+    B, S = B or YI_ENGINE["B"], S or YI_ENGINE["S"]
     out = {}
     for dtype in dtypes or (torch.float32, torch.bfloat16):
         z = torch.randn(B, S, F, generator=gen, device=dev).to(dtype)
@@ -2219,13 +2303,326 @@ def batcher_run(torch, np, dev, cfg, params, rng, n_ff, lens, total, res, tag):
     return total, res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the last four families: Gemma-3-27B and Command-R+ through
+# PagedServer, LLaVA-NeXT-34B's image + text prefill, HuBERT-XLarge's
+# encoder
+# ---------------------------------------------------------------------------
+
+#: the archs of phase 12
+FRONTENDS = ("gemma3-27b", "command-r-plus-104b", "llava-next-34b", "hubert-xlarge")
+#: Gemma-3-27B's local-attention window, and 12b's server: pages of 16 up
+#: to the longest request (1,300 prompt + 32 new tokens)
+GEMMA_WINDOW = 1024
+GEMMA_MAX_LEN = 1344
+#: 12b's prompt lengths: the second crosses the window
+GEMMA_LENS = (700, 1300)
+#: 12d: patch embeddings (LLaVA-NeXT's anyres: 576 + 4 tiles of 576), text
+#: tokens and new tokens of the prefix prefill; the batcher's prompt lengths
+LLAVA_PREFILL = dict(P=2880, T=256, G=32)
+LLAVA_BATCHER_LENS = RECURRENT_BATCHER_LENS[:3]
+#: 12e: two clips of 30 s of audio at HuBERT's 50 frames/s
+HUBERT_FRAMES = dict(B=2, S=1500)
+#: phase 12's statistic shapes [B, S, F], for phase 2's ``expert_stat``
+#: rows: a Gemma-3 and a Command-R+ prefill chunk, the LLaVA prompt of 12d
+#: and HuBERT's clips
+FRONTEND_STAT_SHAPES = ((1, 32, 21504), (1, 32, 33792), (1, 3136, 20480),
+                        (2, 1500, 5120))
+
+
+def phase_frontends_smoke(torch, np, dev):
+    """12a, the smoke configs of the four (fp32, TF32 off, weights drawn
+    on the CPU from seed 0, projection matrices times 2 so that greedy
+    streams vary, and copied to the card), every result held to the same
+    call on the CPU: Gemma-3 (window 16) and Command-R+ through
+    ``PagedServer``, fused and gather, over prompts longer than the window
+    (``expert_stat`` once per FF layer and prefill chunk); LLaVA's
+    ``build_prefill_step`` over 8 patch embeddings and 12 text tokens,
+    then ``build_decode_step`` on the compacted FF (one ``expert_stat``
+    launch per FF layer, in the prefill); HuBERT's ``forward`` over frames
+    with statistics (one launch per FF layer) and its per-layer flocking
+    scores; ``launch.serve.main`` on all four.  Returns the card runs'
+    launches and the results."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import flocking
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving import steps
+    from repro_torch.serving.server import PagedServer
+
+    total, res = {}, {}
+    rng = np.random.default_rng(12)
+    for arch in FRONTENDS:
+        cfg = get_config(arch, smoke=True)
+        host = decoder.init_params(cfg, seed=0, device="cpu")
+        scale_matrices(host, 2.0)
+        card = to_device(host, dev)
+        n_ff = len(decoder.extract_ffn_tree(host, cfg))
+
+        def both(what, fn):
+            return on_both(torch, dev, card, host, total, f"12a {arch} {what}", fn)
+
+        if decoder.supports_paged(cfg):
+            prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 8)
+                       for n in (20, 37, 29)]
+            kw = dict(page_size=8, num_pages=48, n_slots=2, prefill_chunk=16,
+                      max_len=64)
+            for backend in ("fused", "gather"):
+                def run(d, p):
+                    srv = PagedServer(cfg, p, gcfg=GriffinConfig(sparsity=0.5),
+                                      kernel_backend=backend if d.type == "cuda"
+                                      else "gather", device=d, **kw)
+                    return serve(srv, prompts), srv.metrics.summary()["prefill_chunks"]
+
+                (got, chunks), (want, _), counts = both(f"paged {backend}", run)
+                what = f"12a {arch} {backend}"
+                check(got == want, f"{what}: card {got} != CPU {want}")
+                check(len({t for v in got.values() for t in v}) > 4,
+                      f"{what}: degenerate {got}")
+                attn = "paged_attn" if backend == "fused" else "paged_gather"
+                check(counts[attn] > 0 and counts["expert_stat"] == n_ff * chunks
+                      and all(counts[k] == 0 for k in counts
+                              if k not in (attn, "paged_attn_prefill", "expert_stat")),
+                      f"{what} launches {counts} ({chunks} chunks)")
+                res[f"{arch} paged_{backend}"] = got[0]
+        elif cfg.family == "vlm":
+            P, T, G = cfg.num_prefix_embeddings, 12, 6
+            toks = rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)
+            pre = rng.standard_normal((2, P, cfg.d_model)).astype(np.float32)
+
+            def run(d, p):
+                out = steps.build_prefill_step(cfg, GriffinConfig(sparsity=0.5))(
+                    p, torch.from_numpy(toks).to(d), torch.from_numpy(pre).to(d))
+                cache = decoder.fill_cache_from_prefill(
+                    cfg, decoder.init_cache(cfg, 2, P + T + G, d), out["kv"])
+                step = steps.build_decode_step(cfg, True)
+                tok = out["last_logits"].argmax(-1)[:, None].to(torch.int32)
+                gen = [tok]
+                for t in range(G):
+                    logits, cache = step(p, cache, out["pruned"], tok, P + T + t)
+                    tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+                    gen.append(tok)
+                return torch.cat(gen, 1).cpu(), out["last_logits"].cpu()
+
+            (got, lg_c), (want, lg_h), counts = both("prefill+decode", run)
+            check(torch.equal(got, want), f"12a {arch}: card {got} != CPU {want}")
+            check(torch.allclose(lg_c, lg_h, rtol=EVAL_RTOL, atol=EVAL_RTOL),
+                  f"12a {arch}: last logits differ by "
+                  f"{(lg_c - lg_h).abs().max().item()}")
+            check(only(counts, expert_stat=n_ff), f"12a {arch} launches {counts}")
+            res[f"{arch} prefix_prefill_decode"] = got[0].tolist()
+        else:
+            frames = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+
+            def run(d, p):
+                h, aux = decoder.forward(p, cfg, None, torch.from_numpy(frames).to(d),
+                                         collect_stats=True, want_z=True,
+                                         logits_mode="none")
+                return h.cpu(), [[flocking.flocking_score(st["z"][b]) for b in range(2)]
+                                 for _, st in sorted(aux.stats.items())]
+
+            (h_c, sc_c), (h_h, sc_h), counts = both("encoder", run)
+            check(torch.allclose(h_c, h_h, rtol=EVAL_RTOL, atol=EVAL_RTOL),
+                  f"12a {arch}: hidden states differ by {(h_c - h_h).abs().max().item()}")
+            check(np.isfinite(sc_c).all() and np.allclose(sc_c, sc_h, rtol=0, atol=1e-6),
+                  f"12a {arch}: flocking scores card {sc_c} != CPU {sc_h}")
+            check(only(counts, expert_stat=n_ff), f"12a {arch} launches {counts}")
+            res[f"{arch} flocking"] = sc_c
+
+        argv = ["--arch", arch, "--requests", "2", "--max-len", "64"]
+        (out_c, text), (out_h, _), counts = both("launcher", lambda d, p: launcher(
+            argv + ["--device", d.type]))
+        served = "paged: served 2 requests" if decoder.supports_paged(cfg) \
+            else "slots: served 2 requests"
+        check(out_c == out_h, f"12a {arch} launcher: card {out_c} != CPU {out_h}")
+        check(served in text and (counts["expert_stat"] > 0) == cfg.griffin,
+              f"12a {arch} launcher: {text} launches {counts}")
+        res[f"{arch} launcher"] = [ln for ln in text.splitlines() if "served" in ln]
+    return total, res
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_paged_family(torch, np, dev, arch: str, lens, n_slots: int,
+                       max_len: int, profile: bool = False, **over):
+    """12b / 12c: ``arch`` at full width (``over`` cuts its depth), bf16,
+    random weights from seed 0 drawn on the card, matrices scaled by 2
+    (as phase 11's), through ``serve_paged``'s
+    ``PagedServer`` with GRIFFIN 0.5 and then dense on the same weights,
+    over one request of each prompt length in ``lens`` with 32 new tokens:
+    ``expert_stat`` once per FF layer and prefill chunk of the GRIFFIN
+    server, none in the dense one.  Returns the launches and numbers."""
+    from repro_torch.models import decoder
+
+    cfg, params, model = family_model(torch, dev, arch, **over)
+    # at the init's scale every greedy stream repeats one token
+    scale_matrices(params, 2.0)
+    rng = np.random.default_rng(13)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 32) for n in lens]
+    n_ff = len(decoder.extract_ffn_tree(params, cfg))
+    kw = dict(name=f"{arch} ({cfg.num_layers} layers)", n_slots=n_slots,
+              max_len=max_len, num_pages=2 * max_len // 16)
+    total, res = {}, dict(model=model)
+    streams = {}
+    for name, griffin in (("griffin", True), ("dense", False)):
+        r, streams[name] = serve_paged(torch, np, dev, cfg, params, prompts, "fp32",
+                                      profile, griffin=griffin, **kw)
+        want = n_ff * r["prefill_chunks"] if griffin else 0
+        check(r["launches"]["expert_stat"] == want,
+              f"{arch} {name}: expert_stat {r['launches']['expert_stat']} != {want}")
+        add_counts(total, r["launches"])
+        res[name] = r
+    res["griffin"]["expert_stat_per_request"] = [n_ff * -(-n // 32) for n in lens]
+    res["token_match_griffin_vs_dense"] = match_rate(streams["griffin"], streams["dense"])
+    # how much the match says: a stream of one distinct token repeats itself
+    res["distinct_tokens_per_request"] = {
+        name: [len(set(v)) for _, v in sorted(st.items())] for name, st in streams.items()}
+    del params
+    free(torch)
+    return total, res
+
+
+def phase_llava(torch, np, dev, profile: bool = False):
+    """12d: LLaVA-NeXT-34B at full width, cut to 30 layers, bf16, random
+    weights from seed 0: ``build_prefill_step`` at B=1 over 2,880 random
+    patch embeddings and 256 text tokens, then 32 ``build_decode_step``
+    steps over a contiguous cache of P + T + G, dense and with GRIFFIN 0.5
+    (30 ``expert_stat`` launches at [1, 3136, 20480], in the prefill, and
+    nothing else launched); then the launcher's text-only fallback, a
+    ``ContinuousBatcher`` of 2 slots over 200/350/480-token prompts.
+    ``profile`` adds ``device_breakdown`` of a dense prefill.  Returns the
+    launches and numbers."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.models import decoder
+    from repro_torch.serving import steps
+
+    cfg, params, model = family_model(torch, dev, "llava-next-34b", num_layers=30)
+    n_ff = len(decoder.extract_ffn_tree(params, cfg))
+    P, T, G = LLAVA_PREFILL["P"], LLAVA_PREFILL["T"], LLAVA_PREFILL["G"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    pre = torch.randn(1, P, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    total, res, streams = {}, dict(model=model), {}
+    for name, gcfg in (("dense", None), ("griffin", GriffinConfig(sparsity=0.5))):
+        prefill = steps.build_prefill_step(cfg, gcfg)
+        decode = steps.build_decode_step(cfg, gcfg is not None)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(params, toks, pre)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_counts = launches()
+        check(only(prefill_counts, expert_stat=n_ff if gcfg else 0),
+              f"12d {name} prefill launches {prefill_counts}")
+        after_prefill_gb = torch.cuda.memory_allocated() / 1e9
+        cache = decoder.fill_cache_from_prefill(
+            cfg, decoder.init_cache(cfg, 1, P + T + G, dev), out.pop("kv"))
+        tok = out["last_logits"].argmax(-1)[:, None].to(torch.int32)
+        gen_toks, tpot = [tok], []
+        for t in range(G):
+            t1 = time.perf_counter()
+            logits, cache = decode(params, cache, out["pruned"], tok, P + T + t)
+            tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            tpot.append(time.perf_counter() - t1)
+            check(bool(torch.isfinite(logits).all()), f"12d {name}: non-finite logits")
+            gen_toks.append(tok)
+        counts = launches()
+        check(counts == prefill_counts, f"12d {name}: decode launched "
+              f"{ {k: counts[k] - prefill_counts[k] for k in counts} }")
+        add_counts(total, counts)
+        streams[name] = torch.cat(gen_toks, 1)
+        res[name] = dict(prompt=P + T, prefill_ms=prefill_s * 1e3,
+                         tpot_p50_ms=statistics.median(tpot) * 1e3,
+                         decode_tokens_per_s=G / sum(tpot),
+                         allocated_after_prefill_gb=after_prefill_gb,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         expert_stat=counts["expert_stat"],
+                         tokens=streams[name][0, :8].tolist())
+        del out, cache, logits
+        free(torch)
+    res["token_match_griffin_vs_dense"] = float(
+        (streams["griffin"] == streams["dense"]).float().mean())
+    if profile:
+        dense = steps.build_prefill_step(cfg, None)
+        res["dense_prefill_profile"] = device_breakdown(
+            fenced_device_events(torch, lambda: dense(params, toks, pre)))
+        free(torch)
+    total, res = batcher_run(torch, np, dev, cfg, params, np.random.default_rng(15),
+                             n_ff, LLAVA_BATCHER_LENS, total, res, "12d")
+    del params
+    free(torch)
+    return total, res
+
+
+def phase_hubert(torch, np, dev):
+    """12e: HuBERT-XLarge whole, bf16, random weights from seed 0:
+    ``forward`` over [2, 1500, 1280] random frames with statistics and
+    activations (48 ``expert_stat`` launches at [2, 1500, 5120], nothing
+    else), timed on the host clock and by CUDA events, its device busy
+    time and heaviest kernels from ``torch.profiler``; then
+    ``flocking_score`` of every layer's
+    activations per clip (finite).  Returns the launches and numbers."""
+    from repro_torch.core import flocking
+    from repro_torch.models import decoder
+
+    cfg, params, model = family_model(torch, dev, "hubert-xlarge")
+    B, S = HUBERT_FRAMES["B"], HUBERT_FRAMES["S"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    frames = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+
+    def fwd():
+        return decoder.forward(params, cfg, None, frames, collect_stats=True,
+                               want_z=True, logits_mode="none")
+
+    fwd()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    h, aux = fwd()
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    check(only(counts, expert_stat=cfg.num_layers), f"12e launches {counts}")
+    check(tuple(h.shape) == (B, S, cfg.d_model) and bool(torch.isfinite(h).all()),
+          f"12e hidden states {tuple(h.shape)} not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    scores = [[flocking.flocking_score(aux.stats[li]["z"][b]) for b in range(B)]
+              for li in range(cfg.num_layers)]
+    flock_s = time.perf_counter() - t0
+    check(np.isfinite(scores).all(), f"12e flocking scores {scores}")
+    prof = device_breakdown(fenced_device_events(torch, fwd))
+    res = dict(model=model, frames=[B, S], forward_wall_ms=wall * 1e3,
+               forward_event_ms=ev0.elapsed_time(ev1),
+               forward_busy_ms=prof.pop("busy_ms"), forward_profile=prof,
+               peak_mem_gb=peak, expert_stat=counts["expert_stat"],
+               flocking_wall_s=flock_s,
+               flocking_by_layer=[round(float(np.mean(s)), 4) for s in scores])
+    del params, h, aux
+    free(torch)
+    return counts, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile Yi-9B decode ticks (phases 4, 5 and "
-                    "7b's dense server), spec rounds (7b) and the GRIFFIN "
+                    "7b's dense server), spec rounds (7b), the GRIFFIN "
                     "engines' prefill and decode steps (9b, 10b, 10c, 11b; "
-                    "11c's dense engine) with "
+                    "11c's dense engine) and 12d's dense prefix prefill with "
                     "torch.profiler; the attention kernels' share is named "
                     "apart")
     ap.add_argument("--out", default="", help="also write the results as JSON")
@@ -2279,6 +2676,15 @@ def main() -> int:
                  f"max_abs_err {rec_stat['max_abs_err']:.3g}  nearer "
                  f"{rec_stat['cliff_side']} time (F=11264 {lo:.4f}, 18432 {hi:.4f} ms)")
     kernels["expert_stat"]["recurrent_engine"] = rec_stat
+    # and at phase 12's shapes
+    fe_stat = [engine_shape_expert_stat(torch, dev, F, (torch.bfloat16,), B=B, S=S)["bf16"]
+               for B, S, F in FRONTEND_STAT_SHAPES]
+    for r in fe_stat:
+        lines.append(f"expert_stat {r['at']} bf16 (phase 12's shapes): kernel "
+                     f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+                     f"{r['bound_ms']:.5f} ms ({r['bound_by']})  max_abs_err "
+                     f"{r['max_abs_err']:.3g}")
+    kernels["expert_stat"]["frontend_engine"] = fe_stat
     print(f"phase 2 kernels vs plain versions ({card}):")
     for line in lines:
         print("  " + line)
@@ -2291,7 +2697,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cfg, params, prompts, model = yi9b_model(torch, np, dev)
-    yi, yi_streams = serve_yi9b(torch, np, dev, cfg, params, prompts, "fp32",
+    yi, yi_streams = serve_paged(torch, np, dev, cfg, params, prompts, "fp32",
                                 args.profile)
     print(f"phase 4 yi-9b ({card}): {time.perf_counter() - t0:.1f} s total, "
           f"{model['params'] / 1e9:.2f}B params, init {model['init_s']:.1f} s")
@@ -2306,7 +2712,7 @@ def main() -> int:
     quant = {}
     for kvd in ("int8", "fp8"):
         t0 = time.perf_counter()
-        res, out = serve_yi9b(torch, np, dev, cfg, params, prompts, kvd,
+        res, out = serve_paged(torch, np, dev, cfg, params, prompts, kvd,
                               args.profile)
         res["token_match_vs_phase4"] = match_rate(out, yi_streams)
         res["attn_bytes_per_token_vs_phase4"] = \
@@ -2323,7 +2729,7 @@ def main() -> int:
     if args.profile:
         # phase 4 again after phase 5, so that bf16 / int8 / fp8 / bf16 runs
         # bracket any drift of the host-bound numbers within the call
-        again, _ = serve_yi9b(torch, np, dev, cfg, params, prompts, "fp32")
+        again, _ = serve_paged(torch, np, dev, cfg, params, prompts, "fp32")
         print("phase 5 bracket: yi-9b bf16 pools again: "
               + ", ".join(f"{k} {again[k]}" for k in
                           ("tokens_per_s", "ttft_p50_s", "tpot_p50_s")))
@@ -2342,9 +2748,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, "
           f"launches {spec_tiny_counts}, {spec_tiny}")
     t0 = time.perf_counter()
-    spec_dense, dense_out = serve_yi9b(torch, np, dev, cfg, params, prompts,
+    spec_dense, dense_out = serve_paged(torch, np, dev, cfg, params, prompts,
                                        "fp32", args.profile, griffin=False)
-    spec, spec_out = serve_yi9b(torch, np, dev, cfg, params, prompts, "fp32",
+    spec, spec_out = serve_paged(torch, np, dev, cfg, params, prompts, "fp32",
                                 args.profile, spec_k=4)
     spec["token_match_vs_dense"] = match_rate(spec_out, dense_out)
     print(f"phase 7b yi-9b GRIFFIN 0.5 drafts, spec_k=4 fused, adaptive, bf16 "
@@ -2482,6 +2888,45 @@ def main() -> int:
             print(f"  {k}: {v}")
     print(f"phase 11 total: {time.perf_counter() - t11:.1f} s")
 
+    t12 = t0 = time.perf_counter()
+    fe_smoke_counts, fe_smoke = phase_frontends_smoke(torch, np, dev)
+    print(f"phase 12a gemma3/command-r+/llava-next/hubert smoke configs, "
+          f"PagedServer fused and gather, prefix prefill + decode, encoder "
+          f"flocking, launch.serve, card == CPU: {time.perf_counter() - t0:.1f} s, "
+          f"launches {fe_smoke_counts}")
+    for k, v in fe_smoke.items():
+        print(f"  {k}: {v}")
+    frontends = {}
+    runs = (
+        ("12b", "gemma3-27b whole, PagedServer 1 slot GRIFFIN 0.5 then dense, "
+         f"prompts {GEMMA_LENS} + 32 new",
+         lambda: phase_paged_family(torch, np, dev, "gemma3-27b", GEMMA_LENS, 1,
+                                    GEMMA_MAX_LEN)),
+        ("12c", "command-r-plus-104b full width, 8 layers, PagedServer 2 slots "
+         f"GRIFFIN 0.5 then dense, prompts {YI_PROMPT_LENS} + 32 new",
+         lambda: phase_paged_family(torch, np, dev, "command-r-plus-104b",
+                                    YI_PROMPT_LENS, 2, 640, num_layers=8)),
+        ("12d", f"llava-next-34b full width, 30 layers, prefix prefill "
+         f"{LLAVA_PREFILL} dense and GRIFFIN 0.5, ContinuousBatcher prompts "
+         f"{LLAVA_BATCHER_LENS} + {FAMILY_BATCHER['new']} new",
+         lambda: phase_llava(torch, np, dev, args.profile)),
+        ("12e", f"hubert-xlarge whole, forward over {HUBERT_FRAMES} frames "
+         "with statistics, per-layer flocking",
+         lambda: phase_hubert(torch, np, dev)))
+    for tag, what, run in runs:
+        t0 = time.perf_counter()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        counts, res = run()
+        frontends[tag] = dict(launches=counts, **res)
+        model = res.pop("model")
+        print(f"{tag} {what} ({card}): {model['params'] / 1e9:.2f}B params "
+              f"({model['weights_gb']:.1f} GB on the card, {before_gb:.2f} GB "
+              f"before the draw), init {model['init_s']:.1f} s; "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        for k, v in res.items():
+            print(f"  {k}: {v}")
+    print(f"phase 12 total: {time.perf_counter() - t12:.1f} s")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -2497,7 +2942,12 @@ def main() -> int:
              "deepseek_v3": family["10c"]["launches"],
              "recurrent_smoke": rec_smoke_counts,
              "recurrentgemma": family["11b"]["launches"],
-             "mamba2": family["11c"]["launches"]}
+             "mamba2": family["11c"]["launches"],
+             "frontends_smoke": fe_smoke_counts,
+             "gemma3": frontends["12b"]["launches"],
+             "command_r_plus": frontends["12c"]["launches"],
+             "llava_next": frontends["12d"]["launches"],
+             "hubert": frontends["12e"]["launches"]}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -2530,6 +2980,7 @@ def main() -> int:
             entry.update({f"engine_{k}": v for k, v in r["engine"].items()})
             entry["moe_engine"] = r["moe_engine"]  # and at phase 10's widths
             entry["recurrent_engine"] = r["recurrent_engine"]  # and phase 11's
+            entry["frontend_engine"] = r["frontend_engine"]  # and phase 12's
         if "prefill" in r:  # attention: decode (the fields above), prefill
             # and speculative verify
             pre = sum(c.get(name + "_prefill", 0) for c in paths.values())
@@ -2540,6 +2991,9 @@ def main() -> int:
                 p = r[kind]
                 entry.update({f"{kind}_{k}": p[k] for k in
                               ("ms", "plain_ms", "bound_ms", "bound_by", "at")})
+            # phase 12's shapes: Gemma-3's window, Command-R+'s group of 12
+            for case, p in r.get("phase12", {}).items():
+                entry.update({f"{case}_{k}": v for k, v in p.items()})
         entries.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2552,7 +3006,8 @@ def main() -> int:
              "engine_tinylm": eng_tiny, "engine_yi9b": eng_yi,
              "expert_stat_engine_shape": stat_engine,
              "families_smoke": fam_smoke, "recurrent_smoke": rec_smoke,
-             "families": family,
+             "families": family, "frontends_smoke": fe_smoke,
+             "frontends": frontends,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

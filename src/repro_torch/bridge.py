@@ -3,12 +3,13 @@
 The reference (``repro.models.decoder``) stacks the layers of a scan
 segment on a leading axis (``seg{i}/pos{j}`` leaves, ``[n, ...]``) and
 keeps the rest unrolled (``seg{i}/layer{j}``); the port keeps one entry
-per layer.  The DeepSeek MTP block (``mtp``, unstacked) is carried as it
-is.  These helpers take trees whose leaves are already numpy
-arrays (``jax.tree.map(np.asarray, tree)`` on the reference side) and
-return torch tensors on a device, bit for bit — no weights are
-downloaded or re-drawn (leaves that are torch tensors already, such as
-the bf16 leaves of a restored checkpoint, are moved as they are).
+per layer.  The head, the DeepSeek MTP block (``mtp``, unstacked) and
+the stub frontend's projection (``frontend``) are carried as they are.
+These helpers take trees whose leaves are already numpy arrays
+(``jax.tree.map(np.asarray, tree)`` on the reference side) and return
+torch tensors on a device, bit for bit — no weights are downloaded or
+re-drawn (leaves that are torch tensors already, such as the bf16
+leaves of a restored checkpoint, are moved as they are).
 ``params_to_jax`` goes the other way, so the port can write checkpoints
 in the reference's layout.  ``device=None`` means the card, as for every
 entry point of the port; the tests pass ``device="cpu"``.
@@ -67,7 +68,7 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
         "layers": [_to_torch(layers[li], device) for li in range(cfg.num_layers)],
         "final_norm": _to_torch(tree["final_norm"], device),
     }
-    for k in ("head", "mtp"):
+    for k in ("head", "frontend", "mtp"):
         if k in tree:
             out[k] = _to_torch(tree[k], device)
     return out
@@ -98,7 +99,7 @@ def params_to_jax(params: Dict, cfg) -> Dict:
 
     out: Dict[str, Any] = {"embed": cpu(params["embed"]),
                            "final_norm": cpu(params["final_norm"])}
-    for k in ("head", "mtp"):
+    for k in ("head", "frontend", "mtp"):
         if k in params:
             out[k] = cpu(params[k])
     groups: Dict[tuple, list] = {}

@@ -1,8 +1,9 @@
 """Serving launcher of the port: prefill -> GRIFFIN select/compact ->
 pruned decode over the paged-KV ``PagedServer``, or the
 ``ContinuousBatcher`` slot fallback for the archs the paged path does
-not cover (MoE, MLA, SSM, the RG-LRU hybrid), on the card by default (port of
-``repro/launch/serve.py``).
+not cover (MoE, MLA, SSM, the RG-LRU hybrid, the encoder and the VLM,
+which serve token prompts without their frontend), on the card by
+default (port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinylm \\
       --requests 8 --sparsity 0.5
@@ -18,9 +19,7 @@ Flags, defaults, checks and summary lines are the reference's, except:
 * ``--torch-profile DIR`` (the reference's ``--jax-profile``) writes a
   ``torch.profiler`` trace of the drain to ``DIR/trace.json``;
 * ``--device`` picks the device (default: the card);
-* ``--mesh`` is refused: tensor parallelism is not ported;
-* the encoder and VLM archs are refused: their frontends are not
-  ported.
+* ``--mesh`` is refused: tensor parallelism is not ported.
 
 The slot fallback refuses ``--spec-k``, the observability flags and
 ``--http``, as the reference does.  Without a checkpoint (``--ckpt-dir``,
@@ -44,7 +43,7 @@ import torch.profiler
 
 from repro_torch import bridge
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.configs.registry import ASSIGNED_ARCHS, get_config
 from repro_torch.core.griffin import TIERS, GriffinConfig, SparsityProfile
 from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.kernels import backend
@@ -56,17 +55,8 @@ from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.server import PagedServer
 from repro_torch.serving.slo import SLO_CLASSES
 
-#: the reference launcher's ``--arch`` choices (its ``ASSIGNED_ARCHS``
-#: plus the tiny configs)
-ARCHS = ["yi-9b", "gemma3-27b", "smollm-360m", "command-r-plus-104b",
-         "mamba2-1.3b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
-         "llava-next-34b", "recurrentgemma-9b", "hubert-xlarge",
-         "tinylm", "tinylm-tp"]
-
 _NO_MESH = ("--mesh: tensor parallelism is not ported to the PyTorch "
             "server (ROADMAP Queue A item 10)")
-_NO_FAMILY = ("{arch}: its model family (encoder or VLM) is not ported "
-              "yet (ROADMAP Queue A item 11)")
 
 
 def parse_mesh(spec: str):
@@ -82,7 +72,8 @@ def parse_mesh(spec: str):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="tinylm", choices=ARCHS)
+    ap.add_argument("--arch", default="tinylm",
+                    choices=ASSIGNED_ARCHS + ["tinylm", "tinylm-tp"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -214,8 +205,6 @@ def main(argv: Optional[Sequence[str]] = None
 
     if args.mesh is not None:
         ap.error(_NO_MESH)
-    if args.arch not in list_archs():
-        ap.error(_NO_FAMILY.format(arch=args.arch))
     cfg = get_config(args.arch, smoke=args.arch not in ("tinylm", "tinylm-tp"))
     paged = decoder.supports_paged(cfg)
     device = backend.resolve_device(args.device)

@@ -1,7 +1,9 @@
-"""Model assembly for the decoder families: dense, MoE and MLA attention,
-Mamba-2 (SSD) and the RG-LRU + local-attention hybrid (port of
-``repro/models/decoder.py``: the contiguous prefill/decode path and the
-paged serving path, which covers the dense GQA families only).
+"""Model assembly for every architecture family: dense, MoE and MLA
+attention, Mamba-2 (SSD), the RG-LRU + local-attention hybrid, the
+bidirectional encoder and the VLM backbone, whose modality frontends are
+stubs fed precomputed ``prefix_emb`` (port of ``repro/models/decoder.py``:
+the contiguous prefill/decode path and the paged serving path, which
+covers the dense GQA families without a frontend only).
 
 The reference stacks homogeneous runs of layers on a leading axis and
 scans them (``seg{i}/pos{j}`` leaves).  PyTorch runs eagerly, so the
@@ -155,12 +157,15 @@ def layer_specs(cfg, desc: LayerDesc) -> Dict:
 
 
 def model_specs(cfg) -> Dict:
-    assert supports_contiguous(cfg), \
-        f"{cfg.name}: the port does not cover frontend families"
     specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
     hs = head_specs(cfg)
     if hs:
         specs["head"] = hs
+    if cfg.frontend:
+        # the stub frontend's projection of the precomputed embeddings
+        specs["frontend"] = {
+            "proj": ParamSpec((cfg.d_model, cfg.d_model), ("embed", "act_embed"))
+        }
     specs["layers"] = [layer_specs(cfg, d) for d in layer_descs(cfg)]
     specs["final_norm"] = norm_specs(cfg)
     if cfg.mtp_depth:
@@ -204,14 +209,6 @@ class Aux:
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill / teacher-forced evaluation)
 # ---------------------------------------------------------------------------
-
-def supports_contiguous(cfg) -> bool:
-    """The contiguous path covers every family without a modality
-    frontend: GQA/MQA or MLA attention, Mamba-2 SSD and RG-LRU mixers,
-    dense, MoE or no FF, with an fp or int8 decode cache (the encoder
-    and VLM frontends are not ported)."""
-    return not cfg.frontend
-
 
 def _rope_width(cfg) -> int:
     """Dims RoPE rotates per head: MLA rotates only its rope part."""
@@ -275,7 +272,9 @@ def forward(
     want_z: bool = False,
 ) -> Tuple[torch.Tensor, Aux]:
     """Full-sequence forward over ``tokens`` [B, S] (after an optional
-    ``prefix_emb`` [B, P, D]).
+    ``prefix_emb`` [B, P, D]: patch or frame embeddings, projected by
+    ``params["frontend"]["proj"]`` where the model has a frontend, then
+    cast to the model dtype).
 
     ``logits_mode="last"`` projects only the final position (prefill:
     no [B,S,V] tensor); ``"none"`` returns the final hidden states.
@@ -289,7 +288,12 @@ def forward(
         raise ValueError(f"logits_mode must be all|last|none, got {logits_mode!r}")
     parts = []
     if prefix_emb is not None:
-        parts.append(prefix_emb.to(param_lib.torch_dtype(cfg.dtype)))
+        pe = prefix_emb
+        if "frontend" in params:
+            w = params["frontend"]["proj"]
+            dt = torch.promote_types(pe.dtype, w.dtype)  # as jnp.einsum
+            pe = pe.to(dt) @ w.to(dt)
+        parts.append(pe.to(param_lib.torch_dtype(cfg.dtype)))
     if tokens is not None:
         parts.append(embed_lookup(params["embed"], tokens.long(), cfg))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -348,7 +352,6 @@ def cache_specs(cfg, batch: int, max_len: int) -> List[Dict]:
     """Per-layer decode cache specs (one dict per layer; MLA: the
     compressed ``{ckv, kr}``; SSM / RG-LRU: the fp32 ``state`` / ``h``
     and the conv tail in the model dtype)."""
-    assert supports_contiguous(cfg), cfg.name
     return [_layer_cache_specs(cfg, d, batch, max_len) for d in layer_descs(cfg)]
 
 
@@ -461,10 +464,10 @@ def decode_step(
 
 def supports_paged(cfg) -> bool:
     """The paged path covers the GQA/MQA attention families (dense FF or
-    no FF) with fp caches: the reference's own predicate.  MLA / MoE,
-    SSM and RG-LRU take the contiguous caches and the
-    ``ContinuousBatcher`` (the frontend families are not ported); an int8 contiguous
-    cache has no paged form (the paged pools quantize through
+    no FF) without a frontend, with fp caches: the reference's own
+    predicate.  MLA / MoE, SSM, RG-LRU and the encoder and VLM frontends
+    take the contiguous caches and the ``ContinuousBatcher``; an int8
+    contiguous cache has no paged form (the paged pools quantize through
     ``kv_dtype``)."""
     return (
         all(d.mixer == "attn" for d in layer_descs(cfg))

@@ -369,11 +369,16 @@ class PagedServer:
         was aborted.  The scheduler keeps finished requests (their tokens)
         for good, and at Yi-9B width one copy is ~6.5 GB on the card, so a
         long-running server must not keep them; a preempted request keeps
-        its copy to resume with."""
+        its copy to resume with.  Once no request holds one, the slot
+        buffers go too (a one-slot server's are views of the last
+        request's copy): the next request compacts beside the weights
+        alone."""
         for rid, req in list(self._compacted.items()):
             if req.state == FINISHED:
                 req.pruned_host = None
                 del self._compacted[rid]
+        if not self._compacted and self.pruned_slots is not None:
+            self.pruned_slots, self._bucket_sig, self._slot_rid = None, None, {}
 
     def drain(self) -> Dict[int, List[int]]:
         """Run until idle; returns generated tokens per finished request."""
@@ -799,7 +804,15 @@ class PagedServer:
         """Write one request's compacted FF tree into its decode slot, in
         place.  The first install of a width allocates the
         ``[n_slots, ...]`` buffers (every slot starts as a copy of this
-        request's weights, as the reference's broadcast does)."""
+        request's weights, as the reference's broadcast does).  A server
+        of one slot holds views of the request's own tree instead, and
+        rebinds them at every install: no second copy of the compacted FF
+        (at GRIFFIN 0.5, half of the model's FF weights: Gemma-3-27B fits
+        on one card only so), and nothing is written into a tree that a
+        preempted request keeps for its resume."""
+        if self.n_slots == 1:
+            self.pruned_slots = self._expand_b1(pruned1)
+            return
         if self.pruned_slots is None:
             self.pruned_slots = {
                 li: {k: v[None].expand((self.n_slots,) + v.shape).clone()

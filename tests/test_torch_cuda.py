@@ -117,6 +117,19 @@ def test_paged_attn_decode_b1_and_window(dev, in_dtype, pool_dtype, B, window):
     _check_paged_attn(args, window=window)
 
 
+@pytest.mark.parametrize("S,lens", [(1, [1331]), (32, [1120]), (32, [1010])])
+@pytest.mark.parametrize("H,KV,window", [(32, 16, 1024), (96, 8, 0)])
+def test_paged_attn_gemma3_window_and_cmdr_group12(dev, S, lens, H, KV, window):
+    """Gemma-3-27B's local layers (window 1024 over an 84-page table:
+    whole pages below the window, a chunk straddling its edge, and one
+    that reaches it) and Command-R+'s group of 12 (a 32-token chunk is
+    384 rows over 6 row tiles), bf16."""
+    rng = np.random.default_rng(S + H + lens[0])
+    args = _case(rng, 1, S, H, KV, 128, 16, 84, torch.bfloat16, dev,
+                 torch.bfloat16, lens=lens)
+    _check_paged_attn(args, window=window)
+
+
 @pytest.mark.parametrize("kvd", ["fp32", "bf16", "int8", "fp8"])
 def test_paged_attn_yi9b_prefill_every_pool_format(dev, kvd):
     """A Yi-9B prefill chunk (S=32, 4 row tiles, bf16 queries) over each
@@ -245,6 +258,13 @@ def test_paged_attn_refuses_another_row_tile(dev):
     ((2, 512, 2048), torch.bfloat16),
     ((2, 512, 18432), torch.bfloat16),
     ((2, 512, 12288), torch.bfloat16),  # RecurrentGemma-9B's GeGLU width
+    # the last four families: a Gemma-3 and a Command-R+ prefill chunk
+    # (two and three passes), LLaVA-NeXT's 2,880 patches + 256 tokens,
+    # HuBERT's two 30 s clips
+    ((1, 32, 21504), torch.bfloat16),
+    ((1, 32, 33792), torch.bfloat16),
+    ((1, 3136, 20480), torch.bfloat16),
+    ((2, 1500, 5120), torch.bfloat16),
 ])
 def test_expert_stat_kernel_matches_plain(dev, shape, dtype):
     from repro_torch.kernels import expert_stat

@@ -274,13 +274,18 @@ def test_bridge_round_trip_carries_mtp_and_dtypes(models):
 @pytest.mark.parametrize("arch", jreg.list_archs())
 def test_supports_paged_is_the_reference_predicate(arch):
     """For every arch of the reference's registry, full and smoke size
-    and with the int8 cache; the contiguous path admits every family
-    without a frontend (attention, SSM, the RG-LRU hybrid)."""
+    and with the int8 cache; the contiguous path admits every family,
+    as the reference's engine and batcher do: its decode caches have the
+    reference's leaves, one entry per layer."""
     for smoke in (False, True):
         cfg = jreg.get_config(arch, smoke=smoke)
         for c in (cfg, cfg.replace(kv_cache_int8=True)):
             assert tdec.supports_paged(c) == jdec.supports_paged(c), (arch, smoke)
-        assert tdec.supports_contiguous(cfg) == (not cfg.frontend)
+        tcfg = tget(arch, smoke=smoke)
+        want = jdec.cache_specs(cfg, 1, 8)
+        assert [sorted(c) for c in tdec.cache_specs(tcfg, 1, 8)] == [
+            sorted(want[seg][name]) for seg, name in
+            (p.split("/") for p, _, _ in tdec.layer_paths(tcfg))], (arch, smoke)
 
 
 def test_launcher_serves_moe_through_the_slot_batcher(capsys):
@@ -309,8 +314,8 @@ def test_launcher_serves_moe_through_the_slot_batcher(capsys):
     (["--arch", "moonshot-v1-16b-a3b", "--trace-out", "t.json"], "observability"),
     (["--arch", "moonshot-v1-16b-a3b", "--flocking-telemetry", "2"], "observability"),
     (["--arch", "recurrentgemma-9b", "--http", "127.0.0.1:0"], "--http requires"),
-    (["--arch", "hubert-xlarge"], "item 11"),
-    (["--arch", "llava-next-34b"], "item 11"),
+    (["--arch", "hubert-xlarge", "--spec-k", "2"], "requires GRIFFIN"),
+    (["--arch", "llava-next-34b", "--http", "127.0.0.1:0"], "--http requires"),
 ])
 def test_launcher_refuses_on_the_slot_fallback(argv, needle, capsys):
     with pytest.raises(SystemExit) as e:

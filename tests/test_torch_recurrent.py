@@ -435,7 +435,7 @@ def test_griffin_budgets_of_the_full_configs():
             for li, (path, inst, _) in enumerate(tdec.layer_paths(tc))}
     assert tg.plan_k_tree(tc, tg.GriffinConfig(sparsity=0.5)) == want
     assert sorted(want) == list(range(38)) and set(want.values()) == {6144}
-    assert tdec.supports_contiguous(tget(SSM)) and not tget(SSM).has_ffn
+    assert tdec.cache_specs(tget(SSM), 1, 8) and not tget(SSM).has_ffn
     assert not tdec.supports_paged(tc) and not tdec.supports_paged(tget(SSM))
 
 
