@@ -161,7 +161,29 @@ Phases (any failure raises and the script exits non-zero):
    Phase 2 adds ``paged_attn`` at Gemma-3's shape (H=32, KV=16, window
    1024, decode and a 32-row chunk past 1,100 cached tokens) and
    Command-R+'s (H=96, KV=8: a group of 12), and ``expert_stat`` at
-   [1,32,21504], [1,32,33792], [1,3136,20480] and [2,1500,5120] bf16.
+   [1,32,21504], [1,32,33792], [1,3136,20480] and [2,1500,5120] bf16;
+13. training, after phase 12's models are freed; no kernel launches while
+   a model trains: (a) each reference arch's smoke config and tinylm
+   (fp32, init drawn on the CPU): a backward on the card gives every
+   gradient the loss reads, finite; 3 ``build_train_step`` AdamW steps
+   on one fixed batch (tinylm also 8-bit Adam and ``accum_steps=2``), on
+   the card and on the CPU: losses and parameters within
+   ``TRAIN_CARD_TOL``, the loss falling on both; (b) tinylm trained with
+   the reference's recipe (AdamW, ``warmup_cosine(3e-3, 25, 500)``,
+   ``SyntheticCorpus`` batches of 16 x 256, 500 steps, fp32) through
+   ``training/loop.train`` into a checkpoint directory: its losses at
+   steps 0, 100, ..., 499 beside the reference's (``TINY_REF_LOSSES``;
+   step 499 within ``TINY_LOSS_RTOL``); a second run preempted at step
+   250 and resumed from its checkpoint ends within ``TINY_RESUME_ATOL``
+   of the first; the checkpoint served by ``python -m
+   repro_torch.launch.serve --arch tinylm --ckpt-dir``; ``generation_ppl``
+   of full, GRIFFIN 0.5 and magnitude on 8 held-out 192-token sequences
+   (prompt 128), printed; (c) Yi-9B whole (bf16, remat, 8-bit Adam):
+   ``abstract_train_state``'s bytes, a backward's gradients present and
+   finite, 4 steps on one fixed batch of 2 x 512 tokens with a finite,
+   falling loss, the step's wall, a fifth step's device busy time
+   (``torch.profiler``), peak memory, and its bounds: 8 N T bf16
+   operations (remat runs the forward twice) and the optimizer's bytes.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -182,6 +204,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2616,6 +2639,347 @@ def phase_hubert(torch, np, dev):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card (decoder.loss_fn and its backward, the
+# optimizers, the train step, the loop, checkpoints, the launcher)
+# ---------------------------------------------------------------------------
+
+#: 13a: (optimizer, accum_steps) runs of every smoke arch; tinylm adds 8-bit
+#: Adam and two microbatches
+TRAIN_SMOKE_RUNS = (("adamw", 1),)
+TRAIN_TINY_RUNS = (("adamw", 1), ("adam8bit", 1), ("adamw", 2))
+TRAIN_SMOKE_LR = 1e-3
+#: card against CPU after 3 steps: losses within ``rtol``; parameters within
+#: ``rtol``/``atol`` except at most a share ``few`` of all elements, each
+#: within ``few_atol``: three steps of about lr each.  Adam's first
+#: updates are lr * g / (|g| + eps), so an element whose gradient is a few
+#: ulps from 0 on either device moves by another share of lr, a leaf whose
+#: gradient is 0 but for rounding (an encoder's key bias) moves at random,
+#: and 8-bit Adam adds moment codes that round apart (8-bit tinylm: one
+#: element 1.04e-3 apart, one lr and a bit, on the H100).  MoE dispatch
+#: gradients are summed by atomics on the card, so nothing here is held
+#: bit for bit.
+TRAIN_CARD_TOL = dict(rtol=1e-4, atol=1e-5, few=5e-3, few_atol=3 * TRAIN_SMOKE_LR)
+
+#: 13b: the reference's recipe for the trained tinylm
+#: (``benchmarks/common.py::trained_tiny``)
+TINY_RECIPE = dict(peak_lr=3e-3, warmup=25, steps=500, batch=16, seq=256,
+                   preempt_at=250)
+#: the JAX package's losses under that recipe at these steps
+#: (``scripts/reference_tinylm_curve.py``: ``repro.training.loop.train``,
+#: ``PRNGKey(0)`` init, on a CPU).  The port draws another init, so the
+#: curves agree only in their trend; step 499's loss is held within
+#: ``TINY_LOSS_RTOL``.
+TINY_REF_LOSSES = {0: 8.213449478149414, 100: 2.3450851440429688,
+                   200: 2.302034854888916, 300: 2.2390644550323486,
+                   400: 2.2318639755249023, 499: 2.1899240016937256}
+TINY_LOSS_RTOL = 0.03
+#: a resumed run's final parameters against the uninterrupted run's (both
+#: on the card, deterministic algorithms on)
+TINY_RESUME_ATOL = 1e-5
+#: held-out sequences (``benchmarks/common.py::eval_sequences`` and
+#: ``benchmarks/run.py``'s Table 2: 8 x 192 tokens, prompt 128)
+TINY_EVAL = dict(n=8, length=192, P=128, seed=123,
+                 methods=("full", "griffin", "magnitude"))
+
+#: 13c: Yi-9B whole, 8-bit Adam, one fixed batch
+YI_TRAIN = dict(B=2, S=512, steps=4, lr=1e-4)
+
+
+def train_batch(np, cfg, seed: int, B: int = 2, S: int = 48):
+    """``tests/test_archs_smoke.py``'s batch shapes, from numpy."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":
+        return {"prefix_emb": rng.normal(size=(B, S, cfg.d_model)).astype(np.float32),
+                "targets": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        P = cfg.num_prefix_embeddings
+        return {"tokens": rng.integers(0, cfg.vocab_size, (B, S - P)).astype(np.int32),
+                "prefix_emb": rng.normal(size=(B, P, cfg.d_model)).astype(np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+
+
+def tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree]
+
+
+def trees_close(torch, a, b, rtol, atol, few, few_atol):
+    """(ok, worst abs difference, share of all elements outside
+    ``rtol``/``atol``) of two trees of tensors, leaf for leaf."""
+    worst, off, n = 0.0, 0, 0
+    for x, y in zip(tree_tensors(a), tree_tensors(b)):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        off += int((d > atol + rtol * y.abs()).sum())
+        n += d.numel()
+    share = off / max(n, 1)
+    return worst <= max(atol, few_atol) and share <= few, worst, share
+
+
+def grads_read(tree, cfg):
+    """The leaves of a ``value_and_grad`` tree the loss read: all but an
+    encoder's token table (its frames come in as ``prefix_emb``)."""
+    skip = cfg.family == "encoder"
+    out = []
+    for k, v in tree.items():
+        if skip and k == "embed":
+            continue
+        out.extend(tree_tensors(v))
+    return out
+
+
+def phase_train_smoke(torch, np, dev):
+    """13a: each reference arch's smoke config and tinylm (fp32, init drawn
+    on the CPU): 3 ``build_train_step`` steps on one fixed batch, on the
+    card and on the CPU; losses and parameters within ``TRAIN_CARD_TOL``,
+    the loss falling on both, every gradient of a backward on the card
+    present and finite, and no kernel launched while training."""
+    from repro_torch.configs.registry import ASSIGNED_ARCHS, get_config
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    res = {}
+    total = {}
+    for arch in list(ASSIGNED_ARCHS) + ["tinylm"]:
+        cfg = get_config(arch, smoke=arch != "tinylm")
+        host_batch = {k: torch.from_numpy(v) for k, v in
+                      train_batch(np, cfg, 0, B=4 if arch == "tinylm" else 2).items()}
+        # a backward on the card: every gradient the loss reads is there
+        params = to_device(decoder.init_params(cfg, 0, "cpu"), dev)
+        reset_launches()
+        _, _, grads = ts.value_and_grad(decoder.loss_fn, params,
+                                        to_device(host_batch, dev), cfg)
+        counts = launches()
+        check(sum(counts.values()) == 0, f"13a {arch} backward launched {counts}")
+        read = grads_read(grads, cfg)
+        check(all(g is not None for g in read), f"13a {arch}: a gradient is None")
+        check(bool(torch.stack([torch.isfinite(g).all() for g in read]).all()),
+              f"13a {arch}: a gradient is not finite")
+        del params, grads
+        for name, accum in (TRAIN_TINY_RUNS if arch == "tinylm" else TRAIN_SMOKE_RUNS):
+            out = []
+            for d in (dev, torch.device("cpu")):
+                opt = opt_lib.get_optimizer(name, TRAIN_SMOKE_LR)
+                state = to_device(ts.init_train_state(cfg, opt, 0, "cpu"), d)
+                step = ts.build_train_step(cfg, opt, accum_steps=accum)
+                batch = to_device(host_batch, d)
+                reset_launches()
+                t0 = time.perf_counter()
+                losses = []
+                for _ in range(3):
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                out.append((state, losses, time.perf_counter() - t0, launches()))
+            (cs, cl, cw, cc), (hs, hl, hw, hc) = out
+            check(sum(cc.values()) == 0, f"13a {arch} {name}: training launched {cc}")
+            add_counts(total, cc)
+            tol = TRAIN_CARD_TOL
+            check(all(abs(a - b) <= tol["rtol"] * abs(b) for a, b in zip(cl, hl)),
+                  f"13a {arch} {name} accum {accum}: losses card {cl} cpu {hl}")
+            check(cl[-1] < cl[0] and hl[-1] < hl[0],
+                  f"13a {arch} {name}: loss did not fall, card {cl} cpu {hl}")
+            ok, worst, share = trees_close(torch, cs["params"], hs["params"], **tol)
+            check(ok, f"13a {arch} {name} accum {accum}: parameters card vs cpu "
+                  f"worst {worst:.3g}, share outside tol {share:.3g}")
+            res[f"{arch} {name} accum {accum}"] = dict(
+                losses_card=[round(x, 6) for x in cl], losses_cpu=[round(x, 6) for x in hl],
+                param_worst_abs=worst, param_share_outside_tol=share,
+                card_s=round(cw, 3), cpu_s=round(hw, 3))
+    return total, res
+
+
+def numel_bytes(tree):
+    ts_ = tree_tensors(tree)
+    return sum(t.numel() for t in ts_), sum(t.numel() * t.element_size() for t in ts_)
+
+
+def phase_train_tinylm(torch, np, dev, tmp: Path):
+    """13b: tinylm trained on the card with the reference's recipe through
+    ``training/loop.train`` into a checkpoint directory; a second run
+    preempted at ``preempt_at`` and resumed from its checkpoint ends where
+    the first ends; the checkpoint served by ``python -m
+    repro_torch.launch.serve``; ``generation_ppl`` of full, GRIFFIN 0.5
+    and magnitude on held-out sequences."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import evaluate
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.runtime.preemption import PreemptionGuard
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.loop import train
+    from repro_torch.training.schedule import warmup_cosine
+
+    cfg = get_config("tinylm")
+    r = TINY_RECIPE
+
+    def run(ckpt_dir, start=0, guard=None, preempt_at=None):
+        loader = ShardedLoader(SyntheticCorpus(vocab=cfg.vocab_size, seed=0),
+                               batch=r["batch"], seq_len=r["seq"], seed=1,
+                               start_step=start)
+
+        def batches():
+            for i, b in enumerate(loader, start + 1):
+                if i == preempt_at:  # step preempt_at - 1 runs, then exits
+                    guard.simulate()
+                yield b
+
+        mgr = CheckpointManager(str(ckpt_dir), interval=100, keep=2)
+        opt = opt_lib.adamw(warmup_cosine(r["peak_lr"], r["warmup"], r["steps"]))
+        lines = []
+        try:
+            out = train(cfg, opt, batches(), r["steps"], ckpt=mgr, guard=guard,
+                        log_every=100, log_fn=lines.append, device=dev)
+        finally:
+            loader.close()
+        return out, lines, mgr
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        full, lines, mgr = run(tmp / "full")
+        wall = time.perf_counter() - t0
+        if mgr.latest_step() != r["steps"]:  # as trained_tiny keeps the last
+            mgr.save(r["steps"], bridge.train_state_to_jax(full.state, cfg), force=True)
+            mgr.wait()
+        check(sum(launches().values()) == 0, f"13b training launched {launches()}")
+        guard = PreemptionGuard(install_handlers=False)
+        first, _, _ = run(tmp / "resumed", guard=guard, preempt_at=r["preempt_at"])
+        check(first.preempted and first.steps_done == r["preempt_at"],
+              f"13b preempted run did {first.steps_done} steps")
+        resumed, resume_lines, _ = run(tmp / "resumed", start=r["preempt_at"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(resumed.steps_done == r["steps"] - r["preempt_at"]
+          and int(resumed.state["step"]) == r["steps"],
+          f"13b resumed run: {resumed.steps_done} steps to {int(resumed.state['step'])}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_tensors(resumed.state["params"]), tree_tensors(full.state["params"])))
+    check(diff <= TINY_RESUME_ATOL, f"13b resumed run ends {diff:.3g} from the clean run")
+    losses = full.losses
+    check(all(np.isfinite(losses)), "13b loss not finite")
+    curve = {s: (round(losses[s], 4), round(ref, 4)) for s, ref in TINY_REF_LOSSES.items()}
+    last = r["steps"] - 1
+    rel = abs(losses[last] - TINY_REF_LOSSES[last]) / TINY_REF_LOSSES[last]
+    check(rel <= TINY_LOSS_RTOL, f"13b step {last} loss {losses[last]:.4f} vs "
+          f"reference {TINY_REF_LOSSES[last]:.4f} (rel {rel:.3g})")
+
+    # the checkpoint, served by the port's launcher in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tinylm",
+         "--ckpt-dir", str(tmp / "full"), "--requests", "4"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"13b launch.serve exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(f"[ckpt] loaded {tmp / 'full'} (step {r['steps']})" in proc.stdout,
+          f"13b launch.serve did not load the checkpoint: {proc.stdout[-2000:]}")
+    served = [ln for ln in proc.stdout.splitlines() if "served" in ln or "ttft" in ln]
+
+    # the card's first numbers from trained weights: printed, not claimed
+    e = TINY_EVAL
+    corpus = SyntheticCorpus(vocab=cfg.vocab_size, seed=0)
+    seqs = torch.from_numpy(np.stack([corpus.sample(e["length"], seed=e["seed"] + 7919 * i)
+                                      for i in range(e["n"])])).to(dev)
+    ppl = {m: evaluate.generation_ppl(full.state["params"], cfg, seqs, e["P"], m, 0.5)
+           for m in e["methods"]}
+    check(all(np.isfinite(v) for v in ppl.values()), f"13b ppl {ppl}")
+    return dict(train_wall_s=round(wall, 2), step_ms_mean=round(wall / r["steps"] * 1e3, 3),
+                loss_by_step_card_vs_reference=curve, loss_rel_diff_last_step=rel,
+                log=lines, preempted_at=r["preempt_at"], resume_log=resume_lines[:1],
+                resumed_max_abs_diff=diff, served=served, serve_s=round(serve_s, 1),
+                generation_ppl=ppl)
+
+
+def phase_train_yi9b(torch, np, dev):
+    """13c: Yi-9B whole (bf16, ``remat`` as its config has it), 8-bit Adam,
+    ``accum_steps=1``: ``abstract_train_state``'s bytes, then
+    ``YI_TRAIN['steps']`` steps on one fixed batch (a backward first, whose
+    gradients are held present and finite), each timed on the host clock,
+    then one more step traced for its device busy time; peak memory and
+    the step's bounds (8 N T bf16 operations with remat's second forward;
+    the optimizer's bytes)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config("yi-9b")
+    check(cfg.remat, "13c yi-9b's config trains with remat")
+    opt = opt_lib.adam8bit(YI_TRAIN["lr"])
+    abstract = ts.abstract_train_state(cfg, opt)
+    n_params, p_bytes = numel_bytes(abstract["params"])
+    _, o_bytes = numel_bytes(abstract["opt"])
+    _, o32_bytes = numel_bytes(ts.abstract_train_state(cfg, opt_lib.adamw(1e-4))["opt"])
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, opt, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    B, S = YI_TRAIN["B"], YI_TRAIN["S"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+
+    reset_launches()
+    _, _, grads = ts.value_and_grad(decoder.loss_fn, state["params"], batch, cfg)
+    read = grads_read(grads, cfg)
+    check(all(g is not None for g in read), "13c a gradient is None")
+    check(bool(torch.stack([torch.isfinite(g).all() for g in read]).all()),
+          "13c a gradient is not finite")
+    del grads, read
+    step = ts.build_train_step(cfg, opt)
+    losses, walls = [], []
+    for _ in range(YI_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counts = launches()
+    check(sum(counts.values()) == 0, f"13c training launched {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"13c losses {losses}: not finite or not falling")
+
+    def traced():  # one more step
+        nonlocal state, m
+        state, m = step(state, batch)
+
+    prof = device_breakdown(fenced_device_events(torch, traced), n=8)
+    busy = prof.pop("busy_ms")
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    T = B * S
+    flops = 8 * n_params * T
+    opt_bytes = n_params * (2 + 2 + 1 + 1 + 2 + 1 + 1)  # p, g, m, v in; p, m, v out
+    compute_ms = flops / FLOP_PER_S["bfloat16"] * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    del state, batch
+    free(torch)
+    return counts, dict(
+        layers=cfg.num_layers, params=n_params, tokens_per_step=T,
+        abstract_params_gb=p_bytes / 1e9, abstract_opt_gb=o_bytes / 1e9,
+        abstract_opt_adamw_gb=o32_bytes / 1e9, state_on_card_gb=state_gb,
+        init_s=round(init_s, 2), losses=[round(x, 5) for x in losses],
+        traced_step_loss=round(float(m["loss"]), 5),
+        step_wall_ms=[round(w * 1e3, 1) for w in walls], step_wall_ms_median=wall_ms,
+        traced_step_busy_ms=busy, busy_share=busy / wall_ms,
+        traced_step_profile=prof, peak_mem_gb=peak,
+        bound_compute_ms=compute_ms, bound_optimizer_bytes_ms=bytes_ms,
+        bound_ms=compute_ms + bytes_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2927,6 +3291,31 @@ def main() -> int:
             print(f"  {k}: {v}")
     print(f"phase 12 total: {time.perf_counter() - t12:.1f} s")
 
+    t13 = t0 = time.perf_counter()
+    train_counts, train_smoke = phase_train_smoke(torch, np, dev)
+    print(f"phase 13a train steps, every smoke arch + tinylm (adamw; tinylm "
+          f"also adam8bit and accum 2), card == CPU: "
+          f"{time.perf_counter() - t0:.1f} s, launches {train_counts}")
+    for k, v in train_smoke.items():
+        print(f"  {k}: {v}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_tiny = phase_train_tinylm(torch, np, dev, Path(tmp))
+    print(f"phase 13b tinylm, the reference's recipe ({TINY_RECIPE['steps']} steps "
+          f"adamw warmup_cosine, batch {TINY_RECIPE['batch']} x {TINY_RECIPE['seq']}), "
+          f"preempted at {TINY_RECIPE['preempt_at']} and resumed, served, "
+          f"generation_ppl ({card}): {time.perf_counter() - t0:.1f} s")
+    for k, v in train_tiny.items():
+        print(f"  {k}: {v}")
+    t0 = time.perf_counter()
+    yi_train_counts, yi_train = phase_train_yi9b(torch, np, dev)
+    print(f"phase 13c yi-9b whole, bf16, remat, adam8bit, {YI_TRAIN['steps']} steps "
+          f"on {YI_TRAIN['B']} x {YI_TRAIN['S']} tokens ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {yi_train_counts}")
+    for k, v in yi_train.items():
+        print(f"  {k}: {v}")
+    print(f"phase 13 total: {time.perf_counter() - t13:.1f} s")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -3007,7 +3396,8 @@ def main() -> int:
              "expert_stat_engine_shape": stat_engine,
              "families_smoke": fam_smoke, "recurrent_smoke": rec_smoke,
              "families": family, "frontends_smoke": fe_smoke,
-             "frontends": frontends,
+             "frontends": frontends, "train_smoke": train_smoke,
+             "train_tinylm": train_tiny, "train_yi9b": yi_train,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

@@ -11,7 +11,8 @@ torch tensors on a device, bit for bit — no weights are downloaded or
 re-drawn (leaves that are torch tensors already, such as the bf16
 leaves of a restored checkpoint, are moved as they are).
 ``params_to_jax`` goes the other way, so the port can write checkpoints
-in the reference's layout.  ``device=None`` means the card, as for every
+in the reference's layout; ``train_state_from_jax`` / ``train_state_to_jax``
+carry whole train states (parameters, optimizer state, step) both ways.  ``device=None`` means the card, as for every
 entry point of the port; the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
@@ -83,30 +84,60 @@ def tree_from_jax(tree: Dict, cfg, device=None) -> Dict[int, Any]:
             for li, leaf in per_layer(tree, cfg).items()}
 
 
+def ref_view(params: Dict, cfg) -> Dict:
+    """The port's per-layer tree (parameters, gradients, meta tensors) in
+    the reference's layout without a copy: a scan-stacked leaf is the
+    list of its layers' tensors, in layer order (the optimizers take such
+    lists as stacked leaves)."""
+    def zip_layers(leaves):
+        if isinstance(leaves[0], dict):
+            return {k: zip_layers([lf[k] for lf in leaves]) for k in leaves[0]}
+        return list(leaves)
+
+    out: Dict[str, Any] = {k: params[k] for k in
+                           ("embed", "final_norm", "head", "frontend", "mtp")
+                           if k in params}
+    groups: Dict[tuple, list] = {}
+    for li, (path, _, _) in enumerate(decoder.layer_paths(cfg)):
+        groups.setdefault(tuple(path.split("/")), []).append(
+            params["layers"][li])
+    for (seg, name), layers in groups.items():
+        out.setdefault(seg, {})[name] = zip_layers(layers) \
+            if name.startswith("pos") else layers[0]
+    return out
+
+
+def _host(tree: Any) -> Any:
+    """Tensors -> detached CPU tensors; a list (stacked leaf) is stacked;
+    meta tensors stay on the meta device."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return torch.stack([_host(t) for t in tree])
+    return tree.detach() if tree.is_meta else tree.detach().cpu()
+
+
 def params_to_jax(params: Dict, cfg) -> Dict:
     """The port's parameters -> the reference's layout (scan leaves
     stacked on a leading axis), as CPU tensors: the inverse of
     ``params_from_jax``, for writing checkpoints either package reads."""
-    def cpu(tree):
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        return tree.detach().cpu()
+    return _host(ref_view(params, cfg))
 
-    def stack(leaves):
-        if isinstance(leaves[0], dict):
-            return {k: stack([lf[k] for lf in leaves]) for k in leaves[0]}
-        return torch.stack(leaves)
 
-    out: Dict[str, Any] = {"embed": cpu(params["embed"]),
-                           "final_norm": cpu(params["final_norm"])}
-    for k in ("head", "frontend", "mtp"):
-        if k in params:
-            out[k] = cpu(params[k])
-    groups: Dict[tuple, list] = {}
-    for li, (path, _, _) in enumerate(decoder.layer_paths(cfg)):
-        groups.setdefault(tuple(path.split("/")), []).append(
-            cpu(params["layers"][li]))
-    for (seg, name), leaves in groups.items():
-        out.setdefault(seg, {})[name] = stack(leaves) \
-            if name.startswith("pos") else leaves[0]
-    return out
+def train_state_from_jax(state: Dict, cfg, device=None) -> Dict:
+    """A reference train state (``{params, opt, step}``, numpy leaves, as
+    ``repro.checkpoint`` restores it) -> the port's on ``device``.  The
+    port keeps the optimizer state in the reference's layout
+    (``training/optimizer.py``), so ``opt`` and ``step`` cross leaf for
+    leaf; the parameters are split per layer."""
+    device = backend.resolve_device(device)
+    return {"params": params_from_jax(state["params"], cfg, device),
+            "opt": _to_torch(state["opt"], device),
+            "step": _to_torch(state["step"], device)}
+
+
+def train_state_to_jax(state: Dict, cfg) -> Dict:
+    """The port's train state -> the reference's layout as CPU tensors
+    (what ``CheckpointManager`` writes and ``repro.checkpoint`` reads)."""
+    return {"params": params_to_jax(state["params"], cfg),
+            "opt": _host(state["opt"]), "step": _host(state["step"])}

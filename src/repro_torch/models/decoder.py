@@ -2,8 +2,8 @@
 attention, Mamba-2 (SSD), the RG-LRU + local-attention hybrid, the
 bidirectional encoder and the VLM backbone, whose modality frontends are
 stubs fed precomputed ``prefix_emb`` (port of ``repro/models/decoder.py``:
-the contiguous prefill/decode path and the paged serving path, which
-covers the dense GQA families without a frontend only).
+the contiguous prefill/decode path, the paged serving path, which covers
+the dense GQA families without a frontend only, and the training loss).
 
 The reference stacks homogeneous runs of layers on a leading axis and
 scans them (``seg{i}/pos{j}`` leaves).  PyTorch runs eagerly, so the
@@ -17,8 +17,10 @@ Public API:
     build_plan(cfg)                          -> [Segment]
     model_specs(cfg)                         -> ParamSpec tree
     init_params(cfg, seed, device)           -> params
-    forward(params, cfg, tokens, ...)        -> logits, Aux
-    hidden_forward(params, cfg, tokens, ...) -> hidden states, Aux
+    abstract_params(cfg)                     -> params on the meta device
+    forward(params, cfg, tokens, ...)        -> logits, Aux (no autograd)
+    hidden_forward(params, cfg, tokens, ...) -> hidden states, Aux (autograd)
+    loss_fn(params, batch, cfg)              -> loss, metrics (autograd)
     cache_specs(cfg, batch, max_len)         -> ParamSpec list (decode cache)
     init_cache(cfg, batch, max_len, device)  -> cache
     fill_cache_from_prefill(cfg, cache, kv)  -> cache
@@ -40,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
@@ -180,6 +183,12 @@ def model_specs(cfg) -> Dict:
     return specs
 
 
+def abstract_params(cfg) -> Dict:
+    """The parameters' shapes and dtypes as ``meta`` tensors (no
+    allocation)."""
+    return param_lib.abstract_params(model_specs(cfg), cfg.dtype)
+
+
 def init_params(cfg, seed: int = 0, device=None) -> Dict:
     """Random parameters from ``seed`` on ``device`` (default: the card;
     raises without one unless ``device="cpu"``)."""
@@ -283,7 +292,32 @@ def forward(
     adds the activations.  ``pruned``: GRIFFIN-compacted FF blocks
     ``{li: ffn}`` — the *generation-phase* model over a full
     (teacher-forced) sequence, as the paper's evaluation protocol runs
-    it.  The reference's ``remat`` is a training option (not ported)."""
+    it.  Serving and evaluation call this entry point, which builds no
+    autograd graph; training goes through ``hidden_forward``."""
+    return _forward(params, cfg, tokens, prefix_emb, collect_stats=collect_stats,
+                    want_kv=want_kv, q_chunk=q_chunk, logits_mode=logits_mode,
+                    pruned=pruned, want_z=want_z)
+
+
+def _forward(
+    params: Dict,
+    cfg,
+    tokens: Optional[torch.Tensor] = None,
+    prefix_emb: Optional[torch.Tensor] = None,
+    *,
+    collect_stats: bool = False,
+    want_kv: bool = False,
+    q_chunk: int = 1024,
+    logits_mode: str = "all",
+    pruned: Optional[Dict[int, Dict]] = None,
+    want_z: bool = False,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, Aux]:
+    """``forward``'s body, through which autograd passes.  ``remat``
+    (training only: no statistics, cache material or pruned FF)
+    recomputes each layer in the backward pass from its input
+    (``torch.utils.checkpoint``: the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``)."""
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all|last|none, got {logits_mode!r}")
     parts = []
@@ -304,10 +338,15 @@ def forward(
     stats_tree: Dict[int, Dict] = {}
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, desc in enumerate(layer_descs(cfg)):
-        x, kv, st, aux = _apply_layer(
-            params["layers"][li], desc, x, positions, cfg, collect_stats,
-            q_chunk, (pruned or {}).get(li), want_z, rope,
-        )
+        if remat:
+            x, kv, st, aux = torch.utils.checkpoint.checkpoint(
+                _apply_layer, params["layers"][li], desc, x, positions, cfg,
+                False, q_chunk, None, False, rope, use_reentrant=False)
+        else:
+            x, kv, st, aux = _apply_layer(
+                params["layers"][li], desc, x, positions, cfg, collect_stats,
+                q_chunk, (pruned or {}).get(li), want_z, rope,
+            )
         if aux is not None:
             moe_aux = moe_aux + aux
         if want_kv:
@@ -328,10 +367,112 @@ def forward(
 
 
 def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
-                   q_chunk: int = 1024) -> Tuple[torch.Tensor, Aux]:
-    """Final hidden states (pre-head)."""
-    return forward(params, cfg, tokens, prefix_emb, q_chunk=q_chunk,
-                   logits_mode="none")
+                   q_chunk: int = 1024, remat: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, Aux]:
+    """Final hidden states (pre-head), with autograd: the training
+    forward.  ``remat`` defaults to ``cfg.remat``."""
+    return _forward(params, cfg, tokens, prefix_emb, q_chunk=q_chunk,
+                    logits_mode="none",
+                    remat=cfg.remat if remat is None else remat)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy: never materializes [B,S,V] fp32 logits)
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(x, params, targets, mask, cfg):
+    logits = lm_logits(params.get("head", {}), params["embed"], x, cfg)  # fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return torch.sum(nll), torch.sum(mask)
+
+
+def chunked_ce(x: torch.Tensor, params: Dict, targets: torch.Tensor,
+               mask: torch.Tensor, cfg, chunk: int = 512
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D]; targets/mask: [B,S]. Returns (sum nll, count), summed
+    chunk by chunk in order (the reference's ``scan``)."""
+    B, S, D = x.shape
+    if S <= chunk:
+        return _ce_chunk(x, params, targets, mask, cfg)
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        S += pad
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        n, k = _ce_chunk(x[:, sl], params, targets[:, sl], mask[:, sl], cfg)
+        nll, cnt = nll + n, cnt + k
+    return nll, cnt
+
+
+def _ones(t: torch.Tensor) -> torch.Tensor:
+    return torch.ones(t.shape, dtype=torch.float32, device=t.device)
+
+
+def loss_fn(params: Dict, batch: Dict, cfg) -> Tuple[torch.Tensor, Dict]:
+    """batch: {tokens [B,S], (prefix_emb), (targets), (mask)} of tensors.
+
+    For decoder LMs, targets default to next-token shift of ``tokens``;
+    encoders require explicit framewise targets.  Returns (loss, metrics)
+    with autograd through every parameter the loss reads."""
+    prefix = batch.get("prefix_emb")
+    if cfg.family == "encoder":
+        x, aux = hidden_forward(params, cfg, prefix_emb=prefix)
+        targets = batch["targets"]
+        mask = batch.get("mask", _ones(targets))
+        nll, cnt = chunked_ce(x, params, targets, mask, cfg)
+        loss = nll / torch.clamp_min(cnt, 1.0)
+        return loss, {"ce": loss}
+
+    tokens = batch["tokens"]
+    x, aux = hidden_forward(params, cfg, tokens=tokens, prefix_emb=prefix)
+    P = 0 if prefix is None else prefix.shape[1]
+    x_text = x[:, P:]
+    targets = batch.get("targets")
+    if targets is None:
+        targets = tokens[:, 1:]
+        x_text = x_text[:, :-1]
+        mask = batch.get("mask", _ones(targets))
+        mask = mask[:, : targets.shape[1]]
+    else:
+        mask = batch.get("mask", _ones(targets))
+    nll, cnt = chunked_ce(x_text, params, targets, mask, cfg)
+    ce = nll / torch.clamp_min(cnt, 1.0)
+    loss = ce + cfg.router_aux_coef * aux.moe_aux
+
+    metrics = {"ce": ce, "moe_aux": aux.moe_aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_loss = _mtp_loss(params, x, tokens, cfg)
+        loss = loss + 0.1 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params: Dict, h: torch.Tensor, tokens: torch.Tensor, cfg
+              ) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
+    mp = params["mtp"]
+    B, S, D = h.shape
+    # combine hidden state at t with embedding of token t+1
+    h_in = apply_norm(mp["norm_h"], h[:, : S - 2], cfg)
+    e_in = apply_norm(mp["norm_e"], embed_lookup(
+        params["embed"], tokens[:, 1 : S - 1].long(), cfg), cfg)
+    x = torch.cat([h_in, e_in], -1) @ mp["proj"]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :].expand(
+        x.shape[:2])
+    desc = layer_descs(cfg)[-1]
+    x, _, _, _ = _apply_layer(mp["layer"], desc, x, positions, cfg, False, 1024)
+    x = apply_norm(params["final_norm"], x, cfg)
+    targets = tokens[:, 2:]
+    nll, cnt = chunked_ce(x, params, targets, _ones(targets), cfg)
+    return nll / torch.clamp_min(cnt, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -121,6 +121,16 @@ def init_params(spec_tree: Any, seed: int, dtype, device) -> Any:
     return walk(spec_tree, ())
 
 
+def abstract_params(spec_tree: Any, dtype) -> Any:
+    """The tree as ``meta`` tensors: shapes and dtypes, no allocation
+    (the reference's ``ShapeDtypeStruct`` tree)."""
+    dt = torch_dtype(dtype)
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype) if s.dtype else dt,
+                              device="meta"),
+        spec_tree)
+
+
 def _path_hash(s: str) -> int:
     h = 0
     for ch in s:

@@ -863,3 +863,72 @@ def test_recurrent_engine_on_card_equals_cpu(dev, arch):
             assert expert_stat.launches - before == want
         assert torch.equal(out["cuda"], out["cpu"])
         assert len(torch.unique(out["cpu"])) > 4
+
+
+def _train_three_steps(cfg, name, d, batch):
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    opt = opt_lib.get_optimizer(name, 3e-3)
+    state = _to(ts.init_train_state(cfg, opt, 0, "cpu"), d)
+    step = ts.build_train_step(cfg, opt)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, _to(batch, d))
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam8bit"])
+def test_train_step_card_matches_cpu(dev, name):
+    """Three tinylm train steps (init drawn on the CPU, one batch of 4 x 65
+    tokens, TF32 off): losses within rtol 1e-4, and every parameter within
+    rtol 1e-4 / atol 1e-5 but for at most 0.5% of a leaf's elements, each
+    within the learning rate (Adam moves an element whose gradient is a
+    few ulps from 0 by another share of lr on each device); no kernel
+    launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import expert_stat, glu_ffn, griffin_ffn, paged_attn, \
+        paged_gather
+
+    mods = (paged_attn, expert_stat, paged_gather, griffin_ffn, glu_ffn)
+    cfg = get_config("tinylm")
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, 65)).astype(np.int32))}
+    before = [m.launches for m in mods]
+    card, card_losses = _train_three_steps(cfg, name, dev, batch)
+    assert [m.launches for m in mods] == before
+    host, host_losses = _train_three_steps(cfg, name, torch.device("cpu"), batch)
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-4)
+    assert card_losses[-1] < card_losses[0]
+    for a, b in zip(_leaves(card["params"]), _leaves(host["params"])):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 3e-3
+        assert float((d > 1e-5 + 1e-4 * b.abs()).float().mean()) <= 5e-3
+
+
+def test_remat_on_the_card_gives_the_same_gradients(dev):
+    """tinylm's loss and gradients with remat on and off, on the card:
+    the loss equal, every gradient within rtol 1e-5 / atol 1e-8 (the
+    embedding's backward sums rows with atomics, in any order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config("tinylm")
+    params = _to(decoder.init_params(cfg, 0, "cpu"), dev)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 97)).astype(np.int32)).to(dev)}
+    off = ts.value_and_grad(decoder.loss_fn, params, batch, cfg)
+    on = ts.value_and_grad(decoder.loss_fn, params, batch, cfg.replace(remat=True))
+    assert torch.equal(off[0], on[0])
+    for a, b in zip(_leaves(off[2]), _leaves(on[2])):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-8)
