@@ -184,6 +184,27 @@ Phases (any failure raises and the script exits non-zero):
    falling loss, the step's wall, a fifth step's device busy time
    (``torch.profiler``), peak memory, and its bounds: 8 N T bf16
    operations (remat runs the forward twice) and the optimizer's bytes.
+14. tensor-parallel paged serving (``distributed/tp.py``), one process per
+   rank (``launch.mesh.run_ranks``), after phase 13's models are freed:
+   (a) ``expert_stat_row_sq`` and ``expert_stat_from_norm`` (the
+   statistic's two steps around the row norms' all-reduce) against their
+   plain versions at Yi-9B TP=2 shapes (``TP_STAT_SHAPES``), and the
+   composed path against the single launch at full F; ``paged_attn`` at
+   the ranks' local head counts (16 Q / 2 KV, and 1 KV head); (b)
+   tinylm-tp in fp32 at TP=2 and TP=4, all ranks on the card over gloo,
+   over the reference's sharded-serving trace: streams equal on every
+   rank, to one rank on the card and to the CPU (all with
+   ``GriffinConfig(tp_shards=N)``), per-rank pool bytes total / N; (c)
+   one NCCL rank equals the plain server; (d) Yi-9B whole, bf16, TP=2
+   over gloo on the card through phase 4's requests beside one rank with
+   the same selection math: streams equal across ranks, the first
+   (dense) prefill chunk's logits and gathered statistics within
+   ``TP_LOGIT_TOL`` / ``TP_STAT_TOL``; then, the ranks selecting from
+   the one rank's statistic, the first decode step's logits within
+   ``TP_LOGIT_TOL`` and the streams equal up to a token whose one-rank
+   top-2 margin is within twice that step's gap; per-rank parameter, pool
+   and compacted-FF bytes, the match rate and decode tick walls beside
+   phase 4's.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -195,7 +216,10 @@ the verify call's time and bound, and ``launches_decode`` /
 ``engine_*``, its numbers at phase 9b's prompt shape, ``moe_engine``,
 its numbers at phase 10's widths, ``recurrent_engine``, at phase 11's,
 and ``frontend_engine``, at phase 12's shapes; ``paged_attn`` adds
-``gemma3_*`` and ``cmdr_*``, its phase 12 shapes); the last line is
+``gemma3_*`` and ``cmdr_*``, its phase 12 shapes, and ``yi9b_tp2_*`` /
+``kv1_*``, phase 14's local head counts; ``expert_stat_row_sq`` and
+``expert_stat_from_norm`` list all of 14a's shapes under ``cases``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2980,6 +3004,600 @@ def phase_train_yi9b(torch, np, dev):
         bound_ms=compute_ms + bytes_ms)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-parallel paged serving (distributed/tp.py) — one process
+# per rank, all ranks on the one card over gloo (NCCL refuses two ranks on
+# one card), and one NCCL rank
+# ---------------------------------------------------------------------------
+
+#: ``expert_stat``'s two steps at Yi-9B TP=2 shapes (F = 11008 / 2): a
+#: prefill chunk in bf16 and the engine's whole prompt in bf16 and fp32
+TP_STAT_SHAPES = ((1, 32, 5504, "bfloat16"), (2, 512, 5504, "bfloat16"),
+                  (2, 512, 5504, "float32"))
+
+#: the two steps' launch counters (module ``expert_stat``), apart from
+#: ``COUNTERS`` so phases 2-13 report what they did before
+TP_COUNTERS = {"expert_stat_row_sq": ("expert_stat", "row_sq_launches"),
+               "expert_stat_from_norm": ("expert_stat", "from_norm_launches")}
+
+#: the reference's sharded-serving trace (tests/distributed_progs/
+#: prog_sharded_serving.py): 4 requests, 3 slots, a pool tight enough to
+#: preempt, two prompts sharing a 16-token prefix
+TP_TINY_SERVER = dict(page_size=8, num_pages=10, n_slots=3, prefill_chunk=16,
+                      max_len=64)
+TP_TINY_NEW = 10
+
+#: phase 14d's tolerances, TP=2 against one rank with the same selection
+#: math (``GriffinConfig(tp_shards=2)``), bf16.  The first prefill chunk
+#: is dense, so it is compared before a selection can differ: its logits
+#: within ``TP_LOGIT_TOL`` of the largest |logit| of the compared rows,
+#: and each gathered statistic leaf within ``TP_STAT_TOL`` of its largest
+#: value.  The ranks then select from the single rank's statistic, so the
+#: first decode step runs the same experts: its logits within
+#: ``TP_LOGIT_TOL`` too, and the streams equal up to the first token whose
+#: single-rank top-2 margin is within twice that gap (each of the two
+#: logits may move by it).  The TP step adds bf16 roundings of the
+#: all-reduced partial sums (2 a layer) to a 48-layer random model; a
+#: missing or doubled all-reduce moves every sublayer's output by its own
+#: size.  Set from readings on an H100 (``PERF.md`` §6): TP=2 3.7%
+#: (prefill) and 3.2% (decode) of max |logit|, 7.2% for the statistics;
+#: a missing or doubled all-reduce 104-122% and 150-168%, which the phase
+#: checks each run (``yi_tp_mutants``).
+TP_LOGIT_TOL = 0.10
+TP_STAT_TOL = 0.20
+
+
+def tp_counts(counts):
+    """``run_ranks``' summed ``module.attr`` counters by kernel name."""
+    names = dict(COUNTERS, **TP_COUNTERS)
+    return {k: counts.get(f"{mod}.{attr}", 0) for k, (mod, attr) in names.items()}
+
+
+def phase_tp_kernels(torch, dev, flush):
+    """14a: ``expert_stat_row_sq`` and ``expert_stat_from_norm`` against
+    their plain versions at ``TP_STAT_SHAPES`` (rtol=atol=1e-5, each
+    deterministic), timed beside their bounds and plain versions; then
+    the composed path (F cut in 2 blocks, both steps, row norms added on
+    one rank) against the single launch at full F.  ``paged_attn`` at
+    the local head counts: Yi-9B TP=2 (16 Q / 2 KV heads) decode and
+    prefill, and 1 KV head (2 Q, hd 32: tinylm-tp's TP=4 split at a head
+    dim the kernel takes)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    out = {"expert_stat_row_sq": [], "expert_stat_from_norm": []}
+    lines = []
+    for B, S, F, dt in TP_STAT_SHAPES:
+        dtype = getattr(torch, dt)
+        z = torch.randn(B, S, 2 * F, generator=gen, device=dev).to(dtype)
+        z[:, -3:] = 0  # padded chunk rows
+        blocks = [z[..., :F].contiguous(), z[..., F:].contiguous()]
+        zb = blocks[0]
+        row_k, row_p = ops.griffin_row_sq(zb), ref.expert_stat_row_sq_ref(zb)
+        s_k = ops.griffin_stat_from_norm(zb, row_p)
+        s_p = ref.expert_stat_from_norm_ref(zb, row_p)
+        torch.cuda.synchronize()
+        what = f"expert_stat two-step [{B},{S},{F}] {dt}"
+        err_r = (row_k - row_p).abs().max().item()
+        err_s = (s_k - s_p).abs().max().item()
+        check(torch.allclose(row_k, row_p, rtol=1e-5, atol=1e-5),
+              f"{what}: row_sq max err {err_r}")
+        check(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-5),
+              f"{what}: statistic max err {err_s}")
+        check(torch.equal(row_k, ops.griffin_row_sq(zb))
+              and torch.equal(s_k, ops.griffin_stat_from_norm(zb, row_p)),
+              f"{what}: not deterministic")
+        # composed: both ranks' row norms added, each block's statistic
+        rows = ops.griffin_row_sq(blocks[0]) + ops.griffin_row_sq(blocks[1])
+        comp = torch.cat([ops.griffin_stat_from_norm(b, rows) for b in blocks], -1)
+        single = ops.griffin_stat(z)
+        torch.cuda.synchronize()
+        err_c = (comp - single).abs().max().item()
+        check(torch.allclose(comp, single, rtol=1e-5, atol=1e-5),
+              f"{what}: composed vs single launch max err {err_c}")
+        n_el, isz = zb.numel(), zb.element_size()
+        at = f"z [{B},{S},{F}] {dt}"
+        for name, fn, plain, err, byts, flops in (
+                ("expert_stat_row_sq", lambda: ops.griffin_row_sq(zb),
+                 lambda: ref.expert_stat_row_sq_ref(zb), err_r,
+                 n_el * isz + B * S * 4, 2 * n_el),
+                ("expert_stat_from_norm", lambda: ops.griffin_stat_from_norm(zb, row_p),
+                 lambda: ref.expert_stat_from_norm_ref(zb, row_p), err_s,
+                 n_el * isz + B * S * 4 + B * F * 4, 3 * n_el)):
+            ms = time_ms(torch, fn, flush=flush)
+            plain_ms = time_ms(torch, plain, flush=flush)
+            b_ms, b_by = bound(byts, flops)
+            out[name].append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None,
+                                  max_abs_err=err, composed_err=err_c, at=at))
+            lines.append(f"{name} {at}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                         f"  bound {b_ms:.5f} ms ({b_by})  max_abs_err {err:.3g}"
+                         f"  (composed vs single launch at F={2 * F}: {err_c:.3g})")
+    # paged_attn at the ranks' local head counts
+    local = {}
+    for label, B, S, lens, shape in (
+            ("yi9b_tp2_decode", 2, 1, [583, 431], dict(H=16, KV=2, hd=128, page=16, W=40)),
+            ("yi9b_tp2_prefill", 1, 32, [448], dict(H=16, KV=2, hd=128, page=16, W=40)),
+            ("kv1_decode", 3, 1, [43, 28, 9], dict(H=2, KV=1, hd=32, page=8, W=8)),
+            ("kv1_prefill", 1, 16, [32], dict(H=2, KV=1, hd=32, page=8, W=8))):
+        pool_dtype = torch.bfloat16 if label.startswith("yi") else torch.float32
+        args = paged_attn_case(torch, gen, B, S, lens, pool_dtype, dev, **shape)
+        kern = [a.clone() for a in args]
+        plain = [a.clone() for a in args]
+        ctx_k, pk_k, pv_k = ops.paged_attention(*kern)
+        ctx_r, pk_r, pv_r = ref.paged_attn_ref(*plain)
+        torch.cuda.synchronize()
+        err = (ctx_k - ctx_r).abs().max().item()
+        check(torch.allclose(ctx_k, ctx_r, rtol=1e-5, atol=1e-5),
+              f"paged_attn {label}: ctx max err {err}")
+        check(torch.equal(pk_k[:-1], pk_r[:-1]) and torch.equal(pv_k[:-1], pv_r[:-1]),
+              f"paged_attn {label}: pools differ")
+        ms = time_ms(torch, lambda: ops.paged_attention(*kern), flush=flush)
+        plain_ms = time_ms(torch, lambda: ref.paged_attn_ref(*plain), flush=flush)
+        byts, flops = paged_attn_work(args, lens)
+        b_ms, b_by = bound(byts, flops, str(pool_dtype).split(".")[-1])
+        at = (f"B={B} S={S} ctx={lens} H={shape['H']} KV={shape['KV']} "
+              f"hd={shape['hd']} {str(pool_dtype).split('.')[-1]} pool")
+        local[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=err, at=at)
+        lines.append(f"paged_attn {label} {at}: kernel {ms:.4f} ms  plain "
+                     f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+                     f"max_abs_err {err:.3g}")
+    return out, local, lines
+
+
+def tp_tiny_setup(np, head_dim=None):
+    """tinylm-tp (``head_dim`` overridden if given), its weights (one
+    draw on the CPU, matrices scaled by 2 so greedy streams vary) and the
+    reference's sharded-serving trace."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = get_config("tinylm-tp")
+    if head_dim is not None:
+        cfg = cfg.replace(head_dim=head_dim)
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, size=16).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, size=n)
+                               .astype(np.int32)]) for n in (8, 10)]
+    prompts += [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                for n in (24, 20)]
+    host = decoder.init_params(cfg, seed=0, device="cpu")
+    scale_matrices(host, 2.0)
+    return cfg, host, [(p, TP_TINY_NEW) for p in prompts]
+
+
+def tp_cases_rank(mesh, cases):
+    """One rank of phase 14b/14c (runs in a spawned process): each case
+    ``(cfg, host params, gcfg, prompts, server kwargs)`` through
+    ``launch.serve.serve_requests`` with TF32 off."""
+    import torch
+
+    from repro_torch.launch.serve import serve_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for cfg, host, gcfg, prompts, kw in cases:
+        res = serve_requests(mesh, cfg, host, gcfg, prompts, kw)
+        out.append(dict(streams=res["streams"], pool_bytes=res["pool_bytes"],
+                        param_bytes=res["param_bytes"],
+                        preemptions=res["metrics"]["preemptions"],
+                        spec_rounds=res["metrics"].get("spec_rounds", 0.0),
+                        prefix_hits=res["prefix_hits"]))
+    return out
+
+
+def single_rank(cfg, host, gcfg, prompts, kw, device):
+    """The same requests through one ordinary ``PagedServer``: (streams,
+    pool bytes)."""
+    from repro_torch.distributed.tp import pool_shard_bytes
+    from repro_torch.serving.server import PagedServer
+
+    srv = PagedServer(cfg, to_device(host, device), gcfg, device=device, **kw)
+    out = serve(srv, prompts)
+    return out, pool_shard_bytes(srv.pools)
+
+
+def phase_tp_tinylm(torch, np, dev, nccl: str = "nccl"):
+    """14b: tinylm-tp in fp32 at TP=2 and TP=4, all ranks on the card over
+    gloo: ``spec_k`` 0 and 4 with fp32 and int8 pools on the gather
+    backend (tinylm-tp's head_dim 24 is no power of two, which the fused
+    kernel refuses), and fused fp32/int8 on the same model at head_dim 32
+    (TP=4: one KV head a rank).  Streams equal on every rank, equal to a
+    single-rank card server and to the CPU (both with the same
+    ``GriffinConfig(tp_shards=N)``); per-rank pool bytes total / N.
+    14c: one NCCL rank (world size 1) equals the plain server.  Returns
+    the TP runs' launches by path and the results."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg, host, prompts = tp_tiny_setup(np)
+    cfg32, host32, prompts32 = tp_tiny_setup(np, head_dim=32)
+    res, paths = {}, {}
+    for n in (2, 4):
+        gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=n)
+        cases, names = [], []
+        for spec_k in (0, 4):
+            for kvd in ("fp32", "int8"):
+                cases.append((cfg, host, gcfg, prompts,
+                              dict(TP_TINY_SERVER, spec_k=spec_k, kv_dtype=kvd,
+                                   kernel_backend="gather")))
+                names.append(f"gather spec_k={spec_k} {kvd}")
+        for kvd in ("fp32", "int8"):
+            cases.append((cfg32, host32, gcfg, prompts32,
+                          dict(TP_TINY_SERVER, kv_dtype=kvd, kernel_backend="fused")))
+            names.append(f"fused hd32 {kvd}")
+        t0 = time.perf_counter()
+        ranks, counts = run_ranks(tp_cases_rank, n, backend="gloo",
+                                  device=dev.type, args=(cases,), timeout_s=300)
+        wall = time.perf_counter() - t0
+        counts = tp_counts(counts)
+        check(counts["expert_stat_row_sq"] > 0 and counts["expert_stat_from_norm"] > 0
+              and counts["expert_stat"] == 0 and counts["paged_gather"] > 0
+              and counts["paged_attn"] > 0 and counts["paged_attn_quant"] > 0,
+              f"14b TP={n} launches {counts}")
+        paths[f"tp{n}_tinylm"] = counts
+        for i, (name, (c, h, g, p, kw)) in enumerate(zip(names, cases)):
+            what = f"14b tinylm-tp TP={n} {name}"
+            streams = [r[i]["streams"] for r in ranks]
+            check(all(s == streams[0] for s in streams), f"{what}: ranks differ {streams}")
+            card, total = single_rank(c, h, g, p, kw, dev)
+            cpu, _ = single_rank(c, h, g, p, dict(kw, kernel_backend="gather"), "cpu")
+            check(streams[0] == card, f"{what}: TP {streams[0]} != one rank {card}")
+            check(card == cpu, f"{what}: card {card} != CPU {cpu}")
+            check(len({t for s in card.values() for t in s}) > 4,
+                  f"{what}: degenerate streams {card}")
+            check(all(r[i]["pool_bytes"] * n == total for r in ranks),
+                  f"{what}: pool bytes {[r[i]['pool_bytes'] for r in ranks]} "
+                  f"x {n} != {total}")
+            r0 = ranks[0][i]
+            res[f"TP={n} {name}"] = dict(
+                rid0=streams[0][0], pool_bytes_per_rank=r0["pool_bytes"],
+                pool_bytes_one_rank=total, preemptions=r0["preemptions"],
+                spec_rounds=r0["spec_rounds"], prefix_hits=r0["prefix_hits"])
+        res[f"TP={n} wall_s"] = wall
+    # 14c: NCCL at world size 1 == the plain server (tp_shards=1)
+    gcfg = GriffinConfig(sparsity=0.5)
+    kw = dict(TP_TINY_SERVER, kernel_backend="gather")
+    ranks, counts = run_ranks(tp_cases_rank, 1, backend=nccl, device=dev.type,
+                              args=([(cfg, host, gcfg, prompts, kw)],), timeout_s=300)
+    plain, _ = single_rank(cfg, host, gcfg, prompts, kw, dev)
+    check(ranks[0][0]["streams"] == plain,
+          f"14c NCCL world 1: {ranks[0][0]['streams']} != plain {plain}")
+    paths["tp1_nccl_tinylm"] = tp_counts(counts)
+    res["nccl world 1"] = dict(rid0=plain[0], equal=True)
+    return paths, res
+
+
+def capture_first_decode(torch, srv):
+    """Wrap ``srv._step_model``: the inputs and logits of its first
+    one-token step (the first decode tick) go into the returned dict, as
+    numpy (tokens, positions, mask, fp32 logits)."""
+    first = {}
+    step_model = srv._step_model
+
+    def step(bt, toks, pos, mask, pruned, collect=False):
+        out = step_model(bt, toks, pos, mask, pruned, collect)
+        if not first and toks.shape[1] == 1 and not collect:
+            first.update(toks=toks.copy(), pos=pos.copy(), mask=mask.copy(),
+                         logits=out[0][:, 0].float().cpu().numpy())
+        return out
+
+    srv._step_model = step
+    return first
+
+
+def drain_timed(torch, srv):
+    """Drain ``srv`` tick by tick up to a ``synchronize``; returns the
+    wall time, the decode-only ticks' walls (one-token decode, no prefill
+    chunk, classified by the attention launches of the tick) and the
+    bytes of the first compacted request's FF copy."""
+    ticks, compacted = [], None
+    on_card = srv.device.type == "cuda"  # a CPU rehearsal has no card
+    t0 = time.perf_counter()
+    while True:
+        before = launches()
+        t = time.perf_counter()
+        more = srv.step()
+        if on_card:
+            torch.cuda.synchronize()
+        w = time.perf_counter() - t
+        after = launches()
+        k = attn_kinds({n: after[n] - before[n] for n in after})
+        if k["decode"] and not k["prefill"] and not k["verify"]:
+            ticks.append(w)
+        if compacted is None and srv._compacted:
+            from repro_torch.distributed.tp import tree_bytes
+
+            compacted = tree_bytes(next(iter(srv._compacted.values())).pruned_host)
+        if not more:
+            break
+    return time.perf_counter() - t0, ticks, compacted
+
+
+def tree_np(tree):
+    """A ``{li: {leaf: tensor}}`` statistics tree as fp32 numpy."""
+    return {li: {k: v.float().cpu().numpy() for k, v in st.items()}
+            for li, st in tree.items()}
+
+
+def capture_first_prefill(torch, srv):
+    """Wrap ``srv._step_model``: the inputs, logits (fp32, the masked
+    rows) and gathered statistics of its first collecting step (the first
+    prefill chunk, dense) go into the returned dict as numpy."""
+    first = {}
+    step_model = srv._step_model
+
+    def step(bt, toks, pos, mask, pruned, collect=False):
+        out = step_model(bt, toks, pos, mask, pruned, collect)
+        if not first and collect:
+            first.update(bt=bt.copy(), toks=toks.copy(), pos=pos.copy(),
+                         mask=mask.copy(), logits=out[0][torch.as_tensor(
+                             mask, device=out[0].device)].float().cpu().numpy(),
+                         stats=tree_np(out[2]))
+        return out
+
+    srv._step_model = step
+    return first
+
+
+def selection_stats(torch, srv, given=None):
+    """Wrap ``srv.sched.finish_prefill_chunk``, which runs just before a
+    request's selection: with ``given`` None, record each request's
+    accumulated statistic (rid -> numpy tree, returned); else replace it
+    by ``given[rid]``, so that the server selects what another one did."""
+    got = {}
+    finish = srv.sched.finish_prefill_chunk
+
+    def fin(work, first_token):
+        req = work.req
+        if work.is_last and not req.compacted and req.s_sq_acc is not None:
+            if given is None:
+                got[req.rid] = tree_np(req.s_sq_acc)
+            else:
+                req.s_sq_acc = {li: {k: torch.as_tensor(
+                    given[req.rid][li][k], device=v.device).to(v.dtype)
+                    for k, v in st.items()} for li, st in req.s_sq_acc.items()}
+                got[req.rid] = True
+        return finish(work, first_token)
+
+    srv.sched.finish_prefill_chunk = fin
+    return got
+
+
+def yi_tp_rank(mesh, arch, prompts, kw, gcfg, given):
+    """One rank of 14d (a spawned process): Yi-9B drawn as phase 4 draws
+    it (seed 0 on the card), cut to this rank's blocks leaf by leaf
+    (``PagedTP.init_params``), served over phase 4's requests, each
+    request selecting from ``given[rid]`` (the single rank's statistic).
+    Returns the streams, the first prefill chunk's and the first decode
+    step's inputs and outputs, the decode ticks' walls, and this rank's
+    parameter, pool, compacted-FF and peak bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.tp import PagedTP, pool_shard_bytes, tree_bytes
+    from repro_torch.serving.server import PagedServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    on_card = mesh.device.type == "cuda"  # a CPU rehearsal has no card
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PagedTP(cfg, mesh).init_params(seed=0)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv = PagedServer(cfg, params, gcfg, mesh=mesh, **kw)
+    del params
+    prefill = capture_first_prefill(torch, srv)
+    first = capture_first_decode(torch, srv)
+    injected = selection_stats(torch, srv, given)
+    for i, (p, n) in enumerate(prompts):
+        srv.submit(np.asarray(p), n, rid=i)
+    reset_launches()
+    wall, ticks, compacted = drain_timed(torch, srv)
+    out = {rid: r.generated for rid, r in srv.sched.finished.items()}
+    m = srv.metrics.summary()
+    return dict(streams=out, prefill=prefill, first=first, injected=sorted(injected),
+                wall_s=wall, init_s=init_s,
+                decode_ticks=ticks, param_bytes=tree_bytes(srv.params),
+                pool_bytes=pool_shard_bytes(srv.pools), compacted_bytes=compacted,
+                peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
+                tokens_per_s=m["tokens_per_sec"], ttft_p50_s=m["ttft_p50_s"])
+
+
+def yi_tp_mutants(mesh, arch, prompts, kw, gcfg):
+    """14d's self-test (a spawned rank): the first prefill chunk again,
+    with every layer's out/down-projection all-reduce missing, then
+    doubled; ``TP_LOGIT_TOL`` and ``TP_STAT_TOL`` must refuse both."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.tp import PagedTP
+    from repro_torch.serving.server import PagedServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    params = PagedTP(cfg, mesh).init_params(seed=0)
+    real, out = dist.all_reduce, {}
+    for mode in ("missing", "doubled"):
+        def all_reduce(x, *a, mode=mode, **k):
+            if x.ndim >= 2 and x.shape[-1] == cfg.d_model:  # a layer's partial sum
+                if mode == "missing":
+                    return None
+                real(x, *a, **k)
+            return real(x, *a, **k)
+
+        dist.all_reduce = all_reduce
+        try:
+            srv = PagedServer(cfg, params, gcfg, mesh=mesh, **kw)
+            out[mode] = capture_first_prefill(torch, srv)
+            for i, (p, n) in enumerate(prompts):
+                srv.submit(np.asarray(p), n, rid=i)
+            srv.step()
+        finally:
+            dist.all_reduce = real
+        del srv
+    return out
+
+
+def first_divergence_ok(a, b, margins, tol2):
+    """Per request: the first position where streams ``a`` and ``b``
+    differ must be one where the single rank's top-2 margin is within
+    ``tol2``; returns the failures."""
+    bad = []
+    for rid in b:
+        for i, (x, y) in enumerate(zip(a[rid], b[rid])):
+            if x != y:
+                if margins[rid][i] > tol2:
+                    bad.append((rid, i, x, y, margins[rid][i]))
+                break
+    return bad
+
+
+def logit_gap(np, a, b, what, rows=None):
+    """max |logit| gap of two captured steps (over ``rows`` of their
+    logits, else all), and the largest |logit| of ``b`` there; fails
+    unless the steps had the same inputs."""
+    for k in ("bt", "toks", "pos", "mask"):
+        if k in b:
+            check(np.array_equal(a[k], b[k]), f"14d: {what}: the {k} differ "
+                  f"({a[k].tolist()} vs {b[k].tolist()})")
+    la, lb = a["logits"], b["logits"]
+    if rows is not None:
+        la, lb = la[rows], lb[rows]
+    return float(np.abs(la - lb).max()), float(np.abs(lb).max())
+
+
+def stat_gap(np, a, b):
+    """Largest gap of two statistics trees, as a share of each leaf's
+    largest value."""
+    check(a.keys() == b.keys(), "14d: the statistics' layers differ")
+    return max(float(np.abs(a[li][k] - v).max() / max(np.abs(v).max(), 1e-30))
+               for li in b for k, v in b[li].items())
+
+
+def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
+    """14d: Yi-9B whole, bf16, GRIFFIN 0.5, TP=2 with both ranks on the
+    card (gloo), over phase 4's requests, beside one rank with the same
+    selection math (``GriffinConfig(tp_shards=2)``) on the same backend;
+    the single rank runs first and is freed before the ranks draw their
+    blocks.  Held: the first prefill chunk's logits and gathered
+    statistics, and, with the ranks selecting from the single rank's
+    statistic, the first decode step's logits and the streams
+    (``TP_LOGIT_TOL``, ``TP_STAT_TOL``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.distributed.tp import pool_shard_bytes, tree_bytes
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import decoder
+    from repro_torch.serving.server import PagedServer
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(1)  # phase 4's requests
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 32)
+               for n in YI_PROMPT_LENS]
+    gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=2)
+    kw = dict(page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
+              max_len=640, kernel_backend="auto")
+    params = decoder.init_params(cfg, seed=0, device=dev)
+    full_bytes = tree_bytes(params)
+    srv = PagedServer(cfg, params, gcfg, device=dev, **kw)
+    margins = record_margins(torch, np, srv)
+    prefill = capture_first_prefill(torch, srv)
+    first = capture_first_decode(torch, srv)
+    given = selection_stats(torch, srv)
+    for i, (p, n) in enumerate(prompts):
+        srv.submit(p, n, rid=i)
+    reset_launches()
+    _, one_ticks, one_compacted = drain_timed(torch, srv)
+    single = {rid: r.generated for rid, r in srv.sched.finished.items()}
+    one_pool = pool_shard_bytes(srv.pools)
+    del srv, params
+    free(torch)
+    check(sorted(given) == list(range(len(prompts))), f"14d: selections {sorted(given)}")
+    t0 = time.perf_counter()
+    ranks, counts = run_ranks(yi_tp_rank, 2, backend="gloo", device=dev.type,
+                              args=(arch, prompts, kw, gcfg, given), timeout_s=600)
+    spawn_wall = time.perf_counter() - t0
+    counts = tp_counts(counts)
+    check(counts["paged_attn"] > 0 and counts["expert_stat_row_sq"] > 0
+          and counts["expert_stat_from_norm"] > 0 and counts["expert_stat"] == 0,
+          f"14d launches {counts}")
+    streams = [r["streams"] for r in ranks]
+    check(streams[0] == streams[1], "14d: the ranks' streams differ")
+    tp = streams[0]
+    check(sorted(tp) == list(range(len(prompts)))
+          and all(len(tp[i]) == prompts[i][1] for i in tp), f"14d streams {tp}")
+    for r in ranks:
+        check(r["injected"] == sorted(given), f"14d: injected {r['injected']}")
+        check(r["pool_bytes"] * 2 == one_pool,
+              f"14d pool bytes {r['pool_bytes']} x 2 != {one_pool}")
+        check(r["param_bytes"] < 0.6 * full_bytes,
+              f"14d: a rank holds {r['param_bytes']} of {full_bytes} parameter bytes")
+        check(r["compacted_bytes"] * 2 == one_compacted,
+              f"14d: a rank's compacted FF {r['compacted_bytes']} x 2 != "
+              f"{one_compacted}")
+    pre_gap, pre_max = logit_gap(np, ranks[0]["prefill"], prefill, "first prefill chunk")
+    s_gap = stat_gap(np, ranks[0]["prefill"]["stats"], prefill["stats"])
+    dec_gap, dec_max = logit_gap(np, ranks[0]["first"], first, "first decode step",
+                                 rows=first["mask"][:, 0])
+    check(pre_gap <= TP_LOGIT_TOL * pre_max,
+          f"14d: the first prefill chunk's logits differ by {pre_gap} > "
+          f"{TP_LOGIT_TOL} x {pre_max}")
+    check(s_gap <= TP_STAT_TOL, f"14d: the first prefill chunk's statistics "
+          f"differ by {s_gap} of their largest value > {TP_STAT_TOL}")
+    check(dec_gap <= TP_LOGIT_TOL * dec_max,
+          f"14d: the first decode step's logits differ by {dec_gap} > "
+          f"{TP_LOGIT_TOL} x {dec_max}")
+    bad = first_divergence_ok(tp, single, margins, 2 * dec_gap)
+    check(not bad, f"14d: streams differ where the single rank's top-2 "
+          f"margin exceeds {2 * dec_gap}: {bad}")
+    mutants, _ = run_ranks(yi_tp_mutants, 2, backend="gloo", device=dev.type,
+                           args=(arch, prompts, kw, gcfg), timeout_s=300)
+    mutant_gaps = {}
+    for mode, cap in mutants[0].items():
+        g, m = logit_gap(np, cap, prefill, f"the {mode} all-reduce's prefill")
+        mutant_gaps[mode] = (g / m, stat_gap(np, cap["stats"], prefill["stats"]))
+        check(mutant_gaps[mode][0] > TP_LOGIT_TOL and mutant_gaps[mode][1] > TP_STAT_TOL,
+              f"14d: the tolerances pass a {mode} all-reduce: {mutant_gaps[mode]}")
+    gb = 1e9
+    res = dict(
+        match_rate_vs_one_rank=match_rate(tp, single),
+        first_prefill_logit_gap=pre_gap, first_prefill_max_abs_logit=pre_max,
+        first_prefill_stat_gap=s_gap,
+        mutant_prefill_logit_and_stat_gaps=mutant_gaps,
+        first_decode_logit_gap=dec_gap, first_decode_max_abs_logit=dec_max,
+        share_of_margins_above_2x_decode_gap=statistics.fmean(
+            m > 2 * dec_gap for v in margins.values() for m in v),
+        logit_tol=TP_LOGIT_TOL, stat_tol=TP_STAT_TOL,
+        decode_tick_wall_ms_p50_tp2=statistics.median(ranks[0]["decode_ticks"]) * 1e3
+        if ranks[0]["decode_ticks"] else None,
+        decode_tick_wall_ms_p50_one_rank=statistics.median(one_ticks) * 1e3
+        if one_ticks else None,
+        decode_tick_wall_ms_p50_phase4=yi["decode_tick_wall_ms_p50"],
+        decode_ticks=len(ranks[0]["decode_ticks"]),
+        tokens_per_s_tp2=ranks[0]["tokens_per_s"], ttft_p50_s_tp2=ranks[0]["ttft_p50_s"],
+        tokens_per_s_phase4=yi["tokens_per_s"],
+        param_gb_per_rank=[r["param_bytes"] / gb for r in ranks],
+        param_gb_one_rank=full_bytes / gb,
+        pool_gb_per_rank=[r["pool_bytes"] / gb for r in ranks],
+        pool_gb_one_rank=one_pool / gb,
+        compacted_ff_gb_per_rank=[r["compacted_bytes"] / gb for r in ranks],
+        compacted_ff_gb_one_rank=one_compacted / gb,
+        peak_gb_per_rank=[r["peak_bytes"] / gb for r in ranks],
+        init_s_per_rank=[r["init_s"] for r in ranks],
+        drain_wall_s_tp2=ranks[0]["wall_s"], spawn_to_result_s=spawn_wall,
+        rid0_tp2=tp[0][:8], rid0_one_rank=single[0][:8])
+    return counts, res
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3316,6 +3934,38 @@ def main() -> int:
         print(f"  {k}: {v}")
     print(f"phase 13 total: {time.perf_counter() - t13:.1f} s")
 
+    free(torch)
+    t14 = t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    tp_stat, tp_attn, tp_lines = phase_tp_kernels(torch, dev, flush)
+    del flush
+    kernels["paged_attn"]["tp_local"] = tp_attn
+    for name, cases in tp_stat.items():
+        kernels[name] = dict(cases[0], cases=cases)
+    print(f"phase 14a expert_stat_row_sq / expert_stat_from_norm and paged_attn "
+          f"at the ranks' local head counts vs plain versions ({card}): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in tp_lines:
+        print("  " + line)
+    t0 = time.perf_counter()
+    tp_paths, tp_tiny = phase_tp_tinylm(torch, np, dev)
+    print(f"phase 14b tinylm-tp fp32 TP=2 and TP=4, ranks on one card over gloo "
+          f"(gather: spec_k 0/4 x fp32/int8 pools; fused at head_dim 32: "
+          f"fp32/int8) == one rank == CPU; 14c NCCL world 1 == plain server "
+          f"({card}): {time.perf_counter() - t0:.1f} s, launches {tp_paths}")
+    for k, v in tp_tiny.items():
+        print(f"  {k}: {v}")
+    free(torch)
+    t0 = time.perf_counter()
+    yi_tp_counts, yi_tp = phase_tp_yi9b(torch, np, dev, yi)
+    tp_paths["tp2_yi9b"] = yi_tp_counts
+    print(f"phase 14d yi-9b whole, bf16, GRIFFIN 0.5, TP=2 over gloo on one card, "
+          f"phase 4's requests, beside one rank with tp_shards=2 ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {yi_tp_counts}")
+    for k, v in yi_tp.items():
+        print(f"  {k}: {v}")
+    print(f"phase 14 total: {time.perf_counter() - t14:.1f} s")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -3336,7 +3986,7 @@ def main() -> int:
              "gemma3": frontends["12b"]["launches"],
              "command_r_plus": frontends["12c"]["launches"],
              "llava_next": frontends["12d"]["launches"],
-             "hubert": frontends["12e"]["launches"]}
+             "hubert": frontends["12e"]["launches"], **tp_paths}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -3350,6 +4000,11 @@ def main() -> int:
                         "src/repro/kernels/griffin_ffn.py:83"),
         "glu_ffn": ("src/repro_torch/csrc/glu_ffn.cu",
                     "src/repro/kernels/glu_ffn.py:57"),
+        # the statistic's two steps under tensor parallelism (phase 14)
+        "expert_stat_row_sq": ("src/repro_torch/csrc/expert_stat.cu",
+                               "src/repro/kernels/expert_stat.py:47"),
+        "expert_stat_from_norm": ("src/repro_torch/csrc/expert_stat.cu",
+                                  "src/repro/kernels/expert_stat.py:47"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
@@ -3383,6 +4038,11 @@ def main() -> int:
             # phase 12's shapes: Gemma-3's window, Command-R+'s group of 12
             for case, p in r.get("phase12", {}).items():
                 entry.update({f"{case}_{k}": v for k, v in p.items()})
+            # phase 14's local head counts: Yi-9B at TP=2, one KV head
+            for case, p in r.get("tp_local", {}).items():
+                entry.update({f"{case}_{k}": v for k, v in p.items()})
+        if "cases" in r:  # the two-step statistic at all of 14a's shapes
+            entry["cases"] = r["cases"]
         entries.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3398,6 +4058,7 @@ def main() -> int:
              "families": family, "frontends_smoke": fe_smoke,
              "frontends": frontends, "train_smoke": train_smoke,
              "train_tinylm": train_tiny, "train_yi9b": yi_train,
+             "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

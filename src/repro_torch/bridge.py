@@ -26,12 +26,20 @@ from repro_torch.kernels import backend
 from repro_torch.models import decoder
 
 
-def _to_torch(tree: Any, device) -> Any:
+def _to_torch(tree: Any, device, tp=None, specs: Any = None) -> Any:
+    """numpy (or torch) leaves -> torch tensors on ``device``; with ``tp``
+    (a ``distributed.tp.PagedTP``) and the subtree's ``specs``, each leaf
+    is cut to the rank's block before it is converted."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device) for k, v in tree.items()}
+        return {k: _to_torch(v, device, tp, None if specs is None else specs[k])
+                for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):  # e.g. a restored bf16 checkpoint leaf
-        return tree.to(device)
+        return (tree if tp is None else tp.block(tree, specs)).to(device)
     arr = np.asarray(tree)
+    if tp is not None and tp.n > 1:
+        for d in tp.split_dims(specs):
+            w = arr.shape[d] // tp.n
+            arr = arr[(slice(None),) * d + (slice(tp.rank * w, (tp.rank + 1) * w),)]
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits
         bits = torch.from_numpy(arr.view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
@@ -58,20 +66,27 @@ def per_layer(tree: Dict[str, Dict[str, Any]], cfg) -> Dict[int, Any]:
     return out
 
 
-def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
+def params_from_jax(tree: Dict, cfg, device=None, tp=None) -> Dict:
     """Reference ``decoder.init_params`` tree (numpy leaves) -> the
-    port's parameters on ``device``."""
+    port's parameters on ``device``.  With ``tp`` (a tensor-parallel
+    rank's ``distributed.tp.PagedTP``) -> that rank's blocks only, cut
+    leaf by leaf on the host: no rank materializes the whole model on
+    its device (Yi-9B whole is 17.7 GB in bf16)."""
     device = backend.resolve_device(device)
+    specs = tp.param_specs if tp is not None else {}
     layers = per_layer({k: v for k, v in tree.items() if k.startswith("seg")},
                        cfg)
     out: Dict[str, Any] = {
-        "embed": _to_torch(tree["embed"], device),
-        "layers": [_to_torch(layers[li], device) for li in range(cfg.num_layers)],
-        "final_norm": _to_torch(tree["final_norm"], device),
+        "embed": _to_torch(tree["embed"], device, tp, specs.get("embed")),
+        "layers": [_to_torch(layers[li], device, tp,
+                             specs["layers"][li] if tp is not None else None)
+                   for li in range(cfg.num_layers)],
+        "final_norm": _to_torch(tree["final_norm"], device, tp,
+                                specs.get("final_norm")),
     }
     for k in ("head", "frontend", "mtp"):
         if k in tree:
-            out[k] = _to_torch(tree[k], device)
+            out[k] = _to_torch(tree[k], device, tp, specs.get(k))
     return out
 
 

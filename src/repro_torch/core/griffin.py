@@ -285,6 +285,25 @@ def compaction_shards(gcfg: GriffinConfig, k: int, d_ff: int) -> int:
     return 1
 
 
+def shard_indices(idx: torch.Tensor, d_ff: int, rank: int, n: int) -> torch.Tensor:
+    """The experts of a global selection ``idx`` [k] that fall in rank
+    ``rank``'s contiguous F-block of ``d_ff / n`` neurons, as local
+    indices.  Balanced per-shard top-k puts exactly ``k / n`` in every
+    block; any other count raises (the rank could not compact from its
+    own weights)."""
+    w = d_ff // n
+    lo = rank * w
+    local = idx[(idx >= lo) & (idx < lo + w)] - lo
+    if local.numel() * n != idx.numel():
+        raise ValueError(
+            f"selection of {idx.numel()} experts puts {local.numel()} in "
+            f"rank {rank}'s block of {w}, not {idx.numel()} / {n}: "
+            f"tensor-parallel compaction needs balanced per-shard top-k "
+            f"(GriffinConfig(mode='topk', per_shard_topk=True, "
+            f"tp_shards={n}))")
+    return local
+
+
 def select_and_compact(
     stats_tree: Dict[int, Any],
     ffn_tree: Dict[int, Dict],
@@ -294,6 +313,7 @@ def select_and_compact(
     seq_lens: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     on_select=None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Dict[int, Dict], Dict[int, int]]:
     """Selection + compaction with per-layer expert budgets — the one
     entry point of the serving path.
@@ -305,8 +325,12 @@ def select_and_compact(
     instances of a scan-stacked leaf to the widest one).
     ``generator`` feeds the sampling modes.  ``on_select(li, idx)``
     observes each raw selection.
+    ``shard=(rank, n)``: ``ffn_tree`` holds a tensor-parallel rank's
+    F-block of every layer; the selection runs on the global statistics
+    as without it, and the rank compacts its own experts
+    (``shard_indices``) from its own weights — width ``k / n``.
     Returns ``(pruned_tree, widths)`` with ``widths[li]`` = the layer's
-    buffer width."""
+    (global) buffer width."""
     out: Dict[int, Dict] = {}
     widths: Dict[int, int] = {}
     for li, leaf in stats_tree.items():
@@ -318,8 +342,11 @@ def select_and_compact(
         if on_select is not None:
             on_select(li, idx)
         widths[li] = int(idx.shape[0])
-        out[li] = compact(ffn_tree[li], idx,
-                          shards=compaction_shards(gcfg, widths[li], F))
+        if shard is not None:
+            out[li] = compact(ffn_tree[li], shard_indices(idx, F, *shard))
+        else:
+            out[li] = compact(ffn_tree[li], idx,
+                              shards=compaction_shards(gcfg, widths[li], F))
     return out, widths
 
 

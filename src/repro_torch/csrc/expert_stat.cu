@@ -36,6 +36,22 @@
 //   vectors per thread: the first stays in registers, the others are read
 //   again from L2 for the column sums, and their running sums go through
 //   the output row, which only that thread touches.  Same sum order.
+//
+// Tensor parallelism (the reference's ffn.griffin_stat_sq under a TP
+// axis: `row = psum_if_tp(row)` before 1/row) splits F across ranks, so a
+// rank's row norm is a partial sum that must be all-reduced before any
+// column is normalized.  Two more entry points split the launch there:
+// * expert_stat_row_sq: the same kernel up to the row norms (same plan,
+//   same fixed reduction order); CTA 0 of the cluster writes row_sq[b, t]
+//   and no column is summed.  Nothing carries from one row tile to the
+//   next, so each cluster takes one (b, tile): B * ceil(S / 32) clusters
+//   in flight instead of B.  Bound: bytes, B*S*F*itemsize read.
+// * expert_stat_from_norm: the column sums from a given (all-reduced)
+//   row_sq, with the reference's `row > 0` guard.  No row norm is formed
+//   and no cluster is needed: each CTA of the grid owns its column slice
+//   alone.  Bound: bytes, z read once plus B*S*4 + B*F*4.
+// The caller all-reduces row_sq between the two launches.  Without TP the
+// single launch above runs, unchanged.
 
 #include <cooperative_groups.h>
 
@@ -86,13 +102,20 @@ struct Pack {
   }
 };
 
-template <typename T, int VEC>
+// what one launch computes
+enum Mode : int {
+  kFull = 0,      // s_sq from z alone (row norms merged in the cluster)
+  kRowSq = 1,     // the row norms only: row_sq [B, S]
+  kFromNorm = 2,  // s_sq from z and a given row_sq [B, S]
+};
+
+template <typename T, int VEC, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
-expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
-                   float* __restrict__ out,  // [B, F]
+expert_stat_kernel(const T* __restrict__ z,       // [B, S, F]
+                   float* __restrict__ out,       // [B, F] (kFull, kFromNorm)
+                   float* __restrict__ row_sq,    // [B, S] (kRowSq: out; kFromNorm: in)
                    int S, int F, int vpc) {
   namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
   __shared__ float warp_part[kMaxThreads / 32][kRows];
   // every CTA's partial row norms, pushed here by their owners; by tile
   // parity
@@ -100,10 +123,16 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
   __shared__ float inv[kRows];
   // the CTAs of a cluster may start at different times: remote shared
   // memory is written only after every CTA has arrived here
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if constexpr (MODE != kFromNorm)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   const int n_cta = gridDim.x, rank = blockIdx.x;  // the grid's x is one cluster
-  const int b = blockIdx.y;
+  const int n_tiles = (S + kRows - 1) / kRows;
+  // kRowSq carries nothing from one tile to the next: each cluster takes
+  // one (b, tile); the others walk all of b's tiles
+  const int b = MODE == kRowSq ? blockIdx.y / n_tiles : blockIdx.y;
+  const int t_begin = MODE == kRowSq ? blockIdx.y % n_tiles : 0;
+  const int t_end = MODE == kRowSq ? t_begin + 1 : n_tiles;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_warps = blockDim.x / 32;
   const int n_vec = F / VEC;
@@ -111,14 +140,13 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
   const int v0 = rank * vpc + tid;  // this thread's first vector
   const bool own0 = v0 < v_hi;
   const T* zb = z + (long long)b * S * F;
-  float* ob = out + (long long)b * F;
+  float* ob = MODE == kRowSq ? nullptr : out + (long long)b * F;
 
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
 
-  const int n_tiles = (S + kRows - 1) / kRows;
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_begin; tile < t_end; ++tile) {
     const int t0 = tile * kRows;
     const int nt = min(kRows, S - t0);
     const T* zt = zb + (long long)t0 * F;
@@ -132,6 +160,17 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
       else
         keep[t].zero();
     }
+    if constexpr (MODE == kFromNorm) {
+      // the all-reduced row norms, guarded as the reference's
+      // `where(row > 0, 1/row, 0)`; the previous tile's readers of inv
+      // have passed the barrier first
+      __syncthreads();
+      if (tid < kRows) {
+        const float r = tid < nt ? row_sq[(long long)b * S + t0 + tid] : 0.f;
+        inv[tid] = r > 0.f ? 1.f / r : 0.f;
+      }
+      __syncthreads();
+    } else {
     float rowp[kRows];
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
@@ -171,22 +210,28 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
       for (int t = 0; t < kRows; ++t) warp_part[warp][t] = rowp[t];
     }
     __syncthreads();
-    if (tile == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (tile == t_begin) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     // -- this CTA's partials, written into slot `rank` of every CTA of the
     //    cluster; after the barrier each CTA sums its own copy in rank order
     if (tid < kRows) {
       float s = 0.f;
       for (int w = 0; w < n_warps; ++w) s += warp_part[w][tid];
       for (int r = 0; r < n_cta; ++r)
-        cluster.map_shared_rank(&part[tile & 1][rank][0], r)[tid] = s;
+        cg::this_cluster().map_shared_rank(&part[tile & 1][rank][0], r)[tid] = s;
     }
-    cluster.sync();
+    cg::this_cluster().sync();
     if (tid < kRows) {
       float total = 0.f;
       for (int r = 0; r < n_cta; ++r) total += part[tile & 1][r][tid];
-      inv[tid] = total > 0.f ? 1.f / total : 0.f;
+      if constexpr (MODE == kRowSq) {
+        if (rank == 0 && tid < nt) row_sq[(long long)b * S + t0 + tid] = total;
+      } else {
+        inv[tid] = total > 0.f ? 1.f / total : 0.f;
+      }
     }
+    if constexpr (MODE == kRowSq) continue;  // no column is summed
     __syncthreads();
+    }  // MODE != kFromNorm
 
     // -- column sums, rows in order (rows past S hold zeros: they add 0)
 #pragma unroll
@@ -218,7 +263,7 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
     }
   }
 
-  if (own0) {
+  if (MODE != kRowSq && own0) {
     float* o = ob + (long long)v0 * VEC;
     if constexpr (VEC % 4 == 0) {
 #pragma unroll
@@ -231,13 +276,14 @@ expert_stat_kernel(const T* __restrict__ z,  // [B, S, F]
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch(const void* z, void* out, int B, int S, int F, int cluster,
-                   int threads, cudaStream_t stream) {
+template <typename T, int VEC, int MODE>
+cudaError_t launch(const void* z, void* out, void* row_sq, int B, int S, int F,
+                   int cluster, int threads, cudaStream_t stream) {
   const int n_vec = F / VEC;
   const int vpc = (n_vec + cluster - 1) / cluster;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, B);
+  // kRowSq: one cluster per (b, row tile)
+  cfg.gridDim = dim3(cluster, MODE == kRowSq ? B * ((S + kRows - 1) / kRows) : B);
   cfg.blockDim = dim3(threads);
   cfg.stream = stream;
   cudaLaunchAttribute attr;
@@ -246,11 +292,44 @@ cudaError_t launch(const void* z, void* out, int B, int S, int F, int cluster,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, expert_stat_kernel<T, VEC>,
+  // kFromNorm shares no shared memory: its CTAs need not be co-scheduled
+  cfg.numAttrs = MODE == kFromNorm ? 0 : 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, expert_stat_kernel<T, VEC, MODE>,
                                      static_cast<const T*>(z),
-                                     static_cast<float*>(out), S, F, vpc);
+                                     static_cast<float*>(out),
+                                     static_cast<float*>(row_sq), S, F, vpc);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch(const void* z, void* out, void* row_sq, int B, int S, int F,
+             int vec, int cluster, int threads, int z_is_bf16, void* stream) {
+  const int isz = z_is_bf16 ? 2 : 4;
+  const bool ok = B > 0 && S > 0 && F > 0 && vec > 0 && F % vec == 0 &&
+                  vec * isz <= 16 && (vec & (vec - 1)) == 0 &&
+                  reinterpret_cast<unsigned long long>(z) % (vec * isz) == 0 &&
+                  cluster >= 1 && cluster <= kMaxCluster && threads >= 32 &&
+                  threads <= kMaxThreads && threads % 32 == 0 &&
+                  // the grid's y (kRowSq: one cluster per b and row tile)
+                  (MODE == kRowSq ? (long long)B * ((S + kRows - 1) / kRows) : B) <= 65535;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (z_is_bf16) {
+    switch (vec) {
+      case 8: e = launch<__nv_bfloat16, 8, MODE>(z, out, row_sq, B, S, F, cluster, threads, st); break;
+      case 4: e = launch<__nv_bfloat16, 4, MODE>(z, out, row_sq, B, S, F, cluster, threads, st); break;
+      case 2: e = launch<__nv_bfloat16, 2, MODE>(z, out, row_sq, B, S, F, cluster, threads, st); break;
+      default: e = launch<__nv_bfloat16, 1, MODE>(z, out, row_sq, B, S, F, cluster, threads, st);
+    }
+  } else {
+    switch (vec) {
+      case 4: e = launch<float, 4, MODE>(z, out, row_sq, B, S, F, cluster, threads, st); break;
+      case 2: e = launch<float, 2, MODE>(z, out, row_sq, B, S, F, cluster, threads, st); break;
+      default: e = launch<float, 1, MODE>(z, out, row_sq, B, S, F, cluster, threads, st);
+    }
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -262,28 +341,24 @@ cudaError_t launch(const void* z, void* out, int B, int S, int F, int cluster,
 extern "C" int expert_stat(const void* z, void* out, int B, int S, int F,
                            int vec, int cluster, int threads, int z_is_bf16,
                            void* stream) {
-  const int isz = z_is_bf16 ? 2 : 4;
-  const bool ok = B > 0 && S > 0 && F > 0 && vec > 0 && F % vec == 0 &&
-                  vec * isz <= 16 && (vec & (vec - 1)) == 0 &&
-                  reinterpret_cast<unsigned long long>(z) % (vec * isz) == 0 &&
-                  cluster >= 1 && cluster <= kMaxCluster && threads >= 32 &&
-                  threads <= kMaxThreads && threads % 32 == 0;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (z_is_bf16) {
-    switch (vec) {
-      case 8: e = launch<__nv_bfloat16, 8>(z, out, B, S, F, cluster, threads, st); break;
-      case 4: e = launch<__nv_bfloat16, 4>(z, out, B, S, F, cluster, threads, st); break;
-      case 2: e = launch<__nv_bfloat16, 2>(z, out, B, S, F, cluster, threads, st); break;
-      default: e = launch<__nv_bfloat16, 1>(z, out, B, S, F, cluster, threads, st);
-    }
-  } else {
-    switch (vec) {
-      case 4: e = launch<float, 4>(z, out, B, S, F, cluster, threads, st); break;
-      case 2: e = launch<float, 2>(z, out, B, S, F, cluster, threads, st); break;
-      default: e = launch<float, 1>(z, out, B, S, F, cluster, threads, st);
-    }
-  }
-  return static_cast<int>(e);
+  return dispatch<kFull>(z, out, nullptr, B, S, F, vec, cluster, threads,
+                         z_is_bf16, stream);
+}
+
+// The two steps of the statistic under tensor parallelism, with the same
+// plan: row_sq [B, S] fp32 out (this rank's partial row norms) ...
+extern "C" int expert_stat_row_sq(const void* z, void* row_sq, int B, int S,
+                                  int F, int vec, int cluster, int threads,
+                                  int z_is_bf16, void* stream) {
+  return dispatch<kRowSq>(z, nullptr, row_sq, B, S, F, vec, cluster, threads,
+                          z_is_bf16, stream);
+}
+
+// ... and, once they are all-reduced, out [B, F] fp32 from row_sq [B, S].
+extern "C" int expert_stat_from_norm(const void* z, const void* row_sq,
+                                     void* out, int B, int S, int F, int vec,
+                                     int cluster, int threads, int z_is_bf16,
+                                     void* stream) {
+  return dispatch<kFromNorm>(z, out, const_cast<void*>(row_sq), B, S, F, vec,
+                             cluster, threads, z_is_bf16, stream);
 }

@@ -26,6 +26,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # z, out, B, S, F, vec, cluster, threads, z_is_bf16, stream
     "expert_stat": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, row_sq, B, S, F, vec, cluster, threads, z_is_bf16, stream
+    "expert_stat_row_sq": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, row_sq, out, B, S, F, vec, cluster, threads, z_is_bf16, stream
+    "expert_stat_from_norm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # pool, bt, out, rows, page_bytes, stream
     "paged_gather": [_P, _P, _P, _I, _LL, _P],
     # q, k_new, v_new, pool_k, pool_v, bt, pos, wm, ctx, B, S, H, KV, hd,

@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.kernels import backend, kv_quant, ref
 from repro_torch.kernels.expert_stat import expert_stat as _expert_stat
+from repro_torch.kernels.expert_stat import expert_stat_from_norm as _stat_from_norm
+from repro_torch.kernels.expert_stat import expert_stat_row_sq as _stat_row_sq
 from repro_torch.kernels.glu_ffn import glu_ffn as _glu_ffn
 from repro_torch.kernels.griffin_ffn import griffin_ffn as _griffin_ffn
 from repro_torch.kernels.paged_attn import paged_attn as _paged_attn
@@ -41,6 +43,23 @@ def griffin_stat(z: torch.Tensor) -> torch.Tensor:
     if backend.is_cuda(z, "griffin_stat"):
         return _expert_stat(z.contiguous())
     return ref.expert_stat_ref(z)
+
+
+def griffin_row_sq(z: torch.Tensor) -> torch.Tensor:
+    """Squared row norms of z [S, F] -> [S] or [B, S, F] -> [B, S], fp32:
+    step 1 of the statistic under tensor parallelism."""
+    if backend.is_cuda(z, "griffin_row_sq"):
+        return _stat_row_sq(z.contiguous())
+    return ref.expert_stat_row_sq_ref(z)
+
+
+def griffin_stat_from_norm(z: torch.Tensor, row_sq: torch.Tensor) -> torch.Tensor:
+    """Eq. 6 statistic from given squared row norms (step 2, after they
+    are summed over the ranks): z [S, F] / [B, S, F], row_sq [S] / [B, S]
+    -> [F] / [B, F] fp32."""
+    if backend.is_cuda(z, "griffin_stat_from_norm"):
+        return _stat_from_norm(z.contiguous(), row_sq.contiguous())
+    return ref.expert_stat_from_norm_ref(z, row_sq)
 
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

@@ -64,9 +64,28 @@ def expert_stat_ref(z: torch.Tensor) -> torch.Tensor:
     ``s_sq[j] = sum_t z[t,j]^2 / ||z[t]||^2``; all-zero rows (padding)
     contribute 0."""
     sq = z.float().square()
-    row = sq.sum(dim=-1, keepdim=True)
+    return _stat_from_sq(sq, sq.sum(dim=-1))
+
+
+def _stat_from_sq(sq: torch.Tensor, row_sq: torch.Tensor) -> torch.Tensor:
+    """``sum_t sq[t] / row_sq[t]`` over rows with ``row_sq > 0``: sq
+    [..., S, F] fp32, row_sq [..., S] -> [..., F]."""
+    row = row_sq[..., None]
     inv = torch.where(row > 0, 1.0 / row, torch.zeros_like(row))
     return (sq * inv).sum(dim=-2)
+
+
+def expert_stat_row_sq_ref(z: torch.Tensor) -> torch.Tensor:
+    """Squared row norms: z [..., S, F] -> [..., S] fp32 (step 1 of the
+    tensor-parallel statistic: a rank's partial sums over its columns)."""
+    return z.float().square().sum(dim=-1)
+
+
+def expert_stat_from_norm_ref(z: torch.Tensor, row_sq: torch.Tensor) -> torch.Tensor:
+    """The statistic from given squared row norms (step 2; under tensor
+    parallelism ``row_sq`` is summed over the ranks first): z [..., S, F],
+    row_sq [..., S] -> [..., F] fp32, rows with norm <= 0 contributing 0."""
+    return _stat_from_sq(z.float().square(), row_sq)
 
 
 def paged_gather_ref(pool: torch.Tensor,

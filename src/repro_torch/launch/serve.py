@@ -19,7 +19,13 @@ Flags, defaults, checks and summary lines are the reference's, except:
 * ``--torch-profile DIR`` (the reference's ``--jax-profile``) writes a
   ``torch.profiler`` trace of the drain to ``DIR/trace.json``;
 * ``--device`` picks the device (default: the card);
-* ``--mesh`` is refused: tensor parallelism is not ported.
+* ``--mesh model=N`` spawns N ranks (``launch.mesh.run_ranks``), each
+  serving its shard of the same requests; ``--tp-backend`` picks
+  ``nccl`` (the default on the card: one card per rank) or ``gloo`` (the
+  only backend on ``--device cpu``; on the card it lets N ranks share
+  one card).  Rank 0 prints the summary lines; ``main`` checks that
+  every rank's streams are equal and returns rank 0's.  ``--mesh`` with
+  ``--http`` is refused (ROADMAP, Queue A item 4).
 
 The slot fallback refuses ``--spec-k``, the observability flags and
 ``--http``, as the reference does.  Without a checkpoint (``--ckpt-dir``,
@@ -33,6 +39,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import io
+import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -46,7 +55,9 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import ASSIGNED_ARCHS, get_config
 from repro_torch.core.griffin import TIERS, GriffinConfig, SparsityProfile
 from repro_torch.data.pipeline import SyntheticCorpus
+from repro_torch.distributed.tp import PagedTP, pool_shard_bytes, tree_bytes
 from repro_torch.kernels import backend
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import decoder
 from repro_torch.obs.export import write_trace
 from repro_torch.obs.trace import Tracer
@@ -55,8 +66,8 @@ from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.server import PagedServer
 from repro_torch.serving.slo import SLO_CLASSES
 
-_NO_MESH = ("--mesh: tensor parallelism is not ported to the PyTorch "
-            "server (ROADMAP Queue A item 10)")
+_NO_MESH_HTTP = ("--mesh with --http: the frontend's admissions are not "
+                 "broadcast to the ranks yet (ROADMAP, Queue A item 4)")
 
 
 def parse_mesh(spec: str):
@@ -125,8 +136,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "dequantized inside the attention kernel")
     ap.add_argument("--mesh", type=parse_mesh, default=None,
                     metavar="AXIS=N",
-                    help="tensor-parallel serving: not ported, refused "
-                         "(ROADMAP Queue A item 10)")
+                    help="tensor-parallel paged serving over an N-way "
+                         "mesh axis (e.g. model=2): N ranks, each holding "
+                         "its KV heads, attention heads and FF block")
+    ap.add_argument("--tp-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of --mesh: nccl (the "
+                         "default on the card, one card per rank) or gloo "
+                         "(the only one on --device cpu; on the card it "
+                         "lets the ranks share one card)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record the drain as structured spans and write "
@@ -172,22 +189,47 @@ def synthetic_requests(cfg, n: int, max_len: int):
     ]
 
 
-def load_params(cfg, arch: str, ckpt_dir: Optional[str], device):
+def load_params(cfg, arch: str, ckpt_dir: Optional[str], device,
+                tp: Optional[PagedTP] = None):
     """tinylm: the checkpoint's parameters (reference layout, bridged)
-    or, without one, an untrained init; other archs: a smoke-size init."""
+    or, without one, an untrained init; other archs: a smoke-size init.
+    With ``tp``, only that rank's blocks reach ``device``."""
     if arch in ("tinylm", "tinylm-tp"):
         ckpt_dir = ckpt_dir or f"artifacts/models/{arch}-s500"
         mgr = CheckpointManager(ckpt_dir, interval=1)
         if mgr.latest_step() is not None:
             state, step = mgr.restore_latest()
             print(f"[ckpt] loaded {ckpt_dir} (step {step})")
-            return bridge.params_from_jax(state["params"], cfg, device)
+            return bridge.params_from_jax(state["params"], cfg, device, tp=tp)
         print(f"[ckpt] no checkpoint in {ckpt_dir}; serving an "
               f"UNTRAINED init (train one with the reference package or "
               f"pass --ckpt-dir)")
     # drawn on the CPU: a CUDA generator draws other values from one seed
     params = decoder.init_params(cfg, seed=0, device="cpu")
+    if tp is not None:
+        return tp.shard_params(params, device)
     return _to(params, device)
+
+
+def serve_requests(mesh, cfg, params, gcfg, prompts, server_kw: Dict) -> Dict:
+    """One rank of a tensor-parallel ``PagedServer`` (``mesh``: this
+    rank's ``ServingMesh``, as ``launch.mesh.run_ranks`` passes it) over
+    ``prompts`` (``[(tokens, max_new)]``, rids in order).  ``params`` is
+    the global tree on the host (the rank takes its blocks) or an int
+    seed (the rank draws its blocks on its device,
+    ``PagedTP.init_params``).  Returns plain data: the streams, this
+    rank's pool and parameter bytes and the metrics summary."""
+    if isinstance(params, int):
+        params = PagedTP(cfg, mesh).init_params(params)
+    srv = PagedServer(cfg, params, gcfg, mesh=mesh, **server_kw)
+    del params
+    for rid, (prompt, max_new) in enumerate(prompts):
+        srv.submit(np.asarray(prompt), max_new, rid=rid)
+    streams = srv.drain()
+    return dict(streams=streams, pool_bytes=pool_shard_bytes(srv.pools),
+                param_bytes=tree_bytes(srv.params),
+                metrics=srv.metrics.summary(),
+                prefix_hits=srv.metrics.prefix_hits)
 
 
 def _to(tree, device):
@@ -201,13 +243,47 @@ def _to(tree, device):
 def main(argv: Optional[Sequence[str]] = None
          ) -> Optional[Dict[int, List[int]]]:
     ap = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
+    if args.mesh is None:
+        return _serve(ap, args)
+    axis, n = args.mesh
+    if args.http is not None:
+        ap.error(_NO_MESH_HTTP)
+    cfg = get_config(args.arch, smoke=args.arch not in ("tinylm", "tinylm-tp"))
+    if not decoder.supports_paged(cfg):
+        ap.error(f"--mesh requires the paged serving path; "
+                 f"{cfg.name} falls back to the slot batcher")
+    device = backend.resolve_device(args.device)
+    tp_backend = args.tp_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cpu" and tp_backend != "gloo":
+        ap.error("--mesh on --device cpu runs on --tp-backend gloo only")
+    print(f"[mesh] {axis}={n}: {n} ranks on {tp_backend} ({device.type})")
+    results, _ = run_ranks(_serve_rank, n, backend=tp_backend,
+                           device=args.device, axis=axis, args=(argv,))
+    for r, streams in enumerate(results[1:], 1):
+        if streams != results[0]:
+            raise RuntimeError(f"--mesh {axis}={n}: rank {r}'s streams "
+                               f"differ from rank 0's")
+    return results[0]
 
-    if args.mesh is not None:
-        ap.error(_NO_MESH)
+
+def _serve_rank(mesh, argv: List[str]) -> Optional[Dict[int, List[int]]]:
+    """One rank of ``--mesh``: the launcher's run on this rank's shard;
+    only rank 0 prints."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if mesh.rank == 0:
+        return _serve(ap, args, mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _serve(ap, args, mesh)
+
+
+def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
     cfg = get_config(args.arch, smoke=args.arch not in ("tinylm", "tinylm-tp"))
     paged = decoder.supports_paged(cfg)
-    device = backend.resolve_device(args.device)
+    device = mesh.device if mesh is not None \
+        else backend.resolve_device(args.device)
     print(f"[device] {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                   if device.type == "cuda" else ""))
 
@@ -252,7 +328,10 @@ def main(argv: Optional[Sequence[str]] = None
         ap.error("--flocking-telemetry requires GRIFFIN "
                  "(drop --no-griffin)")
 
-    params = load_params(cfg, args.arch, args.ckpt_dir, device)
+    if mesh is not None:
+        mode += f"+tp{mesh.size}"
+    tp = None if mesh is None else PagedTP(cfg, mesh)
+    params = load_params(cfg, args.arch, args.ckpt_dir, device, tp)
     reqs = synthetic_requests(cfg, args.requests, args.max_len)
     if not paged:
         return serve_slots(cfg, params, gcfg, reqs, args, mode, device)
@@ -270,7 +349,9 @@ def main(argv: Optional[Sequence[str]] = None
         kernel_backend=args.kernel_backend, kv_dtype=args.kv_dtype,
         tracer=tracer, flocking_every=args.flocking_telemetry,
         profile=profile, default_tier=args.tier, device=device,
+        mesh=mesh,
     )
+    del params
     if args.http is not None:
         fe = ServingFrontend(srv, default_slo=args.slo_class)
         print(f"[{mode}] http: serving on {http_host}:{http_port} "

@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import psum_if_tp
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
 from repro_torch.kernels import paged_attn as paged_attn_lib
@@ -684,7 +685,9 @@ def _apply_layer_paged(
             z = ffn_lib.ffn_activations(lp["ffn"], h, cfg)
             if collect_stats:
                 # padded chunk tokens must not pollute the statistics:
-                # zeroed rows contribute exactly 0 to every reduction
+                # zeroed rows contribute exactly 0 to every reduction.
+                # Under tensor parallelism x_sq is replicated, s_sq and
+                # z_sq hold this rank's F-block (tp.gather_stats)
                 m = write_mask[:, :, None]
                 zm = z * m.to(z.dtype)
                 hm = (h * m.to(h.dtype)).float()
@@ -693,7 +696,7 @@ def _apply_layer_paged(
                     "x_sq": hm.square().sum(dim=(0, 1)),
                     "z_sq": zm.float().square().sum(dim=(0, 1)),
                 }
-            y = z @ lp["ffn"]["w2"]
+            y = psum_if_tp(z @ lp["ffn"]["w2"])
             if "b2" in lp["ffn"]:
                 y = y + lp["ffn"]["b2"]
         x = x + y

@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import psum_if_tp
 from repro_torch.kernels import kv_quant, ops, ref
 from repro_torch.models.common import apply_rope, rms_normalize
 from repro_torch.models.param import ParamSpec
@@ -82,10 +83,16 @@ def _project_qkv(params, x, positions, cfg, use_rope: bool, rope=None):
 
 
 def _out_proj(params, ctx, cfg):
-    """ctx: [B,S,H,hd] -> [B,S,D]."""
+    """ctx: [B,S,H,hd] -> [B,S,D].
+
+    Under tensor parallelism (``sharding.tp_axis`` active) the head axis
+    is split over the ranks, so the contraction over heads is a partial
+    sum — all-reduced before the (replicated) bias, so the bias counts
+    once.  Every attention path (paged, chunked, decode) ends here."""
     B, S, H, hd = ctx.shape
     wo = params["wo"]
     y = (ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).reshape(B, S, -1)
+    y = psum_if_tp(y)
     if "bo" in params:
         y = y + params["bo"]
     return y

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import psum_if_tp, tp_mesh
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation_fn
 from repro_torch.models.param import ParamSpec
@@ -58,8 +59,16 @@ def ffn_activations(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
 def griffin_stat_sq(z: torch.Tensor) -> torch.Tensor:
     """Per-sample squared statistic from activations z [B,S,F] (eq. 6):
     ``s_sq[b, j] = sum_t z[b,t,j]^2 / ||z[b,t]||^2`` in fp32 -> [B, F].
-    On the card this launches the ``expert_stat`` kernel."""
-    return ops.griffin_stat(z)
+    On the card this launches the ``expert_stat`` kernel.
+
+    Under tensor parallelism ``z`` holds this rank's F-block, so the row
+    norm is a partial sum: it is all-reduced (``psum_if_tp``) between the
+    kernel's two steps, so every local column is normalized by the
+    *global* row norm; the statistic itself stays rank-local (the TP step
+    rebuilds the global one, ``distributed.tp.gather_stats``)."""
+    if tp_mesh() is None:
+        return ops.griffin_stat(z)
+    return ops.griffin_stat_from_norm(z, psum_if_tp(ops.griffin_row_sq(z)))
 
 
 def ffn_forward(
@@ -83,7 +92,8 @@ def ffn_forward(
         }
         if want_z:
             stats["z"] = z
-    y = z @ params["w2"]
+    # a split F axis makes the down-projection a partial sum per rank
+    y = psum_if_tp(z @ params["w2"])
     if "b2" in params:
         y = y + params["b2"]
     return y, stats
@@ -105,7 +115,9 @@ def ffn_forward_perslot(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         z = act(hg) * h1
     else:
         z = act(h1)
-    y = torch.bmm(z, params["w2"])
+    # per-slot compacted experts split along k (balanced per-shard
+    # selection): the down-projection is a partial sum per rank
+    y = psum_if_tp(torch.bmm(z, params["w2"]))
     if "b2" in params:
         y = y + params["b2"][:, None]
     return y

@@ -97,12 +97,16 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
     return x.to(dt)
 
 
-def init_params(spec_tree: Any, seed: int, dtype, device) -> Any:
+def init_params(spec_tree: Any, seed: int, dtype, device,
+                select: Optional[Callable[[ParamSpec, torch.Tensor],
+                                          torch.Tensor]] = None) -> Any:
     """Materialize parameters on ``device``.  Each leaf draws from a
     ``torch.Generator`` on that device seeded from ``(seed, path)``, so a
     leaf's values do not depend on the order the tree is walked in.  The
     distributions are the reference's; the values are not (use
-    ``repro_torch.bridge`` to carry reference weights across)."""
+    ``repro_torch.bridge`` to carry reference weights across).
+    ``select(spec, leaf)``, if given, replaces each leaf right after its
+    draw (a tensor-parallel rank keeps its block of it)."""
     dt = torch_dtype(dtype)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -113,7 +117,8 @@ def init_params(spec_tree: Any, seed: int, dtype, device) -> Any:
             for p in path:
                 h = (h * 1_000_003 + _path_hash(p)) % (2**61 - 1)
             gen.manual_seed(h)
-            return _init_leaf(tree, gen, dt, device)
+            leaf = _init_leaf(tree, gen, dt, device)
+            return leaf if select is None else select(tree, leaf)
         if isinstance(tree, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
         return {k: walk(v, path + (k,)) for k, v in tree.items()}

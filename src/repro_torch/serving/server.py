@@ -73,8 +73,17 @@ probe saves the page each probed row writes — position ``cache_len`` —
 and the trash page, in every layer's K/V pool and scale pool, and writes
 them back after the probe: serving state is bit-identical around it.
 
-Not ported yet (raises ``NotImplementedError``): tensor parallelism
-(``mesh``).
+Tensor parallelism (``mesh=``, a ``launch.mesh.ServingMesh``): one
+server per rank, each process of the mesh running this class on its own
+shard (``distributed/tp.py``): pools hold the rank's KV heads, the
+parameters its heads and FF block, and every step runs the rank's
+``PagedTP`` wrapper, whose all-reduces make the logits identical on every
+rank.  All host logic in this file is rank-agnostic; every rank is given
+the same submissions.  The GRIFFIN statistics are global after each
+prefill chunk; each rank selects on them (``tp_shards=N``,
+``per_shard_topk``, forced as in the reference) and compacts its own
+F-block, so no rank ever holds the whole FF.  Each rank records its own
+step time under its shard id (``obs.stragglers``).
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import griffin as griffin_lib
+from repro_torch.distributed.tp import PagedTP
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
 from repro_torch.models import decoder
@@ -102,12 +112,6 @@ from repro_torch.serving.scheduler import (
     Scheduler,
     SpecController,
 )
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch server yet (ROADMAP {item})"
-    )
 
 
 class PagedServer:
@@ -140,19 +144,40 @@ class PagedServer:
         assert decoder.supports_paged(cfg), (
             f"{cfg.name}: paged serving covers attention families only"
         )
-        if mesh is not None:
-            raise _not_ported("tensor parallelism (mesh)",
-                              "Queue A: tensor parallelism")
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
-        self.device = backend_lib.resolve_device(device)
+        if mesh is not None and device is not None \
+                and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} but the mesh's rank runs on "
+                             f"{mesh.device}")
+        self.device = backend_lib.resolve_device(
+            mesh.device if mesh is not None else device)
+        self.backend = resolve_attn_backend(kernel_backend, self.device)
+        self.gcfg = gcfg if (gcfg is not None and cfg.griffin and cfg.has_ffn) \
+            else None
+        self.mesh = mesh
+        self.tp: Optional[PagedTP] = None
+        if mesh is not None:
+            self.tp = PagedTP(cfg, mesh, backend=self.backend,
+                              kv_dtype=self.kv_dtype)
+            if self.gcfg is not None and (
+                self.gcfg.tp_shards != self.tp.n
+                or not self.gcfg.per_shard_topk
+            ):
+                # balanced rank-local selection with k_ff padded to a
+                # multiple of the axis, which the rank-local compaction
+                # needs.  To reproduce the sharded outputs on one device,
+                # give the single-device server the same gcfg
+                # (tp_shards=N): the selection is the same math.
+                self.gcfg = self.gcfg.replace(
+                    tp_shards=self.tp.n, per_shard_topk=True
+                )
+            params = self.tp.shard_params(params, self.device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(
                 f"params live on {table.device}, the server on {self.device}"
             )
         self.cfg, self.params = cfg, params
-        self.gcfg = gcfg if (gcfg is not None and cfg.griffin and cfg.has_ffn) \
-            else None
         self.pcfg = PagedConfig(
             page_size=page_size, num_pages=num_pages,
             max_pages_per_request=-(-max_len // page_size),
@@ -172,7 +197,6 @@ class PagedServer:
         self.spec_k = spec_k
         self.spec_impl = spec_impl
         self.spec_prefill_cap = spec_prefill_cap
-        self.backend = resolve_attn_backend(kernel_backend, self.device)
         # per-layer profiles + request tiers
         self.profile = profile
         self.default_tier = griffin_lib.resolve_tier(default_tier)
@@ -195,7 +219,9 @@ class PagedServer:
         if spec_k and adaptive_spec:
             self.sched.spec_ctl = SpecController(spec_k)
         self.pools = decoder.init_paged_pools(cfg, num_pages, page_size,
-                                              self.kv_dtype, self.device)
+                                              self.kv_dtype, self.device) \
+            if self.tp is None else \
+            self.tp.init_pools(num_pages, page_size, self.device)
         # per-slot compacted FF: {li: {leaf: [n_slots, ...]}}
         self.pruned_slots: Optional[Dict[int, Dict]] = None
         # live requests holding a compacted FF copy (``pruned_host``),
@@ -221,9 +247,16 @@ class PagedServer:
         return torch.as_tensor(a, device=self.device)
 
     def _step_model(self, bt, toks, pos, mask, pruned, collect=False):
+        """One paged step: (logits [B,S,V], pools, stats or None); under a
+        mesh the rank's shard, with global statistics."""
+        args = (self.params, self.pools, self._tensor(bt), self._tensor(toks),
+                self._tensor(pos), self._tensor(mask))
+        if self.tp is not None:
+            if collect:
+                return self.tp.prefill(*args, pruned, True)
+            return self.tp.decode(*args, pruned) + (None,)
         return decoder.decode_step_paged(
-            self.params, self.cfg, self.pools, self._tensor(bt),
-            self._tensor(toks), self._tensor(pos), write_mask=self._tensor(mask),
+            self.params, self.cfg, *args[1:5], write_mask=args[5],
             pruned=pruned, collect_stats=collect, backend=self.backend,
             kv_dtype=self.kv_dtype,
         )
@@ -232,19 +265,27 @@ class PagedServer:
                       num_steps: int):
         """One fused speculative round on the device: (drafts [B,
         num_steps], verify logits [B, spec_k+1, V]) as device tensors."""
-        drafts, vlogits, _ = decoder.draft_verify_paged(
-            self.params, self.cfg, self.pools, self._tensor(bts),
-            self._tensor(toks), self._tensor(pos), self._tensor(k_r),
-            self._tensor(live), pruned, num_steps=num_steps,
-            spec_k=self.spec_k, backend=self.backend, kv_dtype=self.kv_dtype,
-        )
+        args = (self.params, self.pools, self._tensor(bts), self._tensor(toks),
+                self._tensor(pos), self._tensor(k_r), self._tensor(live), pruned)
+        if self.tp is not None:
+            drafts, vlogits, _ = self.tp.draft_verify(
+                *args, num_steps=num_steps, spec_k=self.spec_k)
+        else:
+            drafts, vlogits, _ = decoder.draft_verify_paged(
+                self.params, self.cfg, *args[1:], num_steps=num_steps,
+                spec_k=self.spec_k, backend=self.backend,
+                kv_dtype=self.kv_dtype,
+            )
         return drafts, vlogits
 
     def _verify(self, bts, toks, pos, mask) -> torch.Tensor:
         """The standalone dense verify step: logits [B, k+1, V]."""
+        args = (self.params, self.pools, self._tensor(bts), self._tensor(toks),
+                self._tensor(pos), self._tensor(mask))
+        if self.tp is not None:
+            return self.tp.verify(*args)[0]
         vlogits, _ = decoder.verify_step_paged(
-            self.params, self.cfg, self.pools, self._tensor(bts),
-            self._tensor(toks), self._tensor(pos), self._tensor(mask),
+            self.params, self.cfg, *args[1:],
             backend=self.backend, kv_dtype=self.kv_dtype,
         )
         return vlogits
@@ -347,7 +388,9 @@ class PagedServer:
             for rid in [r for r in self.flocking.live_rids()
                         if r in self.sched.finished]:
                 self.flocking.on_finish(rid)
-        self.steps_mon.on_tick(metrics.clock() - t0, None)
+        dur = metrics.clock() - t0
+        self.steps_mon.on_tick(
+            dur, None if self.tp is None else {self.tp.rank: dur})
         tr.counter("pool", occupancy=self.sched.pool_in_use_frac(),
                    decode_batch=len(plan.decode),
                    shared_pages=self.sched.alloc.num_shared)
@@ -490,11 +533,15 @@ class PagedServer:
                     # compaction's own selection is ``select_tree``'s
                     sel = {} if self.flocking is not None and tier is None \
                         else None
+                    # under a mesh: the global selection, this rank's
+                    # experts compacted from its own FF block
                     req.pruned_host, req.k_widths = \
                         griffin_lib.select_and_compact(
                             req.s_sq_acc, ffn_tree, self.gcfg, ks=ks,
                             on_select=None if sel is None
-                            else sel.__setitem__)
+                            else sel.__setitem__,
+                            shard=None if self.tp is None
+                            else (self.tp.rank, self.tp.n))
                     if sel is not None:
                         self.flocking.on_select(req.rid, sel, req.s_sq_acc)
                     self._compacted[req.rid] = req
@@ -783,6 +830,11 @@ class PagedServer:
             self.pruned_slots = None
             self._slot_rid = {}
         shards = self.gcfg.tp_shards
+        if self.tp is not None:
+            # a rank holds its block of every width; per-shard padding at
+            # each block's tail is, on the rank, padding at the tail
+            widths = {li: w // self.tp.n for li, w in widths.items()}
+            shards = 1
         for r in pruned_reqs:
             if self._slot_rid.get(r.slot) != r.rid:
                 self._install_pruned(

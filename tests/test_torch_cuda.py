@@ -932,3 +932,116 @@ def test_remat_on_the_card_gives_the_same_gradients(dev):
     assert torch.equal(off[0], on[0])
     for a, b in zip(_leaves(off[2]), _leaves(on[2])):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the statistic's two steps, the attention kernel
+# at the ranks' local head counts, two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 32, 5504), torch.bfloat16),   # Yi-9B at TP=2: a prefill chunk
+    ((2, 512, 5504), torch.bfloat16),  # and the engine's whole prompt
+    ((2, 512, 5504), torch.float32),
+    ((1, 17, 301), torch.bfloat16),    # odd width: 2-byte loads
+    ((3, 33, 130), torch.float32),     # F = 130: 2-element vectors
+])
+def test_expert_stat_two_step_matches_plain(dev, shape, dtype):
+    """``expert_stat_row_sq`` and ``expert_stat_from_norm`` against their
+    plain versions (1e-5), deterministic, one launch each counted apart
+    from the single launch; split into two column blocks whose row norms
+    are added, they give the single launch's statistic over both."""
+    from repro_torch.kernels import expert_stat
+
+    rng = np.random.default_rng(3)
+    z = torch.tensor(rng.normal(size=shape[:-1] + (2 * shape[-1],)),
+                     dtype=torch.float32).to(dtype)
+    z[..., -3:, :] = 0  # padded rows contribute 0
+    z = z.to(dev)
+    F = shape[-1]
+    blocks = [z[..., :F].contiguous(), z[..., F:].contiguous()]
+    before = (expert_stat.launches, expert_stat.row_sq_launches,
+              expert_stat.from_norm_launches)
+    row = ops.griffin_row_sq(blocks[0])
+    want_row = ref.expert_stat_row_sq_ref(blocks[0])
+    torch.testing.assert_close(row, want_row, rtol=1e-5, atol=1e-5)
+    got = ops.griffin_stat_from_norm(blocks[0], want_row)
+    torch.testing.assert_close(
+        got, ref.expert_stat_from_norm_ref(blocks[0], want_row), rtol=1e-5, atol=1e-5)
+    assert (expert_stat.launches, expert_stat.row_sq_launches,
+            expert_stat.from_norm_launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(row, ops.griffin_row_sq(blocks[0]))
+    assert torch.equal(got, ops.griffin_stat_from_norm(blocks[0], want_row))
+    rows = ops.griffin_row_sq(blocks[0]) + ops.griffin_row_sq(blocks[1])
+    composed = torch.cat([ops.griffin_stat_from_norm(b, rows) for b in blocks], -1)
+    torch.testing.assert_close(composed, ops.griffin_stat(z), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,page,W,lens,pool_dtype", [
+    (2, 1, 16, 2, 128, 16, 40, [583, 431], torch.bfloat16),  # Yi-9B TP=2
+    (1, 32, 16, 2, 128, 16, 40, [448], torch.bfloat16),
+    (3, 1, 2, 1, 32, 8, 8, [43, 28, 9], torch.float32),      # one KV head
+    (1, 16, 2, 1, 32, 8, 8, [32], torch.float32),
+    (2, 5, 2, 1, 32, 8, 8, [21, 30], torch.float32),
+])
+def test_paged_attn_at_tp_local_heads(dev, B, S, H, KV, hd, page, W, lens,
+                                      pool_dtype):
+    """The attention kernel at the head counts a rank holds: Yi-9B's 16 Q
+    / 2 KV heads at TP=2, and a single KV head (tinylm-tp's TP=4 split)."""
+    in_dtype = torch.bfloat16 if pool_dtype == torch.bfloat16 else torch.float32
+    rng = np.random.default_rng(11)
+    _check_paged_attn(_case(rng, B, S, H, KV, hd, page, W, pool_dtype, dev,
+                            in_dtype, lens=lens))
+
+
+def _tp_rank_fp32(mesh, *args):
+    """A rank of ``serve_requests`` with TF32 off (a spawned process)."""
+    from repro_torch.launch.serve import serve_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return serve_requests(mesh, *args)
+
+
+@pytest.mark.parametrize("backend,head_dim", [("gather", None), ("fused", 32)])
+def test_tp_server_two_gloo_ranks_on_one_card(dev, backend, head_dim):
+    """tinylm-tp (fp32; head_dim 32 for the fused kernel, which takes
+    powers of two) as two gloo ranks sharing the card: both ranks' streams
+    equal one rank's with the same ``GriffinConfig(tp_shards=2)``, per-rank
+    pool bytes half of its, and the two-step statistic launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.distributed.tp import pool_shard_bytes
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import decoder
+    from repro_torch.serving.server import PagedServer
+
+    cfg = get_config("tinylm-tp")
+    if head_dim:
+        cfg = cfg.replace(head_dim=head_dim)
+    host = decoder.init_params(cfg, seed=0, device="cpu")
+    for lp in host["layers"]:
+        for group in ("mixer", "ffn"):
+            for k, v in lp[group].items():
+                v.mul_(2.0)
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [(np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)
+                                .astype(np.int32)]), 10) for n in (8, 10)]
+    prompts += [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 10)
+                for n in (24, 20)]
+    gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=2)
+    kw = dict(page_size=8, num_pages=10, n_slots=3, prefill_chunk=16,
+              max_len=64, kernel_backend=backend)
+    one = PagedServer(cfg, _to(host, dev), gcfg, device=dev, **kw)
+    for i, (p, n) in enumerate(prompts):
+        one.submit(p, n, rid=i)
+    want = one.drain()
+    ranks, counts = run_ranks(_tp_rank_fp32, 2, backend="gloo", device="cuda",
+                              args=(cfg, host, gcfg, prompts, kw), timeout_s=300)
+    for r in ranks:
+        assert r["streams"] == want
+        assert r["pool_bytes"] * 2 == pool_shard_bytes(one.pools)
+    assert counts["expert_stat.row_sq_launches"] > 0
+    assert counts["expert_stat.from_norm_launches"] > 0
+    assert counts["expert_stat.launches"] == 0

@@ -13,7 +13,8 @@ package.
 * Checkpoints cross both ways bit for bit, bf16 leaves included; the
   port's parameters go back to the reference layout
   (``bridge.params_to_jax``) unchanged.
-* ``--mesh`` and a missing card without ``--device cpu`` are refused.
+* ``--mesh`` with ``--http`` and a missing card without ``--device cpu``
+  are refused (``tests/test_torch_tp.py`` runs ``--mesh`` itself).
 """
 import json
 
@@ -148,7 +149,7 @@ def test_launcher_summary_trace_and_snapshot(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--mesh", "model=2"], "item 10"),
+    (["--mesh", "model=2", "--http", "127.0.0.1:0"], "Queue A item 4"),
     (["--arch", "mamba2-1.3b", "--spec-k", "2"], "requires GRIFFIN"),
     (["--no-griffin", "--flocking-telemetry", "2"], "requires GRIFFIN"),
     (["--no-griffin", "--spec-k", "2"], "requires GRIFFIN"),

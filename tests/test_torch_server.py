@@ -28,6 +28,7 @@ from repro.serving.server import PagedServer as JaxServer  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs.registry import get_config as tget  # noqa: E402
 from repro_torch.core import griffin as tg  # noqa: E402
+from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
 from repro_torch.models import decoder as tdec  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serving.server import PagedServer  # noqa: E402
@@ -252,10 +253,12 @@ def test_server_tracer_and_tier_dense(params):
     assert {"tick", "plan", "prefill_chunk", "decode"} <= names
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=abstract_mesh(2))])
 def test_server_rejects_later_slices(params, kw):
+    """A mesh is served now (``tests/test_torch_tp.py``); tinylm's 6 heads
+    and 3 KV heads on 2 ranks are refused, as the reference refuses them."""
     _, tp = params["plain"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="divisible"):
         PagedServer(TCFG, tp, gcfg=tg.GriffinConfig(), device="cpu", **kw)
 
 
