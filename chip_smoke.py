@@ -205,6 +205,32 @@ Phases (any failure raises and the script exits non-zero):
    top-2 margin is within twice that step's gap; per-rank parameter, pool
    and compacted-FF bytes, the match rate and decode tick walls beside
    phase 4's.
+15. sharded training on the ``(data, model)`` training mesh
+   (``distributed/tp.py::TrainTP``), one process per rank, all on the
+   card over gloo, TF32 off, after phase 14's models are freed; no kernel
+   launches: (a) the tier-1 tests' setups (the reference's
+   ``prog_train_mesh.py`` yi config and tinylm, AdamW 1e-2, 3 steps, at
+   (2, 2) with FSDP): card ranks == one rank on the card == CPU (losses
+   within ``MESH_LOSS_TOL``, parameters within ``MESH_CARD_TOL``); (b)
+   routed EP (Moonshot's smoke config) and 2-D EP (DeepSeek-V3's, with
+   ``moe_group_limit=1``) on the MoE block, card ranks == CPU ranks
+   (``MESH_MOE_TOL``); (c) the int8 error-feedback all-reduce on 4 data
+   ranks (the reference's 20-step check), and an elastic run: one step
+   at (2, 2), a checkpoint, re-meshed to (1, 2), one more step, its loss
+   and parameters == one rank resumed from the same checkpoint; (d)
+   Yi-9B at full width, 4 of its 48 layers, bf16, remat, at (2, 2) under
+   ``policy_for``'s rules (FSDP), AdamW, 3 steps on one 4 x 512 batch,
+   beside one rank: the first loss and every leaf's gradient within
+   ``MESH_FULL_LOSS_TOL`` / ``MESH_FULL_GRAD_TOL``, which mutants without
+   the backward all-reduce before the column-split projections and
+   without the forward one after the row-split projections must fail
+   each run; the loss falling; per-rank parameter and optimizer bytes by
+   kind of leaf; step walls, all-reduces and bytes a step; (e)
+   Moonshot-v1-16B-A3B at full width, 2 layers, routed EP at (1, 2)
+   beside one rank: the same, the routed experts held in norm
+   (``MESH_ROUTED_GRAD_TOL``) with the routing assignments that moved
+   counted, mutants without the dispatch's backward all-reduce and
+   without the combine's sum, expert bytes half a rank.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -226,6 +252,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -3598,6 +3625,760 @@ def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
         rid0_tp2=tp[0][:8], rid0_one_rank=single[0][:8])
     return counts, res
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded training (the (data, model) training mesh) — one
+# process per rank, all ranks on the one card over gloo, TF32 off
+# ---------------------------------------------------------------------------
+
+#: 15a-c: the tier-1 tests' setups (tests/test_torch_train_mesh.py):
+#: AdamW at this lr, 3 steps on one batch; losses card == CPU within the
+#: reference's ``prog_train_mesh.py`` tolerance, parameters within
+#: ``TRAIN_CARD_TOL``'s rule at this lr (three steps of about lr each)
+MESH_SMOKE_LR = 1e-2
+MESH_LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
+MESH_CARD_TOL = dict(rtol=1e-4, atol=1e-5, few=5e-3, few_atol=3 * MESH_SMOKE_LR)
+#: MoE blocks (routed EP, 2-D EP) card == CPU: outputs and gradients,
+#: relative to each tensor's largest value (the dispatch's backward adds
+#: with atomics on the card)
+MESH_MOE_TOL = 1e-5
+
+#: 15d: Yi-9B at full width, cut to 4 of its 48 layers, bf16, remat, at
+#: (2, 2) under ``policy_for``'s rules (FSDP), AdamW, one 4 x 512 batch;
+#: 15e: Moonshot-v1-16B-A3B at full width, 2 layers (its dense layer and
+#: one MoE layer), routed EP at (1, 2)
+MESH_YI = dict(layers=4, B=4, S=512, steps=3, lr=1e-4)
+MESH_MOON = dict(layers=2, B=2, S=512, steps=2, lr=1e-4)
+#: 15d/e against one rank on the card: the first step's loss (relative)
+#: and each leaf's gradient (largest difference over the leaf's largest
+#: |g| of one rank's).  The mesh adds bf16 roundings of the all-reduced
+#: partial sums and of FSDP's reduce-scatter; each run also builds the
+#: mutants of ``MESH_MUTANTS``, each of which these limits must refuse.
+#: Set from readings on an H100 (``PERF.md`` §6): first losses 5.4e-6 and
+#: 4.5e-6 apart, gradients at most 1.7% (15d) and 1.4% (15e), the
+#: ``enter_backward`` mutant 129%.
+MESH_FULL_LOSS_TOL = 1e-4
+MESH_FULL_GRAD_TOL = 0.10
+#: 15e's routed experts and router, held in norm (the difference's norm
+#: over one rank's block norm): bf16 rounding moves near ties of the
+#: routing, each flip moving one token's whole share of an expert's
+#: gradient (largest differences 22-24% of the leaf's largest |g|, norms
+#: 4.8-5.5% on the H100; 15e counts the flipped assignments)
+MESH_ROUTED_GRAD_TOL = 0.20
+#: 15e's routed experts' output (``_moe_trace``) in a no-grad forward
+#: against one rank's, in norm: the first loss does not see a combine
+#: without its sum over ``model`` at the init (2.4e-6 on the H100, under
+#: the mesh's own 4.5e-6), so the routed output is held itself; each
+#: flipped routing moves a whole row's share of one expert
+MESH_MOE_OUT_TOL = 0.20
+#: the mutants 15d and 15e build each run, by the run they belong to, and
+#: what they are held to: ``grads`` (their step-1 gradients must fail
+#: ``MESH_FULL_GRAD_TOL``), ``routed`` (must fail ``MESH_ROUTED_GRAD_TOL``),
+#: ``loss`` (their first loss must fail ``MESH_FULL_LOSS_TOL``) or
+#: ``moe_out`` (their MoE blocks' output must fail ``MESH_MOE_OUT_TOL``)
+MESH_MUTANTS = {
+    "15d_yi9b": {"enter_backward": "grads", "reduce_forward": "loss"},
+    "15e_moonshot": {"ep_dispatch": "routed", "ep_combine": "moe_out"},
+}
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_np(v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        return {p: v for k in tree for p, v in _paths(tree[k], path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in _paths(t, path + (str(i),)).items()}
+    return {"/".join(path): tree}
+
+
+def mesh_smoke_cfg(tag: str):
+    from repro_torch.configs.registry import get_config
+
+    if tag == "yi":  # the reference's prog_train_mesh.py config
+        return get_config("yi-9b", smoke=True).replace(
+            d_model=64, d_ff=128, num_heads=4, num_kv_heads=2, vocab_size=256,
+            dtype="float32")
+    if tag == "tiny":
+        return get_config("tinylm")
+    if tag == "elastic":  # prog_elastic.py's
+        return get_config("tinylm").replace(
+            num_layers=2, d_model=32, d_ff=64, num_heads=2, num_kv_heads=2,
+            head_dim=16, vocab_size=256)
+    if tag == "ep":
+        return get_config("moonshot-v1-16b-a3b", smoke=True)
+    if tag == "ep2d":
+        return get_config("deepseek-v3-671b", smoke=True).replace(moe_group_limit=1)
+    raise KeyError(tag)
+
+
+def mesh_train_steps(torch, np, cfg, mesh, rules, steps, lr, tokens, dev):
+    """3 AdamW steps of the smoke setup from the CPU init (seed 0): the
+    losses and the full parameters after them (on one rank without a
+    mesh)."""
+    from repro_torch import bridge
+    from repro_torch.distributed.tp import TrainTP
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    opt = opt_lib.adamw(lr)
+    params = decoder.init_params(cfg, 0, "cpu")
+    if mesh is None:
+        params = to_device(params, dev)
+        state = {"params": params, "opt": opt.init(bridge.ref_view(params, cfg)),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    else:
+        tp = TrainTP(cfg, mesh, rules)
+        params = tp.shard_params(params, dev)
+        state = {"params": params,
+                 "opt": opt.init(bridge.ref_view(params, cfg), shard=tp.leaf_shards()),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = ts.build_train_step(cfg, opt, mesh=mesh, rules=rules)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    full = state["params"] if mesh is None else step.tp.gather_params(state["params"])
+    return losses, _tree_np(full)
+
+
+def mesh_moe_block(torch, np, mesh, tag, dev):
+    """The MoE block on this rank's rows under the training mesh's rules
+    (15b): y, and d(sum(y * ct))/d(x, params) with the parameter
+    gradients summed over ``data`` where the leaf is replicated over it."""
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.tp import block_of
+    from repro_torch.models import param as param_lib
+    from repro_torch.models.layers import moe
+
+    cfg = mesh_smoke_cfg(tag)
+    rules = shlib.make_rules(phase="train", expert_2d=tag == "ep2d")
+    specs = _paths(shlib.tree_specs(moe.moe_specs(cfg), mesh, rules))
+    full = _paths(param_lib.init_params(moe.moe_specs(cfg), 0, cfg.dtype, "cpu"))
+    keys = sorted(full)
+    local = {k: block_of(full[k], specs[k], mesh).to(dev).requires_grad_(True)
+             for k in keys}
+    tree = {}
+    for k, v in local.items():
+        node, parts = tree, k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=(4, 8, cfg.d_model)).astype(np.float32)
+    ct = rng.normal(size=(4, 8, cfg.d_model)).astype(np.float32)
+    axes = shlib.batch_axes(mesh, rules)
+    nd, r = mesh.extent(axes), mesh.coord(axes)
+    rows = slice(r * 4 // nd, (r + 1) * 4 // nd)
+    xt = torch.from_numpy(x[rows]).to(dev).requires_grad_(True)
+    with shlib.axis_rules(mesh, rules):
+        y, aux, _ = moe.moe_forward(tree, xt, cfg)
+        gs = torch.autograd.grad((y * torch.from_numpy(ct[rows]).to(dev)).sum(),
+                                 [xt] + [local[k] for k in keys])
+    out = {"y": y.detach().cpu().numpy(), "aux": float(aux.detach()),
+           "gx": gs[0].cpu().numpy()}
+    for k, g in zip(keys, gs[1:]):
+        if "data" not in str(specs[k]) and nd > 1:
+            g = shlib.all_reduce_(g.contiguous(), mesh.group("data"))
+        out[k] = g.cpu().numpy()
+    return out
+
+
+def mesh_smoke_rank(mesh, ckdir, yi_spec, yi_ref):
+    """One rank of 15a-d at (2, 2) (a spawned process, on the card or, for
+    the comparison, on the CPU): the yi and tinylm smoke setups with FSDP,
+    the MoE blocks (routed EP on Moonshot's smoke config, 2-D EP on
+    DeepSeek-V3's with ``moe_group_limit=1``), with ``ckdir`` an elastic
+    run's first step into a checkpoint there, and with ``yi_spec`` 15d
+    (``mesh_full_rank``, its mutants included)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.tp import TrainTP
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, 256, (4, 32)).astype(np.int64)
+    rules = shlib.make_rules(phase="train", fsdp=True)
+    out = {}
+    for tag in ("yi", "tiny"):
+        out[tag] = mesh_train_steps(torch, np, mesh_smoke_cfg(tag), mesh, rules, 3,
+                                    MESH_SMOKE_LR, tokens, dev)
+    for tag in ("ep", "ep2d"):
+        out[tag] = mesh_moe_block(torch, np, mesh, tag, dev)
+    if ckdir is not None:
+        cfg = mesh_smoke_cfg("elastic")
+        erules = shlib.make_rules(phase="train", fsdp=False)
+        tp = TrainTP(cfg, mesh, erules)
+        opt = opt_lib.adamw(MESH_SMOKE_LR)
+        params = tp.shard_params(decoder.init_params(cfg, 0, "cpu"), dev)
+        state = {"params": params,
+                 "opt": opt.init(bridge.ref_view(params, cfg), shard=tp.leaf_shards()),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        etok = np.random.default_rng(2).integers(0, 256, (8, 32)).astype(np.int64)
+        res = train(cfg, opt, [{"tokens": etok}], 1, state=state, log_every=0,
+                    ckpt=CheckpointManager(ckdir, interval=1, use_async=False),
+                    mesh=mesh, rules=erules)
+        out["elastic"] = res.losses
+    if yi_spec is not None:
+        out["yi9b"] = mesh_full_rank(mesh, "yi-9b", yi_spec, yi_ref,
+                                     MESH_MUTANTS["15d_yi9b"])
+    return out
+
+
+def mesh_compression_rank(mesh):
+    """15c: the reference's 20-step int8 error-feedback all-reduce check on
+    4 data ranks (identical gradients, then distinct ones)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.training.compression import init_residual, make_compressed_allreduce
+
+    dev = mesh.device
+    g_host = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
+    allreduce = make_compressed_allreduce(mesh, "data")
+    r, n = mesh.coord("data"), mesh.shape["data"]
+    out = {}
+    for same in (True, False):
+        residual = init_residual({"w": torch.zeros(64, 64, device=dev)})
+        true_acc = np.zeros_like(g_host)
+        comp_acc = np.zeros_like(g_host)
+        for step in range(20):
+            base = g_host * (1 + 0.1 * step)
+            mine = base if same else base + 0.05 * r
+            mean, residual = allreduce({"w": torch.from_numpy(mine).to(dev)}, residual)
+            true_acc += base if same else base + 0.05 * (n - 1) / 2
+            comp_acc += mean["w"].cpu().numpy()
+        out["same" if same else "distinct"] = float(
+            np.abs(comp_acc - true_acc).max() / np.abs(true_acc).max())
+    return out
+
+
+def mesh_full_cfg(arch: str, spec: dict):
+    """The arch at ``spec['layers']`` layers (``spec['smoke']``: its smoke
+    config, for a rehearsal on the CPU)."""
+    from repro_torch.configs.registry import get_config
+
+    return get_config(arch, smoke=spec.get("smoke", False)).replace(
+        num_layers=spec["layers"])
+
+
+def mesh_full_rules(cfg, B: int, S: int):
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.policies import policy_for
+
+    return policy_for(cfg, ShapeConfig("chip", S, B, "train")).rules
+
+
+def mesh_full_batch(torch, cfg, B, S, dev):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(15)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)}
+
+
+def mesh_full_one(torch, np, dev, arch: str, spec: dict, ref_path: str):
+    """15d/e's one rank on the card: the step-1 gradients (saved to
+    ``ref_path`` on the host), then ``spec['steps']`` AdamW steps; the
+    losses, the step walls and the state's bytes."""
+    from repro_torch.distributed.tp import tree_bytes
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    cfg = mesh_full_cfg(arch, spec)
+    opt = opt_lib.adamw(spec["lr"])
+    state = ts.init_train_state(cfg, opt, 0, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    batch = mesh_full_batch(torch, cfg, spec["B"], spec["S"], dev)
+    loss, _, grads = ts.value_and_grad(decoder.loss_fn, state["params"], batch, cfg)
+    grads = {k: g for k, g in _paths(grads).items() if g is not None}
+    with torch.no_grad(), _moe_trace() as moe_trace:
+        decoder.loss_fn(state["params"], batch, cfg)
+    torch.save({"grads": {k: g.detach().cpu() for k, g in grads.items()},
+                "scale": {k: float(g.detach().float().abs().max())
+                          for k, g in grads.items()},
+                "norm": {k: float(g.detach().float().norm()) for k, g in grads.items()},
+                "moe": moe_trace},
+               ref_path)
+    del grads
+    step = ts.build_train_step(cfg, opt)
+    losses, walls = [], []
+    for _ in range(spec["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    out = dict(first_loss=float(loss), losses=losses,
+               step_wall_ms=[round(w * 1e3, 1) for w in walls],
+               param_bytes=tree_bytes(state["params"]),
+               opt_bytes=tree_bytes(state["opt"]),
+               leaf_bytes={k: v.numel() * v.element_size()
+                           for k, v in _paths(state["params"]).items()})
+    del state, batch
+    if dev.type == "cuda":
+        free(torch)
+    return out
+
+
+def _grad_gaps(torch, tp, grads, ref):
+    """Per leaf: max |rank's block - one rank's block| over the one rank's
+    largest |g| of the leaf, and the blocks' difference norm over the
+    one rank's block norm (``(max_gap, norm_gap)``), on the rank's
+    device."""
+    shapes = _paths(tp.param_shapes)
+    specs = _paths(tp.param_specs)
+    gaps = {}
+    for k, g in _paths(grads).items():
+        if k not in ref["grads"]:
+            continue
+        blk = ref["grads"][k][tp.slices(specs[k], shapes[k].shape)].to(
+            g.device, torch.float32)
+        d = g.detach().float() - blk
+        gaps[k] = (float(d.abs().max()) / max(ref["scale"][k], 1e-30),
+                   float(d.norm()) / max(float(blk.norm()), 1e-30))
+    return gaps
+
+
+@contextlib.contextmanager
+def _moe_trace():
+    """What each MoE block does while the scope is open, one entry per
+    block call in call order, on the host: ``idx``, the experts it routes
+    its tokens to ([T, k]), and ``y``, the output of its routed experts
+    alone ([B, S, D], fp32; the shared experts, which every rank runs
+    whole, would hide a broken combine), from a second call without
+    them."""
+    from repro_torch.models.layers import moe
+
+    got = {"idx": [], "y": []}
+    real_route, real_forward = moe._route, moe.moe_forward
+    keep = [True]
+
+    def route(params, x, cfg):
+        gate, idx, aux = real_route(params, x, cfg)
+        if keep[0]:
+            got["idx"].append(idx.detach().cpu())
+        return gate, idx, aux
+
+    def forward(params, x, cfg, *a, **kw):
+        out = real_forward(params, x, cfg, *a, **kw)
+        keep[0] = False
+        routed = {k: v for k, v in params.items() if k != "shared"}
+        got["y"].append(real_forward(routed, x, cfg, *a, **kw)[0].detach().float().cpu())
+        keep[0] = True
+        return out
+
+    moe._route, moe.moe_forward = route, forward
+    try:
+        yield got
+    finally:
+        moe._route, moe.moe_forward = real_route, real_forward
+
+
+def _route_moves(torch, mine, ref, E):
+    """``(tokens whose expert set differs, assignments moved, assignments)``
+    between a rank's routing and one rank's on the same rows."""
+    tokens = moved = total = 0
+    for a, b in zip(mine, ref):
+        ha = torch.zeros(a.shape[0], E, dtype=torch.bool).scatter_(1, a, True)
+        hb = torch.zeros(b.shape[0], E, dtype=torch.bool).scatter_(1, b, True)
+        tokens += int((ha != hb).any(1).sum())
+        moved += int((ha & ~hb).sum())
+        total += a.numel()
+    return tokens, moved, total
+
+
+@contextlib.contextmanager
+def _mutant(name: str):
+    """One collective of the training mesh broken (``MESH_MUTANTS``):
+    ``enter_backward`` drops the backward all-reduce before every
+    column-split projection, ``reduce_forward`` the forward all-reduce
+    after every row-split one; ``ep_dispatch`` drops the routed dispatch's
+    backward all-reduce and ``ep_combine`` the routed combine's sum over
+    ``model``, in the MoE block alone."""
+    import types
+
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.models.layers import moe
+
+    if name in ("enter_backward", "reduce_forward"):
+        cls, attr = ((shlib._Enter, "backward") if name == "enter_backward"
+                     else (shlib._Reduce, "forward"))
+        real = cls.__dict__[attr]
+        setattr(cls, attr, staticmethod(
+            (lambda ctx, g: (g, None)) if name == "enter_backward"
+            else (lambda ctx, x, group: x.clone())))
+    else:
+        cls, attr, real = moe, "shlib", moe.shlib
+        broken = types.SimpleNamespace(**vars(shlib))
+        setattr(broken, "enter" if name == "ep_dispatch" else "reduce",
+                lambda x, axis="model": x)
+        moe.shlib = broken
+    try:
+        yield
+    finally:
+        setattr(cls, attr, real)
+
+
+def mesh_full_rank(mesh, arch: str, spec: dict, ref_path: str, mutants: dict):
+    """One rank of 15d/e (a spawned process): the model drawn as one rank
+    draws it (seed 0 on the card) and cut to this rank's blocks
+    (``TrainTP.init_params``); the step-1 gradients against one rank's
+    (``ref_path``); ``spec['steps']`` AdamW steps with their walls and the
+    all-reduces of each; this rank's parameter and optimizer bytes by
+    leaf; where the model routes, its routed experts' output and routing
+    in a no-grad forward against one rank's; then each of ``mutants``
+    (``MESH_MUTANTS``): its step-1 gradients, its first loss or its
+    routed experts' output."""
+    import torch
+
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.tp import TrainTP, tree_bytes
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    on_card = dev.type == "cuda"  # a CPU rehearsal has no card
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_full_cfg(arch, spec)
+    rules = mesh_full_rules(cfg, spec["B"], spec["S"])
+    tp = TrainTP(cfg, mesh, rules)
+    opt = opt_lib.adamw(spec["lr"])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state = tp.init_train_state(opt, 0, dev)
+    batch = mesh_full_batch(torch, cfg, spec["B"], spec["S"], dev)
+    rows = ts._rows(mesh, rules, 1)
+    local = {"tokens": rows(batch["tokens"], 0)}
+    ref = torch.load(ref_path, mmap=True)
+
+    def grads_once():
+        flat, rebuild = ts._flatten(state["params"])
+        with shlib.axis_rules(mesh, rules):
+            loss, _, g = ts.value_and_grad(decoder.loss_fn, state["params"], local, cfg)
+        gflat = [torch.zeros_like(p) if x is None else x
+                 for p, x in zip(flat, ts._flatten(g)[0])]
+        return float(loss), tp.sync_grads(rebuild(gflat))
+
+    def loss_once():
+        with torch.no_grad(), shlib.axis_rules(mesh, rules):
+            return float(decoder.loss_fn(state["params"], local, cfg)[0])
+
+    B = batch["tokens"].shape[0]
+    ref_y = [rows(y, 0) for y in ref["moe"]["y"]]
+
+    def moe_out_gap():
+        """The routed experts' output in a no-grad forward against one
+        rank's on this rank's rows (the difference's norm over one rank's
+        norm), and the routing moves (``_route_moves``)."""
+        with _moe_trace() as got:
+            loss_once()
+        d = sum(float((a - b).norm()) ** 2 for a, b in zip(got["y"], ref_y)) ** 0.5
+        n = sum(float(b.norm()) ** 2 for b in ref_y) ** 0.5
+        mine = [rows(r.reshape(B, -1), 0).reshape(-1, r.shape[1])
+                for r in ref["moe"]["idx"]]
+        return d / max(n, 1e-30), _route_moves(torch, got["idx"], mine, cfg.num_experts)
+
+    loss1, grads = grads_once()
+    gaps = _grad_gaps(torch, tp, grads, ref)
+    del grads
+    moe_gap = route_moves = None
+    if ref_y:
+        moe_gap, route_moves = moe_out_gap()
+    mutant_out = {}
+    for name, held in mutants.items():
+        with _mutant(name):
+            if held == "loss":
+                mutant_out[name] = loss_once()
+            elif held == "moe_out":
+                mutant_out[name] = moe_out_gap()[0]
+            else:
+                _, grads = grads_once()
+                mutant_out[name] = _grad_gaps(torch, tp, grads, ref)
+                del grads
+    step = ts.build_train_step(cfg, opt, mesh=mesh, rules=rules)
+    losses, walls, traffic = [], [], []
+    for _ in range(spec["steps"]):
+        sync()
+        shlib.reset_traffic()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        traffic.append(dict(shlib.TRAFFIC))
+    out = dict(first_loss=loss1, gaps=gaps, losses=losses,
+               step_wall_ms=[round(w * 1e3, 1) for w in walls], traffic=traffic,
+               param_bytes=tree_bytes(state["params"]),
+               opt_bytes=tree_bytes(state["opt"]),
+               leaf_bytes={k: v.numel() * v.element_size()
+                           for k, v in _paths(state["params"]).items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0,
+               moe_out_gap=moe_gap, route_moves=route_moves, mutants=mutant_out)
+    return out
+
+
+def mesh_resume_rank(mesh, ckdir, moon_spec, moon_ref):
+    """One rank of 15c's second half and of 15e at (1, 2) (a spawned
+    process): the elastic run re-meshed from (2, 2) to (1, 2), restored
+    from ``ckdir`` and continued one step, beside one rank restored from
+    the same checkpoint without a mesh and stepped on the same rows; then
+    Moonshot at full width (``mesh_full_rank``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.tp import TrainTP
+    from repro_torch.runtime.elastic import plan_remesh
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mesh_smoke_cfg("elastic")
+    rules = shlib.make_rules(phase="train", fsdp=False)
+    plan = plan_remesh((2, 2), ("data", "model"), failed_data_rows=[1])
+    check(plan.new_shape == mesh.dims, f"15c remesh to {plan.new_shape}")
+    restored, n = checkpointer.restore(ckdir)
+    state = bridge.train_state_from_jax(restored, cfg, mesh.device,
+                                        tp=TrainTP(cfg, mesh, rules))
+    etok = np.random.default_rng(2).integers(0, 256, (8, 32)).astype(np.int64)
+    nb = int(8 * plan.global_batch_scale)
+    batch = {"tokens": torch.from_numpy(etok[:nb]).to(mesh.device)}
+    step = ts.build_train_step(cfg, opt_lib.adamw(MESH_SMOKE_LR), mesh=mesh,
+                               rules=rules)
+    state, m = step(state, batch)
+    one = bridge.train_state_from_jax(restored, cfg, mesh.device)
+    one, m1 = ts.build_train_step(cfg, opt_lib.adamw(MESH_SMOKE_LR))(one, batch)
+    out = {"resume": dict(step=n, loss=float(m["loss"]), one_loss=float(m1["loss"]),
+                          params=_tree_np(step.tp.gather_params(state["params"])),
+                          one_params=_tree_np(one["params"]))}
+    del state, one
+    out["moonshot"] = mesh_full_rank(mesh, "moonshot-v1-16b-a3b", moon_spec,
+                                     moon_ref, MESH_MUTANTS["15e_moonshot"])
+    return out
+
+
+def _smoke_close(torch, np, a, b):
+    """(ok, worst, share) of two numpy trees within ``MESH_CARD_TOL``."""
+    ta = [torch.from_numpy(np.asarray(v)) for v in _paths(a).values()]
+    tb = [torch.from_numpy(np.asarray(v)) for v in _paths(b).values()]
+    return trees_close(torch, ta, tb, **MESH_CARD_TOL)
+
+
+def _moe_close(np, a, b) -> float:
+    """Largest gap of two MoE block results, relative to each tensor's
+    largest value."""
+    worst = 0.0
+    for k, v in a.items():
+        if k == "aux":
+            worst = max(worst, abs(v - b[k]) / max(abs(b[k]), 1e-30))
+            continue
+        worst = max(worst, float(np.abs(v - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)))
+    return worst
+
+
+def _bytes_by_kind(leaf_bytes, one_bytes):
+    """Per-rank bytes over one rank's, by kind of leaf: the routed
+    experts, the layers' other matrices, and each other leaf name."""
+    kinds = {}
+    for k, b in leaf_bytes.items():
+        parent, name = k.rsplit("/", 1)
+        if k.startswith("layers/") and parent + "/router" in leaf_bytes and \
+                name in ("w1", "w2", "wg"):
+            kind = "experts"
+        elif k.startswith("layers/") and one_bytes[k] >= 1 << 20:
+            kind = "layer_matrices"  # the norms' scales are a few KB
+        else:
+            kind = k.split("/")[0] + "/" + name
+        s = kinds.setdefault(kind, [0, 0])
+        s[0] += b
+        s[1] += one_bytes[k]
+    return {k: round(v[0] / v[1], 4) for k, v in kinds.items()}
+
+
+def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
+                     moon_spec=MESH_MOON):
+    """Phase 15: sharded training on the card (module docstring).  With
+    ``dev`` the CPU and smoke specs, a rehearsal on the CPU."""
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch.mesh import run_ranks
+
+    res: dict = {}
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    card_dev = dev.type
+    mesh22 = dict(backend="gloo", shape=(2, 2), axes=("data", "model"),
+                  timeout_s=600)
+    ck = str(tmp / "elastic_ckpt")
+    yi_ref, moon_ref = str(tmp / "yi_grads.pt"), str(tmp / "moon_grads.pt")
+    with ThreadPoolExecutor(1) as ex:
+        # the CPU ranks run beside the one-rank runs, which use the card
+        t0 = time.perf_counter()
+        f_cpu = ex.submit(run_ranks, mesh_smoke_rank, 4, device="cpu",
+                          args=(None, None, None), **mesh22)
+        # 15a: one rank on the card and on the CPU
+        rng = np.random.default_rng(1)
+        tokens = rng.integers(0, 256, (4, 32)).astype(np.int64)
+        one = {tag: {d.type: mesh_train_steps(torch, np, mesh_smoke_cfg(tag), None,
+                                              None, 3, MESH_SMOKE_LR, tokens, d)
+                     for d in (dev, torch.device("cpu"))}
+               for tag in ("yi", "tiny")}
+        # 15d's and 15e's one rank, freed before the ranks draw theirs
+        yi_one = mesh_full_one(torch, np, dev, "yi-9b", yi_spec, yi_ref)
+        moon_one = mesh_full_one(torch, np, dev, "moonshot-v1-16b-a3b", moon_spec,
+                                 moon_ref)
+        res["one_rank_s"] = round(time.perf_counter() - t0, 1)
+        # 15a-d: (2, 2) on the card
+        t0 = time.perf_counter()
+        card, c = run_ranks(mesh_smoke_rank, 4, device=card_dev,
+                            args=(ck, yi_spec, yi_ref), **mesh22)
+        add(c)
+        res["ranks_22_s"] = round(time.perf_counter() - t0, 1)
+        cpu, _ = f_cpu.result()
+        # 15c compression on 4 data ranks beside 15c's and 15e's (1, 2)
+        t0 = time.perf_counter()
+        f_comp = ex.submit(run_ranks, mesh_compression_rank, 4, backend="gloo",
+                           device=card_dev, shape=(4,), axes=("data",),
+                           timeout_s=300)
+        tail, c = run_ranks(mesh_resume_rank, 2, backend="gloo", device=card_dev,
+                            shape=(1, 2), axes=("data", "model"),
+                            args=(ck, moon_spec, moon_ref), timeout_s=600)
+        add(c)
+        comp, c = f_comp.result()
+        add(c)
+        res["ranks_12_and_4_s"] = round(time.perf_counter() - t0, 1)
+
+    # 15a: card ranks == one rank on the card == CPU
+    for tag in ("yi", "tiny"):
+        ref_l, ref_p = one[tag]["cpu"]
+        for what, (l, p) in [("one rank on the card", one[tag][card_dev])] + \
+                [(f"card rank {r}", card[r][tag]) for r in (0,)] + \
+                [("CPU ranks", cpu[0][tag])]:
+            check(np.allclose(l, ref_l, **MESH_LOSS_TOL),
+                  f"15a {tag} {what} losses {l} vs CPU {ref_l}")
+            ok, worst, share = _smoke_close(torch, np, p, ref_p)
+            check(ok, f"15a {tag} {what} params vs CPU: worst {worst}, share {share}")
+            res[f"15a_{tag}_{what.replace(' ', '_')}"] = dict(
+                losses=[round(x, 6) for x in l], param_worst=worst, param_share=share)
+        for r in range(4):
+            check(card[r][tag][0] == card[0][tag][0], f"15a {tag} rank losses differ")
+        check(ref_l[-1] < ref_l[0], f"15a {tag} loss not falling {ref_l}")
+    # 15b: MoE blocks card == CPU, rank by rank
+    for tag in ("ep", "ep2d"):
+        gap = max(_moe_close(np, card[r][tag], cpu[r][tag]) for r in range(4))
+        check(gap <= MESH_MOE_TOL, f"15b {tag} card vs CPU gap {gap}")
+        res[f"15b_{tag}_card_vs_cpu"] = gap
+    # 15c: compression and elastic
+    for r in comp:
+        check(r["same"] < 2e-2 and r["distinct"] < 2e-2, f"15c compression {r}")
+    res["15c_compression_rel_err"] = comp[0]
+    # elastic: the (1, 2) mesh resumed from the (2, 2) checkpoint == one
+    # rank resumed from it on the card
+    resumed = tail[0]["resume"]
+    ok, worst, share = _smoke_close(torch, np, resumed["params"], resumed["one_params"])
+    res["15c_elastic"] = dict(first=card[0]["elastic"], step=resumed["step"],
+                              loss=resumed["loss"], one_rank_loss=resumed["one_loss"],
+                              param_worst=worst, param_share=share)
+    check(all(np.isfinite(card[0]["elastic"])) and resumed["step"] == 1,
+          f"15c elastic {res['15c_elastic']}")
+    check(np.allclose(resumed["loss"], resumed["one_loss"], **MESH_LOSS_TOL),
+          f"15c elastic resumed loss {resumed['loss']} vs one rank's "
+          f"{resumed['one_loss']}")
+    check(ok, f"15c elastic params vs one rank: worst {worst}, share {share}")
+    check(resumed["loss"] == tail[1]["resume"]["loss"], "15c ranks differ")
+    # 15d/e: the full-width runs against one rank
+    for tag, ranks, ref in (("15d_yi9b", [r["yi9b"] for r in card], yi_one),
+                            ("15e_moonshot", [t["moonshot"] for t in tail], moon_one)):
+        loss_gap = max(abs(r["first_loss"] - ref["first_loss"]) / abs(ref["first_loss"])
+                       for r in ranks)
+        routed = {k for k in ranks[0]["gaps"]
+                  if k.rsplit("/", 1)[0] + "/router" in ranks[0]["gaps"]}
+        dense = [(g[0], k) for r in ranks for k, g in r["gaps"].items()
+                 if k not in routed]
+        grad_gap, worst_leaf = max(dense)
+        out = dict(first_loss=ranks[0]["first_loss"], one_rank_first_loss=ref["first_loss"],
+                   loss_gap=loss_gap, grad_gap=grad_gap, worst_leaf=worst_leaf,
+                   grad_norm_gap=max(g[1] for r in ranks for g in r["gaps"].values()),
+                   losses=ranks[0]["losses"], one_rank_losses=ref["losses"],
+                   step_wall_ms=ranks[0]["step_wall_ms"],
+                   one_rank_step_wall_ms=ref["step_wall_ms"],
+                   allreduce_per_step=ranks[0]["traffic"][-1],
+                   param_bytes_ratio=ranks[0]["param_bytes"] / ref["param_bytes"],
+                   opt_bytes_ratio=ranks[0]["opt_bytes"] / ref["opt_bytes"],
+                   bytes_by_kind=_bytes_by_kind(ranks[0]["leaf_bytes"], ref["leaf_bytes"]),
+                   peak_gb=max(r["peak_gb"] for r in ranks))
+        if routed:
+            # routing flips where bf16 rounding moves a near tie: each moves
+            # a token's whole contribution, so these are held in norm
+            out["routed"] = {k: max(r["gaps"][k] for r in ranks) for k in sorted(routed)}
+            out["routed_norm_gap"] = max(v[1] for v in out["routed"].values())
+            moves = [r["route_moves"] for r in ranks]
+            out["route_moves"] = dict(tokens=max(m[0] for m in moves),
+                                      assignments=max(m[1] for m in moves),
+                                      of=moves[0][2])
+            out["moe_out_gap"] = max(r["moe_out_gap"] for r in ranks)
+            check(out["routed_norm_gap"] <= MESH_ROUTED_GRAD_TOL,
+                  f"{tag} routed experts' gradient norm gap {out['routed_norm_gap']}")
+            check(out["moe_out_gap"] <= MESH_MOE_OUT_TOL,
+                  f"{tag} routed experts' output norm gap {out['moe_out_gap']}")
+        # each mutant must be refused by the limit it is held to
+        out["mutants"] = {}
+        for name, held in MESH_MUTANTS[tag].items():
+            if held == "loss":
+                gap = max(abs(r["mutants"][name] - ref["first_loss"])
+                          / abs(ref["first_loss"]) for r in ranks)
+                refused = gap > MESH_FULL_LOSS_TOL
+            elif held == "moe_out":
+                gap = max(r["mutants"][name] for r in ranks)
+                refused = gap > MESH_MOE_OUT_TOL
+            elif held == "grads":
+                gap = max(g[0] for r in ranks for k, g in r["mutants"][name].items()
+                          if k not in routed)
+                refused = gap > MESH_FULL_GRAD_TOL
+            else:
+                gap = max(r["mutants"][name][k][1] for r in ranks for k in routed)
+                refused = gap > MESH_ROUTED_GRAD_TOL
+            out["mutants"][name] = dict(held_to=held, gap=gap)
+            check(refused, f"{tag} the {name} mutant passes its {held} limit: {gap}")
+        res[tag] = out
+        check(loss_gap <= MESH_FULL_LOSS_TOL, f"{tag} first loss gap {loss_gap}")
+        check(grad_gap <= MESH_FULL_GRAD_TOL, f"{tag} gradient gap {grad_gap} "
+              f"({worst_leaf})")
+        check(all(np.isfinite(ranks[0]["losses"])) and
+              ranks[0]["losses"][-1] < ranks[0]["losses"][0],
+              f"{tag} losses {ranks[0]['losses']}: not finite or not falling")
+        for r in ranks:
+            check(r["losses"] == ranks[0]["losses"], f"{tag} rank losses differ")
+    ek = res["15e_moonshot"]["bytes_by_kind"].get("experts")
+    check(ek is not None and abs(ek - 0.5) < 1e-6, f"15e expert bytes per rank {ek}")
+    check(sum(counts.values()) == 0, f"15 training launched {counts}")
+    return counts, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3966,6 +4747,23 @@ def main() -> int:
         print(f"  {k}: {v}")
     print(f"phase 14 total: {time.perf_counter() - t14:.1f} s")
 
+    free(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_counts, mesh_train = phase_mesh_train(torch, np, dev, Path(tmp))
+    print(f"phase 15 sharded training, ranks on one card over gloo, TF32 off: "
+          f"15a yi/tinylm smoke (2, 2) FSDP == one rank on the card == CPU; 15b "
+          f"routed EP (Moonshot smoke) and 2-D EP (DeepSeek-V3 smoke) card == "
+          f"CPU; 15c compression on 4 data ranks, elastic (2, 2) -> (1, 2) == one "
+          f"rank resumed; 15d "
+          f"yi-9b {MESH_YI['layers']} layers full width bf16 remat (2, 2) FSDP "
+          f"AdamW, {MESH_YI['steps']} steps of {MESH_YI['B']} x {MESH_YI['S']}; "
+          f"15e moonshot {MESH_MOON['layers']} layers full width routed EP "
+          f"(1, 2) ({card}): {time.perf_counter() - t0:.1f} s, launches "
+          f"{mesh_counts}")
+    for k, v in mesh_train.items():
+        print(f"  {k}: {v}")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -4058,7 +4856,7 @@ def main() -> int:
              "families": family, "frontends_smoke": fe_smoke,
              "frontends": frontends, "train_smoke": train_smoke,
              "train_tinylm": train_tiny, "train_yi9b": yi_train,
-             "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp,
+             "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp, "mesh_train": mesh_train,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

@@ -28,18 +28,17 @@ from repro_torch.models import decoder
 
 def _to_torch(tree: Any, device, tp=None, specs: Any = None) -> Any:
     """numpy (or torch) leaves -> torch tensors on ``device``; with ``tp``
-    (a ``distributed.tp.PagedTP``) and the subtree's ``specs``, each leaf
-    is cut to the rank's block before it is converted."""
+    (a ``distributed.tp.PagedTP`` or ``TrainTP``) and the subtree's
+    ``specs``, each leaf is cut to the rank's block before it is
+    converted."""
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, tp, None if specs is None else specs[k])
                 for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):  # e.g. a restored bf16 checkpoint leaf
         return (tree if tp is None else tp.block(tree, specs)).to(device)
     arr = np.asarray(tree)
-    if tp is not None and tp.n > 1:
-        for d in tp.split_dims(specs):
-            w = arr.shape[d] // tp.n
-            arr = arr[(slice(None),) * d + (slice(tp.rank * w, (tp.rank + 1) * w),)]
+    if tp is not None:
+        arr = arr[tp.slices(specs, arr.shape)]
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits
         bits = torch.from_numpy(arr.view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
@@ -68,10 +67,10 @@ def per_layer(tree: Dict[str, Dict[str, Any]], cfg) -> Dict[int, Any]:
 
 def params_from_jax(tree: Dict, cfg, device=None, tp=None) -> Dict:
     """Reference ``decoder.init_params`` tree (numpy leaves) -> the
-    port's parameters on ``device``.  With ``tp`` (a tensor-parallel
-    rank's ``distributed.tp.PagedTP``) -> that rank's blocks only, cut
-    leaf by leaf on the host: no rank materializes the whole model on
-    its device (Yi-9B whole is 17.7 GB in bf16)."""
+    port's parameters on ``device``.  With ``tp`` (a rank's
+    ``distributed.tp.PagedTP`` or ``TrainTP``) -> that rank's blocks
+    only, cut leaf by leaf on the host: no rank materializes the whole
+    model on its device (Yi-9B whole is 17.7 GB in bf16)."""
     device = backend.resolve_device(device)
     specs = tp.param_specs if tp is not None else {}
     layers = per_layer({k: v for k, v in tree.items() if k.startswith("seg")},
@@ -139,15 +138,18 @@ def params_to_jax(params: Dict, cfg) -> Dict:
     return _host(ref_view(params, cfg))
 
 
-def train_state_from_jax(state: Dict, cfg, device=None) -> Dict:
+def train_state_from_jax(state: Dict, cfg, device=None, tp=None) -> Dict:
     """A reference train state (``{params, opt, step}``, numpy leaves, as
     ``repro.checkpoint`` restores it) -> the port's on ``device``.  The
     port keeps the optimizer state in the reference's layout
     (``training/optimizer.py``), so ``opt`` and ``step`` cross leaf for
-    leaf; the parameters are split per layer."""
+    leaf; the parameters are split per layer.  With ``tp`` (a training
+    rank's ``distributed.tp.TrainTP``) -> that rank's blocks of every
+    leaf."""
     device = backend.resolve_device(device)
-    return {"params": params_from_jax(state["params"], cfg, device),
-            "opt": _to_torch(state["opt"], device),
+    return {"params": params_from_jax(state["params"], cfg, device, tp),
+            "opt": _to_torch(state["opt"], device, tp,
+                             None if tp is None else tp.opt_specs(state["opt"])),
             "step": _to_torch(state["step"], device)}
 
 

@@ -20,17 +20,33 @@ The tensor-parallel hooks of the paged serving path: inside
 over the mesh's process group, in place.  The layers call it after every
 contraction over a sharded axis (attention out-projection, FF
 down-projection, GRIFFIN row norms).  Outside the scope it is the
-identity, so the single-device path is untouched.  Each rank runs its
-own shard's program (the reference's shard_map form).  Only the paged
-serving rules are ported; the training-mesh rule table comes with the
-training mesh.
+identity, so the single-device path is untouched.  It has no backward and
+serves only the serving path, which builds no autograd graph.
+
+The training mesh (``launch.mesh.TrainMesh``, rules from ``make_rules``):
+inside ``with axis_rules(mesh, rules)`` each rank runs its own shard's
+program (the reference's ``shard_map`` form, where the reference itself
+leaves the collectives to GSPMD), and the layers meet the other ranks
+through the differentiable collectives below, each a conjugate pair
+built on ``all_reduce`` alone (gloo reduces CUDA tensors with
+``all_reduce`` and ``broadcast`` only):
+
+* ``enter(x, axis)``: identity forward, all-reduce backward — where a
+  replicated activation enters a computation split over ``axis``
+  (before a column-split projection);
+* ``reduce(x, axis)``: all-reduce forward, identity backward — the
+  partial sums after a row-split projection;
+* ``gather(xs, dims, axis)``: all-gather forward, reduce-scatter backward
+  (FSDP's per-layer weight gather): each rank writes its block into a
+  zeroed buffer of the full size and the buffer is all-reduced, which is
+  exact; the backward all-reduces the full gradient and keeps the block.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import warnings
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -43,6 +59,225 @@ Rules = Dict[str, MeshAxes]
 Spec = Tuple[MeshAxes, ...]
 
 _state = threading.local()
+
+
+def _current() -> Tuple[Any, Optional[Rules]]:
+    return getattr(_state, "mesh", None), getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: Rules):
+    """Run the enclosed layers as one rank's shard of the training mesh
+    ``mesh`` (a ``launch.mesh.TrainMesh``) under ``rules``."""
+    prev = _current()
+    _state.mesh, _state.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _state.mesh, _state.rules = prev
+
+
+def active_rules() -> Tuple[Any, Optional[Rules]]:
+    """``(mesh, rules)`` of the active ``axis_rules`` scope, or Nones."""
+    return _current()
+
+
+def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
+    """The reference's activation-sharding hint, as the identity.
+
+    The reference hands GSPMD a layout for ``x`` and lets it place the
+    collectives; here each rank runs its own shard's program, so an
+    activation already has the layout its producer gave it and the
+    layers place their collectives themselves.  Kept so layer code reads
+    as the reference's; it checks the rank of ``axes`` as the reference
+    does."""
+    mesh, rules = _current()
+    if mesh is not None and rules is not None and len(axes) != x.dim():
+        raise ValueError(f"axes {axes} rank != array rank {x.dim()} "
+                         f"({tuple(x.shape)})")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives of the training mesh
+# ---------------------------------------------------------------------------
+
+def _axes(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _group(axis):
+    mesh, _ = _current()
+    if mesh is None:
+        raise RuntimeError("a training collective outside axis_rules")
+    return mesh, mesh.group(_axes(axis))
+
+
+#: the training mesh's all-reduces in this process (calls, bytes sent
+#: into them), for the per-step counts; ``reset_traffic`` zeroes them
+TRAFFIC = {"calls": 0, "bytes": 0}
+
+
+def reset_traffic() -> None:
+    TRAFFIC.update(calls=0, bytes=0)
+
+
+def all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """``dist.all_reduce`` in place, counted in ``TRAFFIC``."""
+    TRAFFIC["calls"] += 1
+    TRAFFIC["bytes"] += t.numel() * t.element_size()
+    if op is None:
+        dist.all_reduce(t, group=group)
+    else:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over ``group`` in ``x``'s dtype (a fresh tensor)."""
+    return all_reduce_(x.contiguous().clone(), group)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Identity forward, all-reduce over ``axis`` backward: a replicated
+    activation entering a computation split over ``axis``."""
+    mesh, group = _group(axis)
+    return _Enter.apply(x, group)
+
+
+def reduce(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """All-reduce over ``axis`` forward (in ``x``'s dtype, as
+    ``lax.psum``), identity backward: the partial sums of a row-split
+    projection, replicated after the sum."""
+    mesh, group = _group(axis)
+    return _Reduce.apply(x, group)
+
+
+def _blocks(mesh, axis, shapes, dims):
+    n, r = mesh.extent(_axes(axis)), mesh.coord(_axes(axis))
+    return n, r, [tuple(s[:d]) + (s[d] * n,) + tuple(s[d + 1:])
+                  for s, d in zip(shapes, dims)]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, *xs):
+        group = mesh.group(_axes(axis))
+        n, r, full = _blocks(mesh, axis, [x.shape for x in xs], dims)
+        ctx.group, ctx.dims, ctx.n, ctx.r = group, dims, n, r
+        ctx.meta = [(x.dtype, x.shape) for x in xs]
+        outs: List[Optional[torch.Tensor]] = [None] * len(xs)
+        for dt in dict.fromkeys(x.dtype for x in xs):
+            idx = [i for i, x in enumerate(xs) if x.dtype == dt]
+            total = sum(torch.Size(full[i]).numel() for i in idx)
+            buf = torch.zeros(total, dtype=dt, device=xs[idx[0]].device)
+            off = 0
+            for i in idx:
+                view = buf[off: off + torch.Size(full[i]).numel()].view(full[i])
+                w = xs[i].shape[dims[i]]
+                view.narrow(dims[i], r * w, w).copy_(xs[i])
+                outs[i] = view
+                off += view.numel()
+            all_reduce_(buf, group)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        grads: List[Optional[torch.Tensor]] = [None] * len(gs)
+        for dt in dict.fromkeys(m[0] for m in ctx.meta):
+            idx = [i for i, m in enumerate(ctx.meta) if m[0] == dt]
+            parts = []
+            for i in idx:
+                full = list(ctx.meta[i][1])
+                full[ctx.dims[i]] *= ctx.n
+                g = gs[i]
+                parts.append(torch.zeros(full, dtype=dt,
+                                         device=_device_of(gs)).reshape(-1)
+                             if g is None else g.to(dt).reshape(-1))
+            buf = torch.cat(parts)
+            all_reduce_(buf, ctx.group)
+            off = 0
+            for i in idx:
+                full = list(ctx.meta[i][1])
+                full[ctx.dims[i]] *= ctx.n
+                size = torch.Size(full).numel()
+                view = buf[off: off + size].view(full)
+                w = ctx.meta[i][1][ctx.dims[i]]
+                grads[i] = view.narrow(ctx.dims[i], ctx.r * w, w).contiguous()
+                off += size
+        return (None, None, None) + tuple(grads)
+
+
+def _device_of(ts) -> torch.device:
+    return next(t.device for t in ts if t is not None)
+
+
+def gather(xs: Sequence[torch.Tensor], dims: Sequence[int],
+           axis="data") -> Tuple[torch.Tensor, ...]:
+    """All-gather each of ``xs`` along its ``dims[i]`` over ``axis``
+    forward (one all-reduce per dtype: this rank's blocks written into a
+    zeroed buffer of the full sizes), reduce-scatter backward (the full
+    gradients all-reduced, this rank's blocks kept).  FSDP's weight
+    gather: the backward sums the data ranks' gradients."""
+    mesh, _ = _group(axis)
+    if not xs:
+        return ()
+    return _Gather.apply(mesh, axis, tuple(dims), *xs)
+
+
+def all_sum(x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum over ``axis`` of a tensor outside autograd (metrics, counts);
+    the identity for no axes."""
+    mesh, _ = _current()
+    axes = _axes(axis)
+    if mesh is None or not axes:
+        return x
+    return _all_reduce(x.detach(), mesh.group(axes))
+
+
+def all_max(x: torch.Tensor, axis) -> torch.Tensor:
+    """Maximum over ``axis`` of a tensor outside autograd."""
+    mesh, _ = _current()
+    axes = _axes(axis)
+    out = x.detach().contiguous().clone()
+    if mesh is not None and axes:
+        all_reduce_(out, mesh.group(axes), dist.ReduceOp.MAX)
+    return out
+
+
+def batch_axes(mesh, rules: Optional[Rules] = None) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over (``pod``, ``data``)."""
+    rule = (rules or {}).get("batch", ("pod", "data"))
+    return tuple(a for a in _axes(rule or ()) if a in mesh.axis_names)
+
+
+def model_split(local: int, full: int) -> bool:
+    """Whether a dimension of ``full`` that a layer holds ``local`` of is
+    split over ``model`` on the active training mesh (its spec kept the
+    axis; a dimension whose axis was dropped for divisibility is whole)."""
+    mesh, _ = _current()
+    return mesh is not None and local != full
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +422,57 @@ def tree_specs(spec_tree: Any, mesh, rules: Rules) -> Any:
 # Rule policies
 # ---------------------------------------------------------------------------
 
+def make_rules(
+    *,
+    phase: str,  # "train" | "serve"
+    fsdp: bool = False,
+    seq_parallel: bool = False,
+    expert_2d: bool = False,
+    kv_seq_model: bool = False,
+    head_dim_fallback: bool = False,
+) -> Rules:
+    """Build a logical->mesh rule set (the reference's table).
+
+    fsdp:         shard the ``embed`` axis of weights over ``data``
+                  (ZeRO-3-ish; weights gathered per layer).
+    seq_parallel: shard boundary activations' ``seq`` over ``model``
+                  (sequence parallelism; the port's train step refuses it).
+    expert_2d:    shard ``experts`` over (data, model)
+                  (deepseek: 256 experts == 16x16 mesh exactly).
+    kv_seq_model: additionally shard decode KV caches' sequence axis over
+                  ``model`` — used when the arch's kv_heads cannot occupy
+                  the model axis.
+    """
+    rules: Rules = {
+        "batch": ("pod", "data"),
+        "seq": ("model",) if seq_parallel else None,
+        "act_embed": None,
+        "embed": "data" if fsdp else None,
+        "mlp": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        # decode-only TP fallback: when an arch's (kv-)head count can't
+        # occupy the 16-way model axis, shard head_dim instead
+        "head_dim": "model" if head_dim_fallback else None,
+        "vocab": "model",
+        "tok_vocab": None,  # untied embedding table rows: replicate
+        "lora": None,
+        "experts": ("data", "model") if expert_2d else "model",
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "ssm_state": None,
+        "lru": "model",
+        "conv": None,
+        "layers": None,
+        # decode KV cache sequence axis: context parallelism over data
+        # (and model, when kv-heads can't use it)
+        "kv_seq": ("data", "model") if kv_seq_model else "data",
+        "cap": None,
+        "window": ("data", "model") if kv_seq_model else "data",
+    }
+    return rules
+
+
 def make_paged_tp_rules(axis: str = "model") -> Rules:
     """Logical->mesh rules for tensor-parallel *paged serving*.
 
@@ -215,3 +501,6 @@ def make_paged_tp_rules(axis: str = "model") -> Rules:
         "layers": None,
     }
 
+
+def describe(rules: Rules) -> str:
+    return ", ".join(f"{k}->{v}" for k, v in rules.items() if v)

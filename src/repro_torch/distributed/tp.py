@@ -202,6 +202,12 @@ class PagedTP:
         return [d for d, ax in enumerate(spec)
                 if self.axis in ((ax,) if isinstance(ax, str) else (ax or ()))]
 
+    def slices(self, spec: shlib.Spec, shape) -> Tuple[slice, ...]:
+        """This rank's block of a leaf of global ``shape``."""
+        dims = self.split_dims(spec)
+        return tuple(slice(self.rank * (s // self.n), (self.rank + 1) * (s // self.n))
+                     if d in dims else slice(None) for d, s in enumerate(shape))
+
     def block(self, t: torch.Tensor, spec: shlib.Spec) -> torch.Tensor:
         """This rank's contiguous block of a global tensor along every
         dimension ``spec`` splits over the axis (a fresh tensor, so the
@@ -312,3 +318,271 @@ class PagedTP:
                 params, self.cfg_local, pools, bts, toks, pos, mask,
                 backend=self.backend, kv_dtype=self.kv_dtype,
             )
+
+
+# ---------------------------------------------------------------------------
+# training mesh
+# ---------------------------------------------------------------------------
+
+def _axes_of(ax) -> Tuple[str, ...]:
+    return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+
+def _pad(spec, ndim: int) -> Tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def block_slices(spec, shape, mesh) -> Tuple[slice, ...]:
+    """The block of a leaf of global ``shape`` that ``mesh``'s rank holds
+    under a resolved ``spec``: along each split dimension, the block index
+    over its axes (major to minor, the reference's ``NamedSharding``
+    order)."""
+    out = []
+    for d, ax in enumerate(_pad(spec, len(shape))):
+        axes = _axes_of(ax)
+        if not axes:
+            out.append(slice(None))
+            continue
+        n, i = mesh.extent(axes), mesh.coord(axes)
+        w = shape[d] // n
+        out.append(slice(i * w, (i + 1) * w))
+    return tuple(out)
+
+
+def block_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``mesh``'s rank's block of a global tensor (a fresh tensor when
+    cut, so the global one can be freed)."""
+    if not any(_axes_of(ax) for ax in spec):
+        return t
+    return t[block_slices(spec, t.shape, mesh)].clone()
+
+
+#: the largest all-reduce ``TrainTP.sync_grads`` packs gradients into
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+def _map2(fn, a: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``a`` (dicts; a list of ParamSpecs or
+    tensors is one stacked leaf, as in ``bridge.ref_view``)."""
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], *(r[k] for r in rest)) for k in a}
+    return fn(a, *rest)
+
+
+class TrainTP:
+    """This rank's share of a training mesh (``launch.mesh.TrainMesh``)
+    under ``rules`` (``sharding.make_rules``): the resolved specs of the
+    parameters (``decoder.train_specs``) and of the optimizer state, the
+    placement of a whole train state leaf by leaf, the gradient sums over
+    the batch axes, and the gather back to full arrays for checkpoints.
+
+    Each leaf is held as this rank's block along every dimension its spec
+    splits (block index over a tuple of axes major to minor, the
+    reference's ``NamedSharding`` order); a leaf is replicated over the
+    axes its spec does not name.  The optimizer state follows its
+    parameter: moments and 8-bit codes as the parameter (under
+    ``bridge.ref_view``'s stacked layout, with an unsplit leading axis),
+    8-bit scales as the parameter unless a rank's block cuts through the
+    256-wide blocks (then replicated along the last dim), Adafactor's row
+    factor as the parameter without its last dim and its column factor
+    without its second to last."""
+
+    def __init__(self, cfg, mesh, rules):
+        if rules.get("seq"):
+            raise ValueError(
+                "seq_parallel: sequence parallelism is not ported to the "
+                "PyTorch train step (ROADMAP, Queue A item 4)")
+        self.cfg, self.mesh, self.rules = cfg, mesh, rules
+        self.param_shapes = decoder.model_specs(cfg)
+        self.param_specs = decoder.train_specs(cfg, mesh, rules)
+        self.batch_axes = shlib.batch_axes(mesh, rules)
+
+    # -- blocks ------------------------------------------------------------
+    def split_axes(self, spec) -> Tuple[str, ...]:
+        return tuple(a for ax in spec for a in _axes_of(ax))
+
+    def slices(self, spec, shape) -> Tuple[slice, ...]:
+        """This rank's block of a leaf of global ``shape``."""
+        return block_slices(spec, shape, self.mesh)
+
+    def block(self, t, spec):
+        """This rank's block of a global tensor."""
+        return block_of(t, spec, self.mesh)
+
+    def owner(self, spec) -> bool:
+        """Whether this rank is the first replica of its block (coordinate
+        0 along every axis the spec does not split)."""
+        used = set(self.split_axes(spec))
+        return all(c == 0 for a, c in self.mesh.coords.items() if a not in used)
+
+    # -- spec trees --------------------------------------------------------
+    def _ref(self, tree):
+        from repro_torch import bridge
+
+        return bridge.ref_view(tree, self.cfg)
+
+    def _straddles(self, shape, spec) -> bool:
+        from repro_torch.training.optimizer import _QBLOCK
+
+        ax = _pad(spec, len(shape))[-1] if shape else None
+        n = self.mesh.extent(_axes_of(ax))
+        return n > 1 and (shape[-1] // n) % _QBLOCK != 0
+
+    def opt_specs(self, opt: Dict) -> Dict:
+        """Specs of an optimizer state (``{m, v}``, ``{m: {q, s}}``,
+        ``{f: {r, c} | {v}}``, ``step``) in ``bridge.ref_view`` layout."""
+        def leaf(ps, rs, st):
+            stacked = isinstance(ps, list)
+            shape = (ps[0] if stacked else ps).shape
+            spec = _pad(rs[0] if stacked else rs, len(shape))
+            full = ((None,) if stacked else ()) + spec
+            if isinstance(st, dict) and "q" in st:
+                s_spec = full[:-1] + (None,) if self._straddles(shape, spec) else full
+                return {"q": full, "s": s_spec}
+            if isinstance(st, dict) and "r" in st:
+                return {"r": full[:-1], "c": full[:-2] + full[-1:]}
+            if isinstance(st, dict):
+                return {"v": full}
+            return full
+
+        shapes, specs = self._ref(self.param_shapes), self._ref(self.param_specs)
+        return {k: () if k == "step" else _map2(leaf, shapes, specs, v)
+                for k, v in opt.items()}
+
+    def leaf_shards(self) -> Dict:
+        """The optimizer's ``LeafShard`` tree (``bridge.ref_view`` layout)."""
+        from repro_torch.training.optimizer import LeafShard
+
+        m = self.mesh
+
+        def leaf(ps, rs):
+            ps = ps[0] if isinstance(ps, list) else ps
+            rs = _pad(rs[0] if isinstance(rs, list) else rs, len(ps.shape))
+            sl = self.slices(rs, ps.shape)
+            used = self.split_axes(rs)
+            return LeafShard(
+                shape=tuple(ps.shape),
+                offsets=tuple(s.start or 0 for s in sl),
+                groups=tuple(m.group(_axes_of(ax)) for ax in rs),
+                owner=self.owner(rs), world=m.group(m.axes),
+                split=m.group(used) if used else None)
+
+        return _map2(leaf, self._ref(self.param_shapes),
+                     self._ref(self.param_specs))
+
+    # -- placement ---------------------------------------------------------
+    def _walk(self, fn, tree, specs):
+        if isinstance(tree, dict):
+            return {k: self._walk(fn, v, specs[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._walk(fn, v, specs[i]) for i, v in enumerate(tree)]
+        return fn(tree, specs)
+
+    def shard_params(self, params: Dict, device=None) -> Dict:
+        """This rank's blocks of a global parameter tree, moved to
+        ``device`` if given."""
+        return self._walk(lambda t, s: self.block(t, s) if device is None
+                          else self.block(t, s).to(device), params,
+                          self.param_specs)
+
+    def init_params(self, seed: int = 0, device=None) -> Dict:
+        """This rank's blocks of ``decoder.init_params(cfg, seed, device)``,
+        each global leaf drawn as the single device draws it, then cut."""
+        resolved: Dict[int, Any] = {}
+
+        def note(ps, rs):
+            if isinstance(ps, dict):
+                for k in ps:
+                    note(ps[k], rs[k])
+            elif isinstance(ps, list):
+                for a, b in zip(ps, rs):
+                    note(a, b)
+            else:
+                resolved[id(ps)] = rs
+
+        note(self.param_shapes, self.param_specs)
+        return param_lib.init_params(
+            self.param_shapes, seed, self.cfg.dtype,
+            torch.device(device) if device is not None else self.mesh.device,
+            select=lambda s, t: self.block(t, resolved[id(s)]))
+
+    def init_train_state(self, optimizer, seed: int = 0, device=None) -> Dict:
+        """This rank's train state: ``init_params`` and the optimizer's
+        initial state of its blocks."""
+        params = self.init_params(seed, device)
+        dev = params["final_norm"]["scale"].device
+        return {"params": params,
+                "opt": optimizer.init(self._ref(params), shard=self.leaf_shards()),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    # -- gradients ---------------------------------------------------------
+    def sync_grads(self, grads: Dict) -> Dict:
+        """Sum each gradient over the batch axes its leaf is not split
+        over, in place (FSDP leaves arrive summed over ``data`` from the
+        gather's backward; a leaf split over ``data`` by its experts sees
+        only its rows' tokens).  Leaves are packed by (axes, dtype) into
+        buckets of at most ``GRAD_BUCKET_BYTES``, one all-reduce each, in the
+        same order on every rank."""
+        packs: Dict[Tuple, List[torch.Tensor]] = {}
+
+        def note(g, spec):
+            axes = tuple(a for a in self.batch_axes
+                         if a not in self.split_axes(spec))
+            if axes and self.mesh.extent(axes) > 1:
+                packs.setdefault((axes, g.dtype), []).append(g)
+            return g
+
+        self._walk(note, grads, self.param_specs)
+        for (axes, _), gs in packs.items():
+            group = self.mesh.group(axes)
+            i = 0
+            while i < len(gs):
+                j, size = i, 0
+                while j < len(gs) and (j == i or size + gs[j].numel()
+                                       * gs[j].element_size() <= GRAD_BUCKET_BYTES):
+                    size += gs[j].numel() * gs[j].element_size()
+                    j += 1
+                buf = torch.cat([g.reshape(-1) for g in gs[i:j]])
+                shlib.all_reduce_(buf, group)
+                off = 0
+                for g in gs[i:j]:
+                    g.copy_(buf[off: off + g.numel()].view_as(g))
+                    off += g.numel()
+                i = j
+        return grads
+
+    # -- gathering ---------------------------------------------------------
+    def _gather_leaf(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The global tensor of a leaf (every rank gets it, on the host
+        for gloo): each block written by its first replica into zeros,
+        summed over the mesh."""
+        spec = _pad(spec, t.dim())
+        shape = tuple(s * self.mesh.extent(_axes_of(ax))
+                      for s, ax in zip(t.shape, spec))
+        if shape == tuple(t.shape):
+            return t.detach().cpu() if self.mesh.backend == "gloo" else t.detach()
+        dev = torch.device("cpu") if self.mesh.backend == "gloo" else t.device
+        full = torch.zeros(shape, dtype=t.dtype, device=dev)
+        if self.owner(spec):
+            full[self.slices(spec, shape)] = t.detach().to(dev)
+        # sum the bit patterns as integers: one rank writes each element,
+        # so the sum is that element's bits, signed zeros included
+        bits = full.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            full.element_size()]) if full.is_floating_point() else full
+        buf = bits.to(torch.int32) if bits.element_size() < 4 else bits
+        shlib.all_reduce_(buf, self.mesh.group(self.mesh.axes))
+        if buf is not bits:
+            bits.copy_(buf.to(bits.dtype))
+        return full
+
+    def gather_params(self, params: Dict) -> Dict:
+        """The global parameter tree (CPU for gloo), on every rank."""
+        return self._walk(self._gather_leaf, params, self.param_specs)
+
+    def gather_state(self, state: Dict) -> Dict:
+        """The global train state on every rank (CPU for gloo): what a
+        checkpoint holds."""
+        return {"params": self.gather_params(state["params"]),
+                "opt": self._walk(self._gather_leaf, state["opt"],
+                                  self.opt_specs(state["opt"])),
+                "step": state["step"].detach().cpu()}

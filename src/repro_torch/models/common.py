@@ -7,6 +7,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.param import ParamSpec
 
 
@@ -103,8 +104,26 @@ def embed_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
+def _vocab_offset(local: int) -> int:
+    """First vocabulary row of this rank's block on the training mesh."""
+    mesh, _ = shlib.active_rules()
+    return mesh.coord("model") * local
+
+
 def embed_lookup(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["table"][tokens]
+    """Rows of the table for ``tokens``.  On a training mesh whose rules
+    split the (tied) table's rows over ``model``, each rank looks up the
+    tokens it owns, zeros elsewhere, and the rows are summed over
+    ``model`` (exact: one rank contributes each row)."""
+    table = params["table"]
+    V = table.shape[0]
+    if shlib.model_split(V, cfg.vocab_size):
+        local = tokens - _vocab_offset(V)
+        own = (local >= 0) & (local < V)
+        x = table[local.clamp(0, V - 1)] * own[..., None].to(table.dtype)
+        x = shlib.reduce(x, "model")
+    else:
+        x = table[tokens]
     # gemma-style sqrt(d) scaling keeps tied-embedding logits sane; the
     # factor is rounded to the table dtype first (on the host: a device
     # scalar would cost a sync), as in the reference
@@ -121,11 +140,13 @@ def head_specs(cfg) -> Dict[str, ParamSpec]:
 
 def lm_logits(head_params: Dict, embed_params: Dict, x: torch.Tensor,
               cfg) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ embed_params["table"].T  # [..., V]
-    else:
-        logits = x @ head_params["w"]
-    logits = logits.float()
+    """fp32 logits.  On a training mesh that splits the vocabulary over
+    ``model`` they are this rank's block of the vocabulary (the loss
+    reduces over ``model``: ``decoder.chunked_ce``)."""
+    w = embed_params["table"].T if cfg.tie_embeddings else head_params["w"]
+    if shlib.model_split(w.shape[-1], cfg.vocab_size):
+        x = shlib.enter(x, "model")
+    logits = (x @ w).float()  # [..., V]
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = torch.tanh(logits / c) * c

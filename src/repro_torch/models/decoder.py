@@ -35,15 +35,27 @@ Public API:
                                              -> drafts, logits, pools
     extract_ffn_tree(params, cfg)            -> {li: dense-FF / MoE shared params}
     prune_stats_tree(stats, cfg)             -> {li: stats}
+    train_specs(cfg, mesh, rules)            -> resolved spec tree (training mesh)
+
+On a training mesh (``sharding.axis_rules``) ``hidden_forward`` and
+``loss_fn`` run one rank's shard: parameters are this rank's blocks of
+``train_specs``; each layer gathers its FSDP (``embed`` over ``data``)
+leaves inside the layer (so remat gathers them again in the
+recompute), the layers place their ``model`` collectives by the blocks
+they hold, and the loss is the global one (``chunked_ce``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import psum_if_tp
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.kernels import kv_quant
@@ -198,6 +210,137 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict:
 
 
 # ---------------------------------------------------------------------------
+# Training-mesh layout
+# ---------------------------------------------------------------------------
+
+#: mixers kept whole on every ``model`` rank on a training mesh: their
+#: leaves' ``model`` splits are dropped (ROADMAP lists the split ones)
+_WHOLE_MIXERS = ("ssm", "rec")
+_whole_warned: set = set()
+
+
+def _drop_model(spec):
+    def one(ax):
+        if ax is None or isinstance(ax, str):
+            return None if ax == "model" else ax
+        kept = tuple(a for a in ax if a != "model")
+        return kept[0] if len(kept) == 1 else (kept or None)
+    out = [one(ax) for ax in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def train_specs(cfg, mesh, rules) -> Dict:
+    """The resolved spec of every parameter on a training mesh
+    (``sharding.tree_specs`` of ``model_specs``), except that the SSM and
+    RG-LRU mixers stay whole over ``model`` (their FSDP splits stay); a
+    one-time warning says so."""
+    specs = shlib.tree_specs(model_specs(cfg), mesh, rules)
+    for li, desc in enumerate(layer_descs(cfg)):
+        if desc.mixer not in _WHOLE_MIXERS:
+            continue
+        mixer = specs["layers"][li]["mixer"]
+        new = {k: _drop_model(v) for k, v in mixer.items()}
+        if new != mixer and cfg.name not in _whole_warned:
+            _whole_warned.add(cfg.name)
+            warnings.warn(
+                f"{cfg.name}: the {desc.mixer} mixers stay whole on every "
+                f"'model' rank of the training mesh (ROADMAP)", stacklevel=2)
+        specs["layers"][li]["mixer"] = new
+        if "mtp" in specs and li == cfg.num_layers - 1:
+            specs["mtp"]["layer"]["mixer"] = dict(new)
+    return specs
+
+
+def _gather_dims(spec_tree, resolved) -> Any:
+    """Per leaf, ``(dim, full size)`` of the dimension FSDP gathers over
+    ``data`` (a dimension whose resolved spec holds ``data`` for any
+    logical axis but ``experts``, which expert parallelism consumes where
+    it lies), or None."""
+    def leaf(ps, rs):
+        for d, (ax, r) in enumerate(zip(ps.axes, tuple(rs) + (None,) * len(ps.axes))):
+            names = (r,) if isinstance(r, str) else (r or ())
+            if "data" in names and ax != "experts":
+                return d, ps.shape[d]
+        return None
+
+    def walk(ps, rs):
+        if isinstance(ps, dict):
+            return {k: walk(ps[k], rs[k]) for k in ps}
+        if isinstance(ps, list):
+            return [walk(a, b) for a, b in zip(ps, rs)]
+        return leaf(ps, rs)
+
+    return walk(spec_tree, resolved)
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(cfg, axes, dims, rules_items) -> Dict:
+    from repro_torch.launch.mesh import abstract_train_mesh
+
+    mesh = abstract_train_mesh(dims, axes)
+    return _gather_dims(model_specs(cfg),
+                        train_specs(cfg, mesh, dict(rules_items)))
+
+
+def _mesh_plan(cfg) -> Optional[Dict]:
+    """The FSDP gather dims of every leaf on the active training mesh, or
+    None outside one."""
+    mesh, rules = shlib.active_rules()
+    if mesh is None:
+        return None
+    return _plan(cfg, mesh.axes, mesh.dims, tuple(sorted(rules.items())))
+
+
+def _gather(tree: Any, gdims: Any) -> Any:
+    """``tree`` with every leaf that has a gather dim, and holds only its
+    block of it, gathered over ``data`` (one collective per dtype;
+    ``sharding.gather``); a None in ``gdims`` leaves its subtree as is."""
+    def blocked(t, g):
+        return g is not None and t.shape[g[0]] != g[1]
+
+    def collect(t, g, out):
+        if g is None:
+            return out
+        if isinstance(t, (dict, list)):
+            for k in (t if isinstance(t, dict) else range(len(t))):
+                collect(t[k], g[k], out)
+        elif blocked(t, g):
+            out.append((t, g[0]))
+        return out
+
+    todo = collect(tree, gdims, [])
+    if not todo:
+        return tree
+    full = iter(shlib.gather([t for t, _ in todo], [d for _, d in todo], "data"))
+
+    def rebuild(t, g):
+        if g is None:
+            return t
+        if isinstance(t, dict):
+            return {k: rebuild(v, g[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [rebuild(v, g[i]) for i, v in enumerate(t)]
+        return next(full) if blocked(t, g) else t
+
+    return rebuild(tree, gdims)
+
+
+def _gather_top(params: Dict, cfg) -> Dict:
+    """``params`` with the leaves outside the layer stack gathered (the
+    embedding table, head, final norm, frontend; the MTP block's own
+    leaves but not its layer), on a training mesh; else ``params``.
+    Leaves already gathered pass through."""
+    plan = _mesh_plan(cfg)
+    if plan is None:
+        return params
+    return _gather(params, dict(plan, layers=None,
+                                **({"mtp": dict(plan["mtp"], layer=None)}
+                                   if "mtp" in plan else {})))
+
+
+# ---------------------------------------------------------------------------
 # Aux container
 # ---------------------------------------------------------------------------
 
@@ -236,7 +379,9 @@ def _apply_layer(
     pruned_ffn: Optional[Dict] = None,
     want_z: bool = False,
     rope=None,
+    gdims=None,
 ):
+    lp = _gather(lp, gdims)  # FSDP: this layer's weights, inside the layer
     h = apply_norm(lp["mixer_norm"], x, cfg)
     if desc.mixer == "ssm":
         y, kv = ssm_lib.ssm_forward(lp["mixer"], h, cfg)
@@ -257,7 +402,9 @@ def _apply_layer(
         h = apply_norm(lp["ffn_norm"], x, cfg)
         if desc.ffn == "dense":
             fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
-            y, stats = ffn_lib.ffn_forward(fp, h, cfg, collect_stats, want_z)
+            y, stats = ffn_lib.ffn_forward(
+                fp, h, cfg, collect_stats, want_z,
+                d_ff=cfg.d_ff if pruned_ffn is None else None)
         elif pruned_ffn is not None:
             y = moe_lib.moe_decode(lp["ffn"], pruned_ffn, h, cfg)
         else:
@@ -321,6 +468,15 @@ def _forward(
     ``nothing_saveable``)."""
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all|last|none, got {logits_mode!r}")
+    plan = _mesh_plan(cfg)
+    params = _gather_top(params, cfg)
+    remat_kw = {}
+    if plan is not None:
+        # the recompute runs in the backward, on the device's autograd
+        # thread: it re-enters the mesh scope there
+        scope = shlib.active_rules()
+        remat_kw["context_fn"] = lambda: (contextlib.nullcontext(),
+                                          shlib.axis_rules(*scope))
     parts = []
     if prefix_emb is not None:
         pe = prefix_emb
@@ -339,14 +495,16 @@ def _forward(
     stats_tree: Dict[int, Dict] = {}
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, desc in enumerate(layer_descs(cfg)):
+        gd = None if plan is None else plan["layers"][li]
         if remat:
             x, kv, st, aux = torch.utils.checkpoint.checkpoint(
                 _apply_layer, params["layers"][li], desc, x, positions, cfg,
-                False, q_chunk, None, False, rope, use_reentrant=False)
+                False, q_chunk, None, False, rope, gd, use_reentrant=False,
+                **remat_kw)
         else:
             x, kv, st, aux = _apply_layer(
                 params["layers"][li], desc, x, positions, cfg, collect_stats,
-                q_chunk, (pruned or {}).get(li), want_z, rope,
+                q_chunk, (pruned or {}).get(li), want_z, rope, gd,
             )
         if aux is not None:
             moe_aux = moe_aux + aux
@@ -383,8 +541,21 @@ def hidden_forward(params: Dict, cfg, tokens=None, prefix_emb=None, *,
 
 def _ce_chunk(x, params, targets, mask, cfg):
     logits = lm_logits(params.get("head", {}), params["embed"], x, cfg)  # fp32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    V = logits.shape[-1]
+    if shlib.model_split(V, cfg.vocab_size):
+        # this rank's block of the vocabulary: max and sum-exp over
+        # ``model``, the gold logit from the rank that owns it
+        mesh, _ = shlib.active_rules()
+        m = shlib.all_max(logits.amax(dim=-1), "model")
+        se = shlib.reduce(torch.exp(logits - m[..., None]).sum(dim=-1), "model")
+        lse = m + torch.log(se)
+        local = targets.long() - mesh.coord("model") * V
+        own = (local >= 0) & (local < V)
+        gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        gold = shlib.reduce(gold * own, "model")
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = (lse - gold) * mask
     return torch.sum(nll), torch.sum(mask)
 
@@ -393,7 +564,22 @@ def chunked_ce(x: torch.Tensor, params: Dict, targets: torch.Tensor,
                mask: torch.Tensor, cfg, chunk: int = 512
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D]; targets/mask: [B,S]. Returns (sum nll, count), summed
-    chunk by chunk in order (the reference's ``scan``)."""
+    chunk by chunk in order (the reference's ``scan``).  On a training
+    mesh both are sums over the whole batch: this data rank's sums are
+    added over the batch axes (the nll with an identity backward, so each
+    rank's gradient is its own rows' share and the train step sums
+    them)."""
+    params = _gather_top(params, cfg)
+    nll, cnt = _chunked_ce(x, params, targets, mask, cfg, chunk)
+    mesh, rules = shlib.active_rules()
+    if mesh is not None:
+        axes = shlib.batch_axes(mesh, rules)
+        if axes:
+            nll, cnt = shlib.reduce(nll, axes), shlib.all_sum(cnt, axes)
+    return nll, cnt
+
+
+def _chunked_ce(x, params, targets, mask, cfg, chunk):
     B, S, D = x.shape
     if S <= chunk:
         return _ce_chunk(x, params, targets, mask, cfg)
@@ -422,6 +608,7 @@ def loss_fn(params: Dict, batch: Dict, cfg) -> Tuple[torch.Tensor, Dict]:
     For decoder LMs, targets default to next-token shift of ``tokens``;
     encoders require explicit framewise targets.  Returns (loss, metrics)
     with autograd through every parameter the loss reads."""
+    params = _gather_top(params, cfg)
     prefix = batch.get("prefix_emb")
     if cfg.family == "encoder":
         x, aux = hidden_forward(params, cfg, prefix_emb=prefix)
@@ -469,7 +656,9 @@ def _mtp_loss(params: Dict, h: torch.Tensor, tokens: torch.Tensor, cfg
     positions = torch.arange(x.shape[1], device=x.device)[None, :].expand(
         x.shape[:2])
     desc = layer_descs(cfg)[-1]
-    x, _, _, _ = _apply_layer(mp["layer"], desc, x, positions, cfg, False, 1024)
+    plan = _mesh_plan(cfg)
+    x, _, _, _ = _apply_layer(mp["layer"], desc, x, positions, cfg, False, 1024,
+                              gdims=None if plan is None else plan["mtp"]["layer"])
     x = apply_norm(params["final_norm"], x, cfg)
     targets = tokens[:, 2:]
     nll, cnt = chunked_ce(x, params, targets, _ones(targets), cfg)

@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import psum_if_tp
 from repro_torch.kernels import kv_quant, ops, ref
 from repro_torch.models.common import apply_rope, rms_normalize
@@ -63,12 +64,15 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         B, S, w.shape[1], w.shape[2])
 
 
-def _project_qkv(params, x, positions, cfg, use_rope: bool, rope=None):
+def _project_qkv(params, x, positions, cfg, use_rope: bool, rope=None,
+                 x_kv=None):
     """x: [B,S,D] -> q [B,S,H,hd], k,v [B,S,KV,hd] (rope applied;
-    ``rope`` = precomputed ``common.rope_cos_sin(positions, ...)``)."""
+    ``rope`` = precomputed ``common.rope_cos_sin(positions, ...)``;
+    ``x_kv``, if given, is what the key/value projections read)."""
+    x_kv = x if x_kv is None else x_kv
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(x_kv, params["wk"])
+    v = _proj(x_kv, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -82,17 +86,20 @@ def _project_qkv(params, x, positions, cfg, use_rope: bool, rope=None):
     return q, k, v
 
 
-def _out_proj(params, ctx, cfg):
+def _out_proj(params, ctx, cfg, split: bool = False):
     """ctx: [B,S,H,hd] -> [B,S,D].
 
-    Under tensor parallelism (``sharding.tp_axis`` active) the head axis
-    is split over the ranks, so the contraction over heads is a partial
-    sum — all-reduced before the (replicated) bias, so the bias counts
-    once.  Every attention path (paged, chunked, decode) ends here."""
+    Under tensor parallelism (``sharding.tp_axis`` active, or ``split``
+    on a training mesh) the head axis is split over the ranks, so the
+    contraction over heads is a partial sum — all-reduced before the
+    (replicated) bias, so the bias counts once.  Every attention path
+    (paged, chunked, decode) ends here."""
     B, S, H, hd = ctx.shape
     wo = params["wo"]
     y = (ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).reshape(B, S, -1)
     y = psum_if_tp(y)
+    if split:
+        y = shlib.reduce(y, "model")
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -175,13 +182,43 @@ def attn_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                  kind: str = "global", q_chunk: int = 1024, rope=None
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (out [B,S,D], (k, v) for cache construction).  ``rope``:
-    precomputed ``common.rope_cos_sin(positions, ...)``."""
+    precomputed ``common.rope_cos_sin(positions, ...)``.
+
+    On a training mesh whose rules split the heads over ``model`` this
+    rank attends with its block of query heads and the out-projection's
+    partial sums are reduced over ``model``.  When the KV heads are split
+    too, each rank holds the KV heads of its query heads; when their axis
+    was dropped (a KV count the axis does not divide), every rank projects
+    all KV heads and keeps, for each local query head, its group's."""
     use_rope = cfg.family != "encoder"
-    q, k, v = _project_qkv(params, x, positions, cfg, use_rope, rope=rope)
+    split = shlib.model_split(params["wq"].shape[1], cfg.num_heads)
+    if split:
+        xs = shlib.enter(x, "model")
+        kv_split = shlib.model_split(params["wk"].shape[1], cfg.num_kv_heads)
+        q, k, v = _project_qkv(params, xs, positions, cfg, use_rope, rope=rope,
+                               x_kv=xs if kv_split else x)
+        if not kv_split:
+            k, v = _local_kv_heads(q.shape[2], k, v, cfg)
+    else:
+        q, k, v = _project_qkv(params, x, positions, cfg, use_rope, rope=rope)
     window = cfg.sliding_window if kind == "local" else 0
     ctx = chunked_attention(q, k, v, causal=cfg.is_causal, window=window,
                             q_chunk=q_chunk)
-    return _out_proj(params, ctx, cfg), (k, v)
+    return _out_proj(params, ctx, cfg, split), (k, v)
+
+
+def _local_kv_heads(h_local: int, k, v, cfg):
+    """Whole K/V [B,S,KV,hd] -> the KV head of each of this rank's
+    ``h_local`` query heads ([B,S,h_local,hd], one query head per KV
+    head).  Only the local heads read them, so their gradient is a
+    partial sum: they enter the split computation here."""
+    mesh, _ = shlib.active_rules()
+    G = cfg.num_heads // cfg.num_kv_heads
+    heads = mesh.coord("model") * h_local + torch.arange(h_local, device=k.device)
+    idx = heads // G
+    k = shlib.enter(k, "model").index_select(2, idx)
+    v = shlib.enter(v, "model").index_select(2, idx)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import psum_if_tp, tp_mesh
 from repro_torch.kernels import ops
 from repro_torch.models.common import activation_fn
@@ -77,12 +78,20 @@ def ffn_forward(
     cfg,
     collect_stats: bool = False,
     want_z: bool = False,
+    d_ff: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: [B,S,D] -> (y [B,S,D], stats or None).
 
     stats = {s_sq [B,F] (GRIFFIN eq. 6), x_sq [D], z_sq [F] (Adaptive
-    Wanda norms, fp32), (z [B,S,F] if want_z — flocking heat maps)}."""
-    z = ffn_activations(params, x, cfg)
+    Wanda norms, fp32), (z [B,S,F] if want_z — flocking heat maps)}.
+
+    ``d_ff``: the block's full hidden width.  On a training mesh whose
+    rules split it over ``model`` (this rank holds fewer columns), ``x``
+    enters the split up-projections and the down-projection's partial
+    sums are reduced over ``model``."""
+    split = d_ff is not None and shlib.model_split(params["w1"].shape[-1], d_ff)
+    xs = shlib.enter(x, "model") if split else x
+    z = ffn_activations(params, xs, cfg)
     stats = None
     if collect_stats:
         stats = {
@@ -94,6 +103,8 @@ def ffn_forward(
             stats["z"] = z
     # a split F axis makes the down-projection a partial sum per rank
     y = psum_if_tp(z @ params["w2"])
+    if split:
+        y = shlib.reduce(y, "model")
     if "b2" in params:
         y = y + params["b2"]
     return y, stats

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import apply_rope, rms_normalize
 from repro_torch.models.param import ParamSpec
 
@@ -54,15 +55,21 @@ def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).reshape(B, S, w.shape[1], w.shape[2])
 
 
-def _queries(params, x, positions, cfg, rope=None):
-    """-> q_nope [B,S,H,dn], q_rope [B,S,H,dr]."""
+def _enter(x, split: bool):
+    return shlib.enter(x, "model") if split else x
+
+
+def _queries(params, x, positions, cfg, rope=None, split: bool = False):
+    """-> q_nope [B,S,H,dn], q_rope [B,S,H,dr].  ``split``: the heads are
+    split over ``model`` on a training mesh (the replicated query
+    compression enters the split up-projection)."""
     dn = cfg.qk_nope_head_dim
     if "w_dq" in params:
         cq = x @ params["w_dq"]
         cq = rms_normalize(cq) * params["q_norm"].to(x.dtype)
-        q = _up(cq, params["w_uq"])
+        q = _up(_enter(cq, split), params["w_uq"])
     else:
-        q = _up(x, params["w_q"])
+        q = _up(_enter(x, split), params["w_q"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta, rope)
     return q_nope, q_rope
@@ -86,13 +93,20 @@ def mla_forward(
     rope=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Expanded-form MLA for prefill, chunked over queries (chunk ``i``
-    reads keys ``[0, (i+1)*chunk)``).  Returns (y, (ckv, kr))."""
+    reads keys ``[0, (i+1)*chunk)``).  Returns (y, (ckv, kr)).
+
+    On a training mesh whose rules split the heads over ``model``, the
+    replicated compressions (``ckv``, the shared rope key, the query
+    compression) enter this rank's heads and the out-projection's
+    partial sums are reduced over ``model``."""
     B, S, D = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
+    split = shlib.model_split(params["w_uk"].shape[1], cfg.num_heads)
 
-    q_nope, q_rope = _queries(params, x, positions, cfg, rope)
-    ckv, kr = _compress_kv(params, x, positions, cfg, rope)
+    q_nope, q_rope = _queries(params, x, positions, cfg, rope, split)
+    ckv_c, kr_c = _compress_kv(params, x, positions, cfg, rope)
+    ckv, kr = _enter(ckv_c, split), _enter(kr_c, split)
     k_nope = _up(ckv, params["w_uk"])
     v = _up(ckv, params["w_uv"])
 
@@ -117,7 +131,9 @@ def mla_forward(
     ctx = torch.cat(outs, dim=1)[:, :S]  # [B,S,H,dv]
     H, dv = ctx.shape[2], ctx.shape[3]
     y = (ctx.reshape(B * S, H * dv) @ params["wo"].reshape(H * dv, D)).reshape(B, S, D)
-    return y, (ckv, kr)
+    if split:
+        y = shlib.reduce(y, "model")
+    return y, (ckv_c, kr_c)
 
 
 def mla_cache_specs(cfg, batch: int, max_len: int) -> Dict[str, ParamSpec]:

@@ -23,8 +23,23 @@ Ported as the reference has it, with two points made explicit:
   adds with atomics, so its order (and a bf16 stream) could change from
   run to run.
 
-The reference's expert-parallel paths (``shard_map`` over a mesh) are
-not ported: they belong with tensor parallelism.
+Expert parallelism on a training mesh (``sharding.axis_rules``), the
+reference's two ``shard_map`` paths, each rank holding its experts:
+
+* **routed EP** (``_moe_routed_ep``): experts split over ``model``;
+  tokens stay on their data rank and are replicated over ``model``;
+  each rank dispatches to its local experts only
+  (``_dispatch_combine_local``, capacity from its data row's token
+  count) and the combine is one sum over ``model``;
+* **2-D EP** (``_moe_grouped_ep2d``, ``cfg.moe_group_limit > 0`` and
+  ``experts`` over ``(data, model)``): each data row routes its tokens
+  within its own ``E / n_data`` experts, so no token leaves its row and
+  the combine is again one sum over ``model``.
+
+Dispatch and gate enter the split computation through
+``sharding.enter`` (their gradients are the ranks' partial sums) and the
+combine is ``sharding.reduce``; the router and its load-balance loss
+stay replicated.
 """
 from __future__ import annotations
 
@@ -32,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import activation_fn
 from repro_torch.models.layers import ffn as ffn_lib
 from repro_torch.models.param import ParamSpec
@@ -52,8 +68,11 @@ def moe_specs(cfg) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _capacity(n_tokens: int, cfg) -> int:
-    c = int(n_tokens * cfg.experts_per_token * cfg.capacity_factor / cfg.num_experts)
+def _capacity(n_tokens: int, cfg, pool: int = 0) -> int:
+    """Slots per expert for ``n_tokens`` routed over ``pool`` experts
+    (default: all of them)."""
+    c = int(n_tokens * cfg.experts_per_token * cfg.capacity_factor
+            / (pool or cfg.num_experts))
     return max(8, -(-c // 8) * 8)  # round up to 8, floor at 8
 
 
@@ -67,11 +86,19 @@ def _route(params, x: torch.Tensor, cfg):
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # switch-style load-balance aux loss
     E = cfg.num_experts
-    me = probs.mean(dim=0)  # [E] mean router prob
     # fraction routed (top-1 proxy): the mean of a one-hot, built without
     # the host sync of ``bincount`` / ``one_hot`` on the card
     experts = torch.arange(E, device=idx.device)
-    fe = (idx[:, :1] == experts).float().mean(dim=0)
+    hot = (idx[:, :1] == experts).float()
+    mesh, rules = shlib.active_rules()
+    axes = shlib.batch_axes(mesh, rules) if mesh is not None else ()
+    if axes:  # the means over the whole batch, as the reference takes them
+        n = shlib.all_sum(torch.tensor(float(x.shape[0]), device=x.device), axes)
+        me = shlib.reduce(probs.sum(dim=0), axes) / n
+        fe = shlib.all_sum(hot.sum(dim=0), axes) / n
+    else:
+        me = probs.mean(dim=0)  # [E] mean router prob
+        fe = hot.mean(dim=0)
     aux = E * (me * fe).sum()
     return gate, idx, aux
 
@@ -81,40 +108,58 @@ def _dispatch_combine(params, x: torch.Tensor, gate: torch.Tensor,
     """Sort-based capacity-buffered expert compute for a token chunk.
 
     x [T,D], gate/idx [T,k]  ->  y [T,D]"""
+    return _dispatch_combine_local(params, x, gate, idx, cfg, 0,
+                                   cfg.num_experts)
+
+
+def _dispatch_combine_local(params_loc, x: torch.Tensor, gate: torch.Tensor,
+                            idx: torch.Tensor, cfg, e0: int, e_loc: int,
+                            cap_experts: int = 0) -> torch.Tensor:
+    """Capacity-buffered compute of the LOCAL expert slice [e0, e0+e_loc)
+    (all experts: ``_dispatch_combine``).
+
+    Assignments to other experts are dropped here (their own rank
+    computes them); every gather and scatter indexes local data only.
+    ``cap_experts``: expert-pool size for the capacity formula (the
+    routing pool may be smaller than num_experts under group limits)."""
     T, D = x.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    C = _capacity(T, cfg)
+    k = cfg.experts_per_token
+    C = _capacity(T, cfg, cap_experts)
     dev = x.device
 
     flat_e = idx.reshape(-1)  # [T*k]
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev), right=False)
-    pos_in_e = torch.arange(T * k, device=dev) - starts[sorted_e]
-    keep = pos_in_e < C
+    local = (flat_e >= e0) & (flat_e < e0 + e_loc)
+    flat_le = torch.where(local, flat_e - e0,
+                          torch.full_like(flat_e, e_loc))  # remote -> overflow id
+    order = torch.argsort(flat_le, stable=True)
+    sorted_e = flat_le[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e_loc, device=dev),
+                                right=False)
+    pos_in_e = torch.arange(T * k, device=dev) - starts[sorted_e.clamp(0, e_loc - 1)]
+    keep = (sorted_e < e_loc) & (pos_in_e < C)
     dest = torch.where(keep, sorted_e * C + pos_in_e,
-                       torch.full_like(pos_in_e, E * C))  # overflow -> slot E*C
+                       torch.full_like(pos_in_e, e_loc * C))  # dropped -> slot e_loc*C
     src_token = order // k
 
     # dispatch: buf[e, c] = x[token routed to (e, c)]; every kept row has
-    # its own slot, the dropped ones all land in the discarded slot E*C
-    buf = x.new_zeros((E * C + 1, D))
+    # its own slot, the dropped ones all land in the discarded slot
+    buf = x.new_zeros((e_loc * C + 1, D))
     buf[dest] = x[src_token]
-    buf = buf[: E * C].reshape(E, C, D)
+    buf = buf[: e_loc * C].reshape(e_loc, C, D)
 
     # batched expert products
     act = activation_fn(cfg.activation)
-    h1 = torch.bmm(buf, params["w1"])
-    if "wg" in params:
-        z = act(torch.bmm(buf, params["wg"])) * h1
+    h1 = torch.bmm(buf, params_loc["w1"])
+    if "wg" in params_loc:
+        z = act(torch.bmm(buf, params_loc["wg"])) * h1
     else:
         z = act(h1)
-    yexp = torch.bmm(z, params["w2"])
+    yexp = torch.bmm(z, params_loc["w2"])
 
     # combine: gather back, weight by gate, add per token.  A token's k
     # assignments sit in ascending expert order along ``order``; adding
     # them in that order from zero is the reference's scatter-add order.
-    ypad = torch.cat([yexp.reshape(E * C, D), x.new_zeros((1, D))], 0)
+    ypad = torch.cat([yexp.reshape(e_loc * C, D), x.new_zeros((1, D))], 0)
     contrib = ypad[dest] * gate.reshape(-1)[order][:, None].to(x.dtype)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(T * k, device=dev)
@@ -123,6 +168,99 @@ def _dispatch_combine(params, x: torch.Tensor, gate: torch.Tensor,
     for j in range(k):
         y = y + contrib[rows[:, j]]
     return y
+
+
+def _expert_params(params) -> Dict:
+    return {k: params[k] for k in ("w1", "w2", "wg") if k in params}
+
+
+def _ep_shard_info(cfg):
+    """If a training mesh with a usable ``model`` axis is active, return
+    (mesh, n_model) for the routed EP path, else None (2D-sharded experts
+    take the grouped path or none)."""
+    mesh, rules = shlib.active_rules()
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    exp_rule = (rules or {}).get("experts")
+    if isinstance(exp_rule, tuple) and len(exp_rule) > 1:
+        return None
+    n_model = mesh.shape["model"]
+    if n_model <= 1 or cfg.num_experts % n_model != 0:
+        return None
+    return mesh, n_model
+
+
+def _moe_routed_ep(params, xt, gate, idx, cfg, mesh, n_model):
+    """Routed EP: experts split over ``model``; this rank's tokens are
+    replicated over ``model``; the combine is a sum over ``model``."""
+    e_loc = cfg.num_experts // n_model
+    y = _dispatch_combine_local(
+        _expert_params(params), shlib.enter(xt, "model"),
+        shlib.enter(gate, "model"), idx, cfg,
+        e0=mesh.coord("model") * e_loc, e_loc=e_loc)
+    return shlib.reduce(y, "model")
+
+
+def _ep2d_info(cfg):
+    """Group-limited 2D EP: experts sharded (data, model); usable when
+    ``cfg.moe_group_limit > 0`` and the division works out."""
+    mesh, rules = shlib.active_rules()
+    if mesh is None or cfg.moe_group_limit <= 0:
+        return None
+    if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
+        return None
+    exp_rule = (rules or {}).get("experts")
+    if not (isinstance(exp_rule, tuple) and set(exp_rule) == {"data", "model"}):
+        return None
+    nd, nm = mesh.shape["data"], mesh.shape["model"]
+    if cfg.num_experts % (nd * nm) != 0:
+        return None
+    return mesh, nd, nm
+
+
+def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm):
+    """Group-limited routing over 2D-sharded experts.
+
+    Tokens route ONLY to the E/nd experts of their own data row, so no
+    token crosses the ``data`` axis, and the only collective is the
+    row's combine sum over ``model``.  Returns (y, aux): aux is the mean
+    over the data rows of each row's load-balance loss."""
+    E = cfg.num_experts
+    E_row = E // nd
+    E_sub = E_row // nm
+    k = cfg.experts_per_token
+    row, col = mesh.coord("data"), mesh.coord("model")
+    dev = xt.device
+    logits = xt.float() @ params["router"]
+    row_ids = row * E_row + torch.arange(E_row, device=dev)
+    probs = torch.softmax(logits[:, row_ids], dim=-1)
+    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = srt[:, :k], order[:, :k]  # idx in [0, E_row)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    fe = (row_ids[idx[:, :1]] == torch.arange(E, device=dev)).float().mean(dim=0)
+    aux = E * (me * fe).sum()
+    y = _dispatch_combine_local(
+        _expert_params(params), shlib.enter(xt, "model"),
+        shlib.enter(gate, "model"), idx, cfg, e0=col * E_sub, e_loc=E_sub,
+        cap_experts=E_row)
+    y = shlib.reduce(y, "model")
+    return y, shlib.reduce(aux, "data") / nd
+
+
+def _mlp_split(params, cfg) -> bool:
+    """Without an EP path on a training mesh, this rank must hold every
+    expert; True if it holds a ``model`` block of their hidden width (the
+    combine is then a sum over ``model``)."""
+    w1 = params["w1"]
+    if tuple(w1.shape[:2]) != (cfg.num_experts, cfg.d_model):
+        raise NotImplementedError(
+            f"{cfg.name}: experts held as {tuple(w1.shape)} of "
+            f"{(cfg.num_experts, cfg.d_model, cfg.moe_d_ff)} with no "
+            f"expert-parallel path (routed EP needs experts over 'model' "
+            f"dividing {cfg.num_experts}; experts over (data, model) need "
+            f"moe_group_limit > 0)")
+    return w1.shape[-1] != cfg.moe_d_ff
 
 
 def moe_forward(
@@ -136,26 +274,57 @@ def moe_forward(
     """x: [B,S,D] -> (y [B,S,D], aux_loss, shared-expert stats or None).
 
     Routing runs over all ``B*S`` tokens at once; the dispatch over
-    chunks of ``chunk_tokens`` (one piece when it does not divide)."""
+    chunks of ``chunk_tokens`` (one piece when it does not divide).  On
+    a training mesh this rank's tokens are its data row's, and the
+    expert-parallel paths apply (module docstring)."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
+    Fs = cfg.moe_d_ff * cfg.num_shared_experts
+
+    ep2d = _ep2d_info(cfg)
+    if ep2d is not None:
+        mesh, nd, nm = ep2d
+        y, aux = _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm)
+        y = y.reshape(B, S, D)
+        stats = None
+        if "shared" in params:
+            ys, stats = ffn_lib.ffn_forward(params["shared"], x, cfg,
+                                            collect_stats=collect_stats,
+                                            want_z=want_z, d_ff=Fs)
+            y = y + ys
+        return y, aux, stats
+
     gate, idx, aux = _route(params, xt, cfg)
 
     T = B * S
-    chunk = min(chunk_tokens, T)
-    if T % chunk != 0:
-        chunk = T  # smoke shapes: do it in one piece
-    y = torch.cat([
-        _dispatch_combine(params, xt[i : i + chunk], gate[i : i + chunk],
-                          idx[i : i + chunk], cfg)
-        for i in range(0, T, chunk)
-    ]).reshape(B, S, D)
+    ep = _ep_shard_info(cfg)
+    mesh, rules = shlib.active_rules()
+    # chunks of the global token stream, each split over the data ranks
+    n_rows = mesh.extent(shlib.batch_axes(mesh, rules)) if mesh is not None else 1
+    chunk = min(chunk_tokens, T * n_rows)
+    if (T * n_rows) % chunk != 0:
+        chunk = T * n_rows  # smoke shapes: do it in one piece
+    chunk //= n_rows
+    if ep is not None:
+        def piece(xc, gc, ic):
+            return _moe_routed_ep(params, xc, gc, ic, cfg, *ep)
+    elif mesh is not None and _mlp_split(params, cfg):
+        def piece(xc, gc, ic):
+            return shlib.reduce(_dispatch_combine(
+                params, shlib.enter(xc, "model"), shlib.enter(gc, "model"),
+                ic, cfg), "model")
+    else:
+        def piece(xc, gc, ic):
+            return _dispatch_combine(params, xc, gc, ic, cfg)
+    y = torch.cat([piece(xt[i : i + chunk], gate[i : i + chunk],
+                         idx[i : i + chunk])
+                   for i in range(0, T, chunk)]).reshape(B, S, D)
 
     stats = None
     if "shared" in params:
         ys, stats = ffn_lib.ffn_forward(params["shared"], x, cfg,
                                         collect_stats=collect_stats,
-                                        want_z=want_z)
+                                        want_z=want_z, d_ff=Fs)
         y = y + ys
     return y, aux, stats
 

@@ -6,6 +6,12 @@ Checkpoints are written in the reference's layout
 (``bridge.train_state_to_jax``), so ``repro.checkpoint`` restores what the
 port trained, the port resumes what the reference trained, and
 ``launch/serve.py --ckpt-dir`` serves either.
+
+On a training mesh (``mesh=``, ``rules=``) every rank runs this loop over
+the same global batches: rank 0 writes the gathered full-array
+checkpoint (``TrainTP.gather_state``, the reference's layout), every rank
+restores the full arrays and cuts its blocks, and each step the ranks
+agree on the preemption flag, so all of them stop at the same step.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.distributed import sharding as shlib
 from repro_torch.kernels import backend
 from repro_torch.runtime.preemption import PreemptionGuard
 from repro_torch.runtime.straggler import StragglerDetector
@@ -47,23 +54,46 @@ def train(
     state: Any = None,
     log_fn: Callable[[str], None] = print,
     device=None,
+    mesh=None,
+    rules=None,
 ) -> TrainResult:
     """Train from ``state``, else from the latest checkpoint of ``ckpt``,
     else from an init drawn from ``seed``, on ``device`` (default: the
-    card; a given ``state`` stays where it is)."""
-    step_fn = build_train_step(cfg, optimizer, accum_steps=accum_steps)
+    card, or the mesh's device; a given ``state`` stays where it is).
+    With ``mesh`` and ``rules``, this rank's share of the sharded run:
+    ``state`` holds its blocks."""
+    step_fn = build_train_step(cfg, optimizer, accum_steps=accum_steps,
+                               mesh=mesh, rules=rules)
+    tp = getattr(step_fn, "tp", None)
+    lead = mesh is None or mesh.rank == 0
+    say = log_fn if lead else (lambda s: None)
     straggler = StragglerDetector()
 
     start_step = 0
     if state is None:
-        device = backend.resolve_device(device)
+        device = mesh.device if mesh is not None and device is None \
+            else backend.resolve_device(device)
         if ckpt is not None and ckpt.latest_step() is not None:
             restored, start_step = ckpt.restore_latest()
-            state = bridge.train_state_from_jax(restored, cfg, device)
-            log_fn(f"[resume] restored checkpoint at step {start_step}")
+            state = bridge.train_state_from_jax(restored, cfg, device, tp)
+            say(f"[resume] restored checkpoint at step {start_step}")
+        elif tp is not None:
+            state = tp.init_train_state(optimizer, seed, device)
         else:
             state = init_train_state(cfg, optimizer, seed, device)
     device = state["step"].device
+
+    def save(step: int, force: bool = False) -> None:
+        full = state if tp is None else tp.gather_state(state)
+        if lead:
+            ckpt.save(step, bridge.train_state_to_jax(full, cfg), force=force)
+
+    def stop() -> bool:
+        flag = guard is not None and guard.preempted
+        if mesh is None:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0], device=device)
+        return bool(shlib.all_reduce_(t, mesh.group(mesh.axes)).item() > 0)
 
     losses = []
     preempted = False
@@ -77,15 +107,14 @@ def train(
         straggler.record(0, dt)
         losses.append(loss)
         if log_every and (step % log_every == 0 or step == num_steps - 1):
-            log_fn(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            say(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
         if ckpt is not None and ckpt.should_save(step + 1):
-            ckpt.save(step + 1, bridge.train_state_to_jax(state, cfg))
-        if guard is not None and guard.preempted:
+            save(step + 1)
+        if stop():
             if ckpt is not None:
-                ckpt.save(step + 1, bridge.train_state_to_jax(state, cfg),
-                          force=True)
+                save(step + 1, force=True)
                 ckpt.wait()
-            log_fn(f"[preempt] checkpointed at step {step + 1}, exiting")
+            say(f"[preempt] checkpointed at step {step + 1}, exiting")
             preempted = True
             break
     if ckpt is not None:

@@ -8,14 +8,25 @@ layout, ``opt`` in the reference's scan-stacked layout (see
 ``bridge.train_state_to_jax`` / ``train_state_from_jax`` carry it to and
 from the reference's layout for checkpoints.  The step updates the
 parameters and the optimizer state in place.
+
+On a training mesh (``build_train_step(..., mesh=, rules=)``) every rank
+holds its blocks of the train state (``distributed.tp.TrainTP``) and gets
+the whole global batch: microbatch *m* is the reference's rows, of which
+data rank *r* takes its slice.  The loss is the global ``nll / count``
+(both summed over the batch axes before the division); after the
+backward, each gradient is summed over the batch axes its leaf is not
+split over, and each rank updates its own blocks.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import bridge
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.tp import TrainTP
 from repro_torch.models import decoder
 from repro_torch.training.optimizer import Optimizer
 
@@ -80,11 +91,31 @@ def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict, cfg
     return loss.detach(), metrics, rebuild(list(grads))
 
 
+def _rows(mesh, rules, accum_steps: int):
+    """``slice_of(x, m)``: this data rank's rows of microbatch ``m``."""
+    axes = shlib.batch_axes(mesh, rules) if mesh is not None else ()
+    n = mesh.extent(axes) if axes else 1
+    r = mesh.coord(axes) if axes else 0
+
+    def slice_of(x, m):
+        B = x.shape[0]
+        if B % (accum_steps * n):
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"{accum_steps} microbatches over {n} data ranks")
+        mb = B // accum_steps
+        w = mb // n
+        return x[m * mb + r * w: m * mb + (r + 1) * w]
+
+    return slice_of
+
+
 def build_train_step(
     cfg,
     optimizer: Optimizer,
     accum_steps: int = 1,
     loss_fn: Optional[Callable] = None,
+    mesh=None,
+    rules=None,
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -93,40 +124,52 @@ def build_train_step(
     axis and accumulates their gradients in fp32 (the activation-memory
     lever for the big configs); gradients and loss are then divided by
     ``accum_steps`` and the metrics are the loss alone.
+
+    With ``mesh`` (a ``launch.mesh.TrainMesh``) and ``rules``, the step is
+    this rank's share of the sharded step (module docstring): ``state``
+    holds its blocks (``TrainTP(cfg, mesh, rules).init_train_state``, or
+    ``bridge.train_state_from_jax(..., tp=)`` of a checkpoint), ``batch``
+    the global rows.
     """
     loss_fn = loss_fn or decoder.loss_fn
+    tp = TrainTP(cfg, mesh, rules) if mesh is not None else None
+    shards = tp.leaf_shards() if tp is not None else None
+    slice_of = _rows(mesh, rules, accum_steps)
 
     def grads_of(params, mb):
-        loss, metrics, grads = value_and_grad(loss_fn, params, mb, cfg)
-        flat, rebuild = _flatten(params)
+        with shlib.axis_rules(mesh, rules) if tp is not None else nullcontext():
+            loss, metrics, grads = value_and_grad(loss_fn, params, mb, cfg)
+        flat, _ = _flatten(params)
         gflat, _ = _flatten(grads)
-        gflat = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, gflat)]
-        return rebuild(gflat), loss, metrics
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(flat, gflat)], loss, metrics
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
+        flat, rebuild = _flatten(params)
         if accum_steps == 1:
-            grads, loss, metrics = grads_of(params, batch)
+            g, loss, metrics = grads_of(params, {k: slice_of(v, 0)
+                                                 for k, v in batch.items()})
         else:
-            flat, rebuild = _flatten(params)
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in flat]
+            g = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in flat]
             loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-            mbs = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                                *v.shape[1:]) for k, v in batch.items()}
-            for i in range(accum_steps):
-                g, l, _ = grads_of(params, {k: v[i] for k, v in mbs.items()})
-                g_acc = [a + b.to(torch.float32)
-                         for a, b in zip(g_acc, _flatten(g)[0])]
-                loss = loss + l
-            grads = rebuild([g / accum_steps for g in g_acc])
-            loss = loss / accum_steps
+            for m in range(accum_steps):
+                gm, lm, _ = grads_of(params, {k: slice_of(v, m)
+                                              for k, v in batch.items()})
+                g = [a + b.to(torch.float32) for a, b in zip(g, gm)]
+                loss = loss + lm
             metrics = {}
-
+        grads = rebuild(g)
+        if tp is not None:
+            grads = tp.sync_grads(grads)
+        if accum_steps > 1:
+            grads = rebuild([x / accum_steps for x in _flatten(grads)[0]])
+            loss = loss / accum_steps
         _, new_opt = optimizer.update(bridge.ref_view(grads, cfg), state["opt"],
-                                      bridge.ref_view(params, cfg))
+                                      bridge.ref_view(params, cfg), shard=shards)
         new_state = {"params": params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, **metrics}
 
+    train_step.tp = tp
     return train_step
