@@ -231,6 +231,31 @@ Phases (any failure raises and the script exits non-zero):
    (``MESH_ROUTED_GRAD_TOL``) with the routing assignments that moved
    counted, mutants without the dispatch's backward all-reduce and
    without the combine's sum, expert bytes half a rank.
+16. the dry-run and Yi-9B's serving cells (``launch/cells.py``,
+   ``launch/dryrun.py``, ``analysis/``): (a) ``python -m
+   repro_torch.launch.dryrun --all`` at one and two pods and DeepSeek-V3
+   with ``--moe-group-limit 1`` at both, subprocesses started after
+   (c) that step on the host's cores alone (nothing else runs): every
+   supported cell ``ok`` but ``DRYRUN_NOT_PORTED`` (DeepSeek-V3 without a
+   group limit, refused naming ROADMAP), one line per cell (per-rank
+   bytes, dominant term, bound); (b) Yi-9B whole, bf16, GRIFFIN 0.5, its
+   prefill cell (2 x 4,096, cut from 32 x 32,768) and decode cell (4
+   sequences over a 32,768-token cache at pos 32,767, cut from 128, on
+   the prefill's compacted FF) at (1, 1), built by ``cells.build_cell``
+   and ``materialize``: median wall of 5 (CUDA events), device busy
+   share, peak memory beside the dry-run's input bytes, the analytic
+   bound, model-FLOPs share and roofline fraction; logits, selection and
+   compacted FF == ``GenerationEngine``'s on the same weights, cache and
+   prompts (``CELL_ENGINE_TOL``); (c) the same cells at (2, 2), four
+   gloo ranks on the one card: prefill and decode logits within
+   ``TP_LOGIT_TOL`` of (b)'s, the selection (b)'s up to near-ties
+   (``CELL_TIE_GAPS``, s-bar within ``TP_STAT_TOL``), each rank's recorded collectives equal to the dry
+   mesh's for that rank and cell, decode run twice (the cache's
+   ``kv_seq`` split under ``policy_for``'s rules, its ``head_dim`` split
+   under the fallback with the KV heads off ``model``), and
+   ``CELL_MUTANTS`` (the log-sum-exp merge without rescaling, the
+   ``head_dim`` partial scores unsummed) each beyond ``TP_LOGIT_TOL``;
+   launches the two-step ``expert_stat``.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -252,6 +277,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
@@ -265,10 +291,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit): HBM,
-# float32 outside the tensor cores, bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 #: tolerances of the FF kernels against their plain versions: bf16 as the
 #: reference's kernel tests (the plain version rounds g, h and z to bf16,
@@ -328,9 +350,12 @@ def time_ms(torch, fn, reps: int = 25, flush=None, reset=None) -> float:
 
 def bound(bytes_: float, flops: float, dtype: str = "float32"):
     """Least time for the work: bytes over the memory rate or operations
-    over the peak rate for the inputs' type, whichever is larger."""
-    t_b = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_o = flops / FLOP_PER_S[dtype] * 1e3
+    over the peak rate for the inputs' type, whichever is larger (the H100
+    SXM datasheet's rates, ``repro_torch/analysis/roofline.py``)."""
+    from repro_torch.analysis import roofline
+
+    t_b = bytes_ / roofline.HBM_BW * 1e3
+    t_o = flops / roofline.peak_flops(dtype) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -2959,6 +2984,7 @@ def phase_train_yi9b(torch, np, dev):
     then one more step traced for its device busy time; peak memory and
     the step's bounds (8 N T bf16 operations with remat's second forward;
     the optimizer's bytes)."""
+    from repro_torch.analysis import roofline
     from repro_torch.configs.registry import get_config
     from repro_torch.models import decoder
     from repro_torch.training import optimizer as opt_lib
@@ -3014,8 +3040,8 @@ def phase_train_yi9b(torch, np, dev):
     T = B * S
     flops = 8 * n_params * T
     opt_bytes = n_params * (2 + 2 + 1 + 1 + 2 + 1 + 1)  # p, g, m, v in; p, m, v out
-    compute_ms = flops / FLOP_PER_S["bfloat16"] * 1e3
-    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    compute_ms, bytes_ms = (flops / roofline.peak_flops("bfloat16") * 1e3,
+                            opt_bytes / roofline.HBM_BW * 1e3)
     del state, batch
     free(torch)
     return counts, dict(
@@ -3969,8 +3995,8 @@ def _moe_trace():
     real_route, real_forward = moe._route, moe.moe_forward
     keep = [True]
 
-    def route(params, x, cfg):
-        gate, idx, aux = real_route(params, x, cfg)
+    def route(params, x, cfg, *a):
+        gate, idx, aux = real_route(params, x, cfg, *a)
         if keep[0]:
             got["idx"].append(idx.detach().cpu())
         return gate, idx, aux
@@ -4379,6 +4405,568 @@ def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run on the production meshes, and Yi-9B's serving
+# cells run for real at (1, 1) and (2, 2)
+# ---------------------------------------------------------------------------
+
+#: (pods, arch, shape) of the dry-run cells whose error is the port's own
+#: refusal for ROADMAP Queue A item 4's remainder: DeepSeek-V3's experts
+#: over (data, model) without a group limit have no expert-parallel path
+DRYRUN_NOT_PORTED = frozenset(
+    (pods, "deepseek-v3-671b", shape) for pods in (1, 2)
+    for shape in ("train_4k", "prefill_32k", "decode_32k"))
+#: the group limit of the 2-D EP tests (``tests/test_torch_train_mesh.py``);
+#: DeepSeek-V3's cells with it
+#: must be ``ok``
+DRYRUN_GROUP_LIMIT = 1
+#: cells stepped at once by each ``--all`` run: two such runs and the two
+#: group-limited ones fill the card machine's 8 cores, after 16c
+DRYRUN_JOBS = 3
+#: seconds from the dry-runs' start by which they must be done
+DRYRUN_TIMEOUT_S = 420
+
+#: 16b / 16c: Yi-9B whole, bf16, GRIFFIN 0.5, random weights from seed 0;
+#: (shape name, seq, batch): prefill cut from 32 x 32,768 (the eager
+#: chunked attention, ROADMAP item 13), decode from 128 sequences
+CELL_PREFILL = ("prefill_32k", 4096, 2)
+CELL_DECODE = ("decode_32k", 32768, 4)
+#: the decode cache's keys are drawn at 8x the unit scale and its values
+#: at 4x: scores spread ~8 wide make each head attend to a few of the
+#: 32,768 keys, as a trained model's do (at unit scale every head
+#: averages the whole cache to ~0), and the values make attention carry
+#: the residual stream.  At keys and values x1 a merge without rescaling
+#: moved the logits by 7% of their largest, at both x4 the unsummed
+#: partial scores by 9.6% (on an H100, ``PERF.md`` §6), inside ``TP_LOGIT_TOL``:
+#: half-width scores over flat softmaxes shrink the context more than
+#: they turn it
+CELL_KEY_SCALE = 8.0
+CELL_VALUE_SCALE = 4.0
+CELL_REPS = 5
+#: 16b: the cell is ``GenerationEngine``'s path on the same weights, cache
+#: and inputs: logits within this share of the largest |logit|
+CELL_ENGINE_TOL = 1e-3
+#: 16c: the ranks' eq. 7 statistic (s-bar) within ``TP_STAT_TOL`` of
+#: 16b's largest value, and an expert the ranks select and 16b does not
+#: (or the reverse) a near-tie: 16b's s-bar within ``CELL_TIE_GAPS`` times
+#: the two statistics' largest gap in its shard of the shard's boundary
+#: (each of the two values may move by that gap; the ranks' bf16 partial
+#: sums move s-bar ~0.5% over 48 layers on an H100, ``PERF.md`` §6)
+CELL_TIE_GAPS = 2.0
+#: 16c's mutants, each of which must move the logits past TP_LOGIT_TOL:
+#: the log-sum-exp merge without rescaling (each rank's locally
+#: normalized context summed), and the head_dim partial scores unsummed
+CELL_MUTANTS = ("lse_no_rescale", "head_dim_unsummed")
+
+
+def start_dryrun(out: Path):
+    """16a's dry-run subprocesses, started after 16c so that they step
+    on the host's cores while nothing else runs (no phase's host-bound
+    wall shares the cores with them): ``--all`` at one and two pods, and
+    DeepSeek-V3 with the group limit at both.  Returns ``{name: (process,
+    log path)}``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONWARNINGS="ignore", OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    runs = {}
+    for pods in (1, 2):
+        runs[f"all_p{pods}"] = base + ["--all", "--pods", str(pods), "--jobs",
+                                       str(DRYRUN_JOBS), "--out", str(out / "all")]
+        runs[f"gl_p{pods}"] = base + [
+            "--arch", "deepseek-v3-671b", "--pods", str(pods),
+            "--moe-group-limit", str(DRYRUN_GROUP_LIMIT),
+            "--tag", f"gl{DRYRUN_GROUP_LIMIT}", "--out", str(out / "gl")]
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, cmd in runs.items():
+        log = out / f"{name}.log"
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                            env=env, cwd=str(ROOT),
+                                            start_new_session=True), log)
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    """Kill what is left of the dry-runs (each runs in a session of its
+    own, its cell workers with it) and remove their files."""
+    import shutil
+    import signal
+
+    for p, log in procs.values():
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        out = log.parent
+    if procs:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_dryrun(procs, out: Path, t_start: float):
+    """16a: wait for the dry-runs, hold every record: ``ok`` or skipped,
+    an error only on ``DRYRUN_NOT_PORTED`` (naming ROADMAP), and
+    DeepSeek-V3's group-limited cells ``ok``.  One line per cell."""
+    deadline = t_start + DRYRUN_TIMEOUT_S
+    for name, (p, log) in procs.items():
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            tail = log.read_text()[-2000:]
+            stop_dryrun(procs)
+            raise AssertionError(f"16a: the dry-run {name} outlived "
+                                 f"{DRYRUN_TIMEOUT_S} s: {tail}")
+    lines, counts = [], {"ok": 0, "skipped": 0, "not_ported": 0}
+    for sub in ("all", "gl"):
+        for f in sorted((out / sub).glob("*.json")):
+            r = json.loads(f.read_text())
+            key = (r["pods"], r["arch"], r["shape"])
+            st = r["status"]
+            if st == "error":
+                check(sub == "all" and key in DRYRUN_NOT_PORTED
+                      and "ROADMAP" in r["error"],
+                      f"16a: {f.name} failed: {r['error'][:500]}")
+                counts["not_ported"] += 1
+                lines.append(f"[not ported] {f.stem}: {r['error'][:160]}")
+                continue
+            counts[st] += 1
+            if st == "skipped":
+                continue
+            ro = r["roofline"]
+            lines.append(
+                f"[ok] {f.stem}: bytes/rank {r['memory']['input_bytes_per_device']:.4e}"
+                f" dominant {ro['dominant']} bound {ro['bound_s']:.4e} s"
+                f" (compute {ro['compute_s']:.3e} memory {ro['memory_s']:.3e}"
+                f" collective {ro['collective_s']:.3e}) coll "
+                f"{r['collectives']['bytes_total']:.4e} B step {r['step_s']} s")
+    check(counts["ok"] + counts["not_ported"] == 64 + 6,
+          f"16a: {counts} (want 64 supported cells and DeepSeek-V3's 6 with "
+          f"the group limit)")
+    for name, (p, log) in procs.items():
+        want = 0 if name.startswith("gl") else 1  # --all names its refusals
+        check(p.returncode == want, f"16a: {name} exited {p.returncode}")
+    return counts, lines
+
+
+def cell_setup(smoke: bool = False):
+    """(cfg, prefill shape, decode shape, prefill policy, decode policy,
+    head_dim-split decode policy) of 16b/16c; ``smoke``: Yi-9B's smoke
+    config at 2 x 16 and 4 x 32 (a rehearsal on the CPU)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.policies import CellPolicy, policy_for
+
+    cfg = get_config("yi-9b", smoke=smoke)
+    (_, sp, bp), (_, sd, bd) = ((None, 16, 2), (None, 32, 4)) if smoke else \
+        (CELL_PREFILL, CELL_DECODE)
+    pre = ShapeConfig(CELL_PREFILL[0], sp, bp, "prefill")
+    dec = ShapeConfig(CELL_DECODE[0], sd, bd, "decode")
+    pp, dp = policy_for(cfg, pre), policy_for(cfg, dec)
+    # the cache's head_dim split over model: KV heads and kv_seq kept off it
+    hp = CellPolicy(rules=dict(make_rules(phase="serve", head_dim_fallback=True),
+                               kv_heads=None), griffin=dp.griffin)
+    return cfg, pre, dec, pp, dp, hp
+
+
+def scale_cache(cache) -> None:
+    for layer in cache:
+        layer["k"].mul_(CELL_KEY_SCALE)
+        layer["v"].mul_(CELL_VALUE_SCALE)
+
+
+def timed_ms(torch, fn, cuda: bool = True) -> float:
+    """Wall of one call of ``fn``: CUDA events around it, started on an
+    idle card, so host dispatch gaps count (the host clock off the
+    card)."""
+    if not cuda:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def wall_ms(torch, fn, reps: int, cuda: bool = True):
+    """Median ``timed_ms`` of ``reps`` calls after a warm-up, and the
+    times."""
+    fn()
+    ts = [timed_ms(torch, fn, cuda) for _ in range(reps)]
+    return statistics.median(ts), ts
+
+
+def busy_peak(torch, fn, cuda: bool):
+    """Device busy ms of one call of ``fn`` (``torch.profiler``) and the
+    peak GB allocated during another (0 off the card)."""
+    if not cuda:
+        fn()
+        return 0.0, 0.0
+    busy = sum(e.time_range.elapsed_us() / 1e3
+               for e in fenced_device_events(torch, fn, 8))
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return busy, torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def cell_mutant(name: str):
+    """``CELL_MUTANTS``: one step of the serving mesh's attention broken.
+    ``lse_no_rescale`` sums the ranks' locally normalized contexts (no
+    shared maximum, no shared sum); ``head_dim_unsummed`` softmaxes each
+    rank's partial q.k."""
+    import torch
+
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.models.layers import attention
+
+    if name == "lse_no_rescale":
+        attr = "split_softmax_ctx"
+
+        def broken(scores, valid, v, seq_axes, pv):
+            s = scores.masked_fill(~valid, attention.NEG_INF)
+            p = torch.softmax(s, dim=-1).to(v.dtype)
+            return shlib.psum(torch.einsum(pv, p, v), seq_axes)
+    else:
+        attr = "sum_scores"
+
+        def broken(s, axes):
+            return s
+    real = getattr(attention, attr)
+    setattr(attention, attr, broken)
+    try:
+        yield
+    finally:
+        setattr(attention, attr, real)
+
+
+def cell_numbers(torch, cfg, shape, sp: float, ms: float, busy_ms: float,
+                 peak_gb: float, input_gb: float):
+    """The analytic bound of a cell on one card and the measured wall
+    beside it."""
+    from repro_torch.analysis import analytic, roofline
+
+    c = analytic.cell_cost(cfg, shape, griffin_sparsity=sp)
+    mf = roofline.model_flops(cfg, shape)
+    r = roofline.from_costs(c.flops, c.hbm_bytes, 0.0, model_flops_total=mf,
+                            chips=1, dtype=cfg.dtype)
+    return dict(wall_ms=round(ms, 3), busy_ms=round(busy_ms, 3),
+                busy_share=round(busy_ms / ms, 4), peak_gb=round(peak_gb, 3),
+                dryrun_input_gb=round(input_gb, 3),
+                analytic_flops=c.flops, analytic_bytes=c.hbm_bytes,
+                bound_ms=round(r.bound_s * 1e3, 3), bound_by=r.dominant,
+                compute_ms=round(r.compute_s * 1e3, 3),
+                memory_ms=round(r.memory_s * 1e3, 3), model_flops=mf,
+                mfu=round(mf / (ms / 1e3 * r.peak_flops), 5),
+                roofline_fraction=round(r.roofline_fraction, 5),
+                wall_over_bound=round(ms / (r.bound_s * 1e3), 3))
+
+
+def phase_cells_one(torch, np, dev, smoke: bool = False):
+    """16b: Yi-9B's prefill and decode cells at (1, 1) on the card, built
+    by ``cells.build_cell`` and ``materialize``: walls, busy share, peak
+    memory beside the dry-run's input bytes, the analytic bound and the
+    model-FLOPs share; logits and selection == ``GenerationEngine``'s on
+    the same weights, cache and inputs."""
+    from repro_torch.core import griffin as griffin_lib
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import TrainMesh
+    from repro_torch.models import decoder
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg, pre, dec, pp, dp, _ = cell_setup(smoke)
+    cuda = dev.type == "cuda"
+    mesh = TrainMesh(dims=(1, 1), device=dev)
+    res, ref = {}, {}
+    t0 = time.perf_counter()
+    cell = cells.build_cell(cfg, pre, mesh, pp)
+    in_gb = cells.input_bytes(cell) / 1e9
+    params, inputs = cells.materialize(cell, dev, seed=0)
+    res["materialize_s"] = round(time.perf_counter() - t0, 2)
+    out = {}
+
+    def prefill():
+        out.update(cell.fn(params, inputs))
+
+    # the path's launches: one run of each cell, counted alone
+    reset_launches()
+    prefill()
+    counts = launches()
+    ms, _ = wall_ms(torch, prefill, CELL_REPS, cuda)
+    out.clear()
+    busy, peak = busy_peak(torch, prefill, cuda)
+    res["prefill"] = cell_numbers(torch, cfg, pre, 0.0, ms, busy, peak, in_gb)
+    # the engine on the same weights and prompts
+    eng = GenerationEngine(cfg, params, pp.griffin, q_chunk=pp.q_chunk, device=dev)
+    lg, aux = eng.prefill(inputs["tokens"])
+    stats = decoder.prune_stats_tree(aux.stats, cfg)
+    idx = {}
+    pruned_e, _ = griffin_lib.select_and_compact(
+        stats, decoder.extract_ffn_tree(params, cfg), pp.griffin,
+        on_select=lambda li, i: idx.__setitem__(li, i))
+    scale = float(lg.abs().max())
+    gap = float((out["last_logits"] - lg).abs().max())
+    check(gap <= CELL_ENGINE_TOL * scale, f"16b prefill logits {gap} vs engine "
+          f"(max |logit| {scale})")
+    check(all(torch.equal(out["experts"][li], idx[li]) for li in idx),
+          "16b: the cell's selection differs from the engine's")
+    check(all(torch.equal(out["pruned"][li]["w1"], pruned_e[li]["w1"]) for li in idx),
+          "16b: the cell's compacted FF differs from the engine's")
+    res["prefill"]["engine_gap"] = gap
+    res["prefill"]["max_logit"] = scale
+    ref["prefill_logits"] = out["last_logits"].float().cpu().numpy()
+    ref["experts"] = {li: v.cpu().numpy() for li, v in idx.items()}
+    ref["sbar"] = {li: v.float().cpu().numpy() for li, v in out["scores"].items()}
+    pruned = out["pruned"]
+    del aux, stats, pruned_e, out, lg
+    if cuda:
+        free(torch)
+    # decode on the prefill's compacted FF over a random 32,768-token cache
+    dcell = cells.build_cell(cfg, dec, mesh, dp)
+    in_gb = cells.input_bytes(dcell) / 1e9
+    _, cache, _, token, pos = cells.materialize(dcell, dev, seed=0, params=params,
+                                                pruned=pruned)
+    scale_cache(cache)
+    dout = {}
+
+    def decode():
+        dout["logits"], _ = dcell.fn(params, cache, pruned, token, pos)
+
+    reset_launches()
+    decode()
+    for name, n in launches().items():
+        counts[name] = counts.get(name, 0) + n
+    ms, _ = wall_ms(torch, decode, CELL_REPS, cuda)
+    dout.clear()
+    busy, peak = busy_peak(torch, decode, cuda)
+    res["decode"] = cell_numbers(torch, cfg, dec, dp.griffin.sparsity, ms, busy,
+                                 peak, in_gb)
+    lg, _ = eng.decode(cache, pruned, token, pos)
+    scale = float(lg.abs().max())
+    gap = float((dout["logits"] - lg).abs().max())
+    check(gap <= CELL_ENGINE_TOL * scale, f"16b decode logits {gap} vs engine "
+          f"(max |logit| {scale})")
+    res["decode"]["engine_gap"] = gap
+    res["decode"]["max_logit"] = scale
+    ref["decode_logits"] = dout["logits"].float().cpu().numpy()
+    check(counts.get("expert_stat", 0) > 0 or not cuda, f"16b launched {counts}")
+    del params, cache, pruned, dout, lg, eng
+    if cuda:
+        free(torch)
+    return counts, res, ref
+
+
+def dry_cell_records(rank: int, smoke: bool = False):
+    """The dry mesh's record of 16c's three cells for ``rank`` of (2, 2)
+    (a spawned process: shapes on ``meta``)."""
+    import warnings
+
+    warnings.simplefilter("ignore")
+    from repro_torch.analysis import collectives
+    from repro_torch.launch import cells
+    from repro_torch.launch.dryrun import step_cell
+    from repro_torch.launch.mesh import dry_train_mesh
+
+    cfg, pre, dec, pp, dp, hp = cell_setup(smoke)
+    mesh = dry_train_mesh((2, 2), ("data", "model"), rank)
+    return {tag: collectives.summary(step_cell(cells.build_cell(cfg, shape, mesh, pol))[1])
+            for tag, shape, pol in (("prefill", pre, pp), ("kv_seq", dec, dp),
+                                    ("head_dim", dec, hp))}
+
+
+def cells_rank(mesh, experts, smoke: bool = False):
+    """One rank of 16c (a spawned process): the prefill cell, then the
+    decode cells (``kv_seq`` split, then ``head_dim`` split) on this
+    rank's blocks of 16b's compacted FF (``experts``: 16b's selection),
+    each with its mutant run after it; ``launches`` counts the kernel
+    launches of one run of each cell (``module.attr``), not those of the
+    timed and mutant runs."""
+    import torch
+
+    from repro_torch.analysis import collectives
+    from repro_torch.core import griffin as griffin_lib
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import launch_counts
+    from repro_torch.models import decoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, pre, dec, pp, dp, hp = cell_setup(smoke)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    out = {"launches": {}}
+
+    def counted(fn):
+        """One run of the path, its kernel launches counted (the timed
+        and mutant runs are not)."""
+        before = launch_counts()
+        r = fn()
+        for k, v in launch_counts().items():
+            out["launches"][k] = out["launches"].get(k, 0) + v - before.get(k, 0)
+        return r
+
+    cell = cells.build_cell(cfg, pre, mesh, pp)
+    params, inputs = cells.materialize(cell, dev, seed=0)
+    shlib.reset_records()
+    res = counted(lambda: cell.fn(params, inputs))
+    out["prefill_records"] = collectives.summary(shlib.RECORDS)
+    out["prefill_logits"] = res["last_logits"].float().cpu().numpy()
+    out["experts"] = {li: v.cpu().numpy() for li, v in res["experts"].items()}
+    out["scores"] = {li: v.float().cpu().numpy() for li, v in res["scores"].items()}
+    del res
+    out["prefill_ms"] = timed_ms(torch, lambda: cell.fn(params, inputs), cuda)
+    ffn = decoder.extract_ffn_tree(params, cfg)
+    c, n = mesh.coord("model"), mesh.extent("model")
+    pruned = {li: griffin_lib.compact(ffn[li], griffin_lib.shard_indices(
+        torch.as_tensor(experts[li]), cfg.d_ff, c, n)) for li in ffn}
+    del ffn  # views of the weights, which the head_dim cell draws anew
+    for tag, pol, mutant in (("kv_seq", dp, CELL_MUTANTS[0]),
+                             ("head_dim", hp, CELL_MUTANTS[1])):
+        dcell = cells.build_cell(cfg, dec, mesh, pol)
+        if dcell.resolved[0] != cell.resolved[0]:  # other weight blocks
+            del params
+            params = None
+            if cuda:
+                torch.cuda.empty_cache()
+        params, cache, _, token, pos = cells.materialize(
+            dcell, dev, seed=0, params=params, pruned=pruned)
+        cell = dcell
+        scale_cache(cache)
+        shlib.reset_records()
+        logits, _ = counted(lambda: dcell.fn(params, cache, pruned, token, pos))
+        out[f"{tag}_records"] = collectives.summary(shlib.RECORDS)
+        out[f"{tag}_logits"] = logits.float().cpu().numpy()
+        out[f"{tag}_ms"] = timed_ms(
+            torch, lambda: dcell.fn(params, cache, pruned, token, pos), cuda)
+        with cell_mutant(mutant):
+            logits, _ = dcell.fn(params, cache, pruned, token, pos)
+        out[f"{tag}_mutant_logits"] = logits.float().cpu().numpy()
+        out[f"{tag}_cache_gb"] = sum(t.numel() * t.element_size()
+                                     for layer in cache for t in layer.values()) / 1e9
+        del cache, logits
+        if cuda:
+            torch.cuda.empty_cache()
+    out["param_gb"] = cells.tree_bytes(params) / 1e9
+    out["pruned_gb"] = cells.tree_bytes(pruned) / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return out
+
+
+def assemble(np, blocks, ranks, data_dim: int, vocab_dim: int):
+    """A global array from the (2, 2) ranks' (rows, vocabulary) blocks."""
+    rows = []
+    for d in (0, 1):
+        row = [blocks[r] for r in ranks if r // 2 == d]
+        rows.append(np.concatenate(row, axis=vocab_dim))
+    return np.concatenate(rows, axis=data_dim)
+
+
+def phase_cells_mesh(torch, np, ref, dev, smoke: bool = False):
+    """16c: the same cells at (2, 2), four gloo ranks on the one card:
+    logits within ``TP_LOGIT_TOL`` of 16b's, the selection 16b's up to
+    near-ties (``CELL_TIE_GAPS``), each rank's recorded collectives equal
+    to the dry mesh's for that rank, both mutants refused."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = cell_setup(smoke)[0]
+    res = {}
+    if dev.type == "cuda":
+        free(torch)  # 16b's weights, cache and compacted FF, held in the cache
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as ex:
+        dry = [ex.submit(dry_cell_records, r, smoke) for r in range(4)]
+        ranks, _ = run_ranks(cells_rank, 4, backend="gloo", shape=(2, 2),
+                                  axes=("data", "model"), device=dev.type,
+                                  args=(ref["experts"], smoke), timeout_s=900)
+        dry = [f.result() for f in dry]
+    res["ranks_s"] = round(time.perf_counter() - t0, 1)
+    for r in range(4):
+        for tag in ("prefill", "kv_seq", "head_dim"):
+            check(ranks[r][f"{tag}_records"] == dry[r][tag],
+                  f"16c rank {r} {tag} collectives {ranks[r][f'{tag}_records']} "
+                  f"!= the dry-run's {dry[r][tag]}")
+    res["records_rank0"] = {t: ranks[0][f"{t}_records"]
+                            for t in ("prefill", "kv_seq", "head_dim")}
+    checks = []  # every reading is taken before the first check fails
+    lg = assemble(np, [x["prefill_logits"] for x in ranks], range(4), 0, 1)
+    scale = float(np.abs(ref["prefill_logits"]).max())
+    gap = float(np.abs(lg - ref["prefill_logits"]).max())
+    checks.append((gap <= TP_LOGIT_TOL * scale, f"16c prefill logits {gap} vs "
+                   f"16b ({scale})"))
+    res["prefill_gap_share"] = gap / scale
+    # the selection: each data row's two model ranks together select 16b's
+    # experts, up to near-ties of the statistic within their shard
+    flips, worst, stat_gap = 0, 0.0, 0.0
+    F, sh = cfg.d_ff, 16
+    w = F // sh
+    for li, want in ref["experts"].items():
+        sbar = ref["sbar"][li]
+        k_sh = len(want) // sh
+        for d in (0, 1):
+            rows = [r for r in range(4) if r // 2 == d]
+            mine = np.concatenate([ranks[r]["scores"][li] for r in rows])
+            stat_gap = max(stat_gap, float(np.abs(mine - sbar).max()
+                                           / np.abs(sbar).max()))
+            got = np.sort(np.concatenate([ranks[r]["experts"][li] for r in rows]))
+            diff = np.setxor1d(got, want)
+            flips += len(diff) // 2
+            for j in diff:
+                b = j // w
+                block = np.sort(sbar[b * w:(b + 1) * w])[::-1]
+                t = 0.5 * (block[k_sh - 1] + block[k_sh])
+                gap = float(np.abs(mine[b * w:(b + 1) * w] - sbar[b * w:(b + 1) * w]).max())
+                worst = max(worst, abs(float(sbar[j]) - t) / max(CELL_TIE_GAPS * gap, 1e-30))
+    checks.append((stat_gap <= TP_STAT_TOL, f"16c: s-bar {stat_gap:.3g} of its "
+                   f"largest value from 16b's"))
+    checks.append((worst <= 1.0, f"16c: a selection differs beyond a near-tie "
+                   f"({worst:.3g} of {CELL_TIE_GAPS} x the statistic's gap, "
+                   f"{flips} swaps)"))
+    res["stat_gap_share"] = stat_gap
+    res["selection_swaps"] = flips
+    res["selection_worst_tie_over_gap"] = worst
+    scale = float(np.abs(ref["decode_logits"]).max())
+    for tag, mutant in (("kv_seq", CELL_MUTANTS[0]), ("head_dim", CELL_MUTANTS[1])):
+        lg = assemble(np, [x[f"{tag}_logits"] for x in ranks], range(4), 0, 2)
+        gap = float(np.abs(lg - ref["decode_logits"]).max())
+        checks.append((gap <= TP_LOGIT_TOL * scale, f"16c {tag} decode logits "
+                       f"{gap} vs 16b ({scale})"))
+        mg = float(np.abs(assemble(np, [x[f"{tag}_mutant_logits"] for x in ranks],
+                                   range(4), 0, 2) - ref["decode_logits"]).max())
+        checks.append((mg > TP_LOGIT_TOL * scale, f"16c mutant {mutant} passed: "
+                       f"{mg} vs 16b ({scale})"))
+        res[f"{tag}_gap_share"] = gap / scale
+        res[f"{tag}_mutant_{mutant}_gap_share"] = mg / scale
+        res[f"{tag}_ms_rank0"] = round(ranks[0][f"{tag}_ms"], 3)
+        res[f"{tag}_cache_gb_rank"] = round(ranks[0][f"{tag}_cache_gb"], 3)
+    res["prefill_ms_rank0"] = round(ranks[0]["prefill_ms"], 3)
+    for k in ("param_gb", "pruned_gb", "peak_gb"):
+        res[f"{k}_rank"] = [round(x[k], 3) for x in ranks]
+    counts = {}  # the ranks' counted runs of the path
+    for x in ranks:
+        for k, v in x["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    c = tp_counts(counts)
+    checks.append((dev.type != "cuda" or (c.get("expert_stat_row_sq", 0) > 0 and
+                                          c.get("expert_stat_from_norm", 0) > 0),
+                   f"16c launched {c}"))
+    bad = [msg for ok, msg in checks if not ok]
+    check(not bad, "; ".join(bad) + f" (readings: {res})")
+    return c, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4411,10 +4999,10 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     build.build()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
-
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels, lines = phase_kernels(torch, dev, flush)
     del flush
@@ -4764,6 +5352,41 @@ def main() -> int:
     for k, v in mesh_train.items():
         print(f"  {k}: {v}")
 
+    free(torch)
+    t16 = t0 = time.perf_counter()
+    cells_counts, cells_one, cells_ref = phase_cells_one(torch, np, dev)
+    print(f"phase 16b yi-9b whole, bf16, GRIFFIN 0.5, random weights from seed 0, "
+          f"cells at (1, 1) from cells.build_cell + materialize: prefill "
+          f"{CELL_PREFILL[2]} x {CELL_PREFILL[1]} (cut from 32 x 32,768), decode "
+          f"{CELL_DECODE[2]} sequences over a {CELL_DECODE[1]}-token cache at pos "
+          f"{CELL_DECODE[1] - 1} (cut from 128), == GenerationEngine ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {cells_counts}")
+    for k, v in cells_one.items():
+        print(f"  {k}: {v}")
+    t0 = time.perf_counter()
+    cells_mesh_counts, cells_mesh = phase_cells_mesh(torch, np, cells_ref, dev)
+    print(f"phase 16c the same cells at (2, 2), four gloo ranks on the one card "
+          f"(decode twice: kv_seq split under policy_for's rules, head_dim split "
+          f"under the fallback with kv_heads off model), mutants "
+          f"{list(CELL_MUTANTS)} ({card}): {time.perf_counter() - t0:.1f} s, "
+          f"launches {cells_mesh_counts}")
+    for k, v in cells_mesh.items():
+        print(f"  {k}: {v}")
+    # 16a's dry-runs step on the host's cores after every measured phase
+    t0 = time.perf_counter()
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = start_dryrun(dry_dir)
+    atexit.register(stop_dryrun, dry_procs)
+    dry_counts, dry_lines = phase_dryrun(dry_procs, dry_dir, t0)
+    print(f"phase 16a dry-run --all --pods 1 and 2 ({DRYRUN_JOBS} jobs each), "
+          f"DeepSeek-V3 with --moe-group-limit {DRYRUN_GROUP_LIMIT} at both, on "
+          f"the host's cores alone after 16c: {time.perf_counter() - t0:.1f} s, "
+          f"{dry_counts}; not ported: {sorted(DRYRUN_NOT_PORTED)}")
+    for line in dry_lines:
+        print("  " + line)
+    print(f"phase 16 total: {time.perf_counter() - t16:.1f} s; script "
+          f"{time.perf_counter() - t_script:.1f} s since the build began")
+
     # launches on each kernel's main path: the serving runs for the
     # attention, statistic and gather kernels, phase 6 for the FF kernels,
     # phase 9's engines, protocols and profiled launcher for the statistic
@@ -4784,7 +5407,8 @@ def main() -> int:
              "gemma3": frontends["12b"]["launches"],
              "command_r_plus": frontends["12c"]["launches"],
              "llava_next": frontends["12d"]["launches"],
-             "hubert": frontends["12e"]["launches"], **tp_paths}
+             "hubert": frontends["12e"]["launches"], **tp_paths,
+             "cells_yi9b": cells_counts, "cells_yi9b_22": cells_mesh_counts}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -4857,6 +5481,8 @@ def main() -> int:
              "frontends": frontends, "train_smoke": train_smoke,
              "train_tinylm": train_tiny, "train_yi9b": yi_train,
              "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp, "mesh_train": mesh_train,
+             "cells_one": cells_one, "cells_mesh": cells_mesh,
+             "dryrun": dry_lines,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))
     print(json.dumps({"kernels": entries}))

@@ -181,6 +181,14 @@ def select_experts(
         if s_sq.ndim == 2
         else torch.sqrt(torch.clamp(s_sq.float(), min=0.0))
     )
+    return select_from_scores(s, gcfg, d_ff, k, generator)
+
+
+def select_from_scores(s: torch.Tensor, gcfg: GriffinConfig,
+                       d_ff: Optional[int] = None, k: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """``select_experts`` on the aggregated statistic s-bar [F]."""
     F = d_ff or s.shape[-1]
     k = gcfg.k_of(F) if k is None else int(k)
     if gcfg.mode == "blocks":
@@ -348,6 +356,58 @@ def select_and_compact(
             out[li] = compact(ffn_tree[li], idx,
                               shards=compaction_shards(gcfg, widths[li], F))
     return out, widths
+
+
+def select_and_compact_mesh(
+    stats_tree: Dict[int, Any],
+    ffn_tree: Dict[int, Dict],
+    gcfg: GriffinConfig,
+    cfg,
+    *,
+    ks: Optional[Dict[int, int]] = None,
+) -> Tuple[Dict[int, Dict], Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
+    """``select_and_compact`` on this rank's shard of a serving mesh
+    (``sharding.axis_rules``): ``stats_tree`` holds the statistics of this
+    data rank's rows and of its ``model`` block of each F axis,
+    ``ffn_tree`` its blocks of the FF weights.
+
+    Eq. 7's sum over the batch is all-reduced over the batch axes, so
+    every data rank selects the same neurons.  Balanced per-shard top-k
+    (``tp_shards`` a multiple of the ``model`` extent) keeps ``k / n`` of
+    each rank's block, the global selection's share of it
+    (``shard_indices``), found from the block alone; the rank compacts
+    its own block.  Returns ``(pruned blocks, {li: this rank's experts
+    as global indices}, {li: this rank's block of s-bar})``."""
+    from repro_torch.distributed import sharding as shlib
+
+    mesh, rules = shlib.active_rules()
+    baxes = shlib.batch_axes(mesh, rules)
+    widths = ffn_widths(cfg)
+    ks = ks or plan_k_tree(cfg, gcfg)
+    out: Dict[int, Dict] = {}
+    experts: Dict[int, torch.Tensor] = {}
+    scores: Dict[int, torch.Tensor] = {}
+    for li, leaf in stats_tree.items():
+        s_sq = _s_sq(leaf)
+        F_loc, F, k = s_sq.shape[-1], widths[li], ks[li]
+        s = scores[li] = shlib.psum(aggregate_stats(s_sq), baxes)
+        n = F // F_loc
+        if n == 1:
+            idx = select_from_scores(s, gcfg, F, k)
+            r = 0
+        else:
+            sh = gcfg.tp_shards
+            if not (gcfg.mode == "topk" and gcfg.per_shard_topk and sh % n == 0
+                    and F % sh == 0 and k % sh == 0):
+                raise ValueError(
+                    f"layer {li}: a mesh prefill over a {n}-way split F needs "
+                    f"balanced per-shard top-k with tp_shards a multiple of "
+                    f"{n} dividing F={F} and k={k} (got {gcfg})")
+            idx = selector_lib.select_topk_per_shard(s, k // n, sh // n)
+            r = mesh.coord("model")
+        out[li] = compact(ffn_tree[li], idx)
+        experts[li] = idx + r * F_loc
+    return out, experts, scores
 
 
 def pad_pruned_tree(pruned: Dict[int, Dict], widths: Dict[int, int],

@@ -107,25 +107,84 @@ def _axes(axis) -> Tuple[str, ...]:
 
 
 def _group(axis):
+    """The active mesh and its group over ``axis``; None for a group of
+    one rank, whose collectives are the identity."""
     mesh, _ = _current()
     if mesh is None:
         raise RuntimeError("a training collective outside axis_rules")
-    return mesh, mesh.group(_axes(axis))
+    axes = _axes(axis)
+    return mesh, mesh.group(axes) if mesh.extent(axes) > 1 else None
 
 
 #: the training mesh's all-reduces in this process (calls, bytes sent
 #: into them), for the per-step counts; ``reset_traffic`` zeroes them
 TRAFFIC = {"calls": 0, "bytes": 0}
 
+#: every collective this process issued, in order: ``{"kind"`` (the
+#: logical kind: ``all-reduce``, ``all-gather`` or ``reduce-scatter``),
+#: ``"bytes"`` (the operand as XLA's HLO shapes it: the gathered result
+#: of an all-gather, this rank's block of a reduce-scatter's result, the
+#: operand of an all-reduce), ``"issued_bytes"`` (what went into the
+#: backend's call: gloo and the dry group run every kind as an
+#: all-reduce of the full buffer), ``"ranks"`` (the group's members)``}``.
+#: ``analysis.collectives`` turns them into wire bytes;
+#: ``reset_records`` empties the list.
+RECORDS: List[Dict[str, Any]] = []
+
 
 def reset_traffic() -> None:
     TRAFFIC.update(calls=0, bytes=0)
 
 
-def all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
-    """``dist.all_reduce`` in place, counted in ``TRAFFIC``."""
+def reset_records() -> None:
+    RECORDS.clear()
+
+
+class DryGroup:
+    """A stand-in for a process group of ``ranks`` (global rank ids): its
+    collectives are recorded and leave their tensors as they are.  The
+    dry-run steps one rank's program on ``meta`` tensors over such
+    groups (``launch.mesh.dry_train_mesh``); it is never a real group."""
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks = tuple(int(r) for r in ranks)
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __repr__(self) -> str:
+        return f"DryGroup({list(self.ranks)})"
+
+
+def group_ranks(group) -> Tuple[int, ...]:
+    """The global ranks of ``group`` (a ``DryGroup`` or a process group;
+    None is the default group)."""
+    if isinstance(group, DryGroup):
+        return group.ranks
+    if group is None:
+        group = dist.group.WORLD
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def record(kind: str, nbytes: int, group, issued: Optional[int] = None) -> None:
+    """Append one collective to ``RECORDS``."""
+    RECORDS.append({"kind": kind, "bytes": int(nbytes),
+                    "issued_bytes": int(nbytes if issued is None else issued),
+                    "ranks": list(group_ranks(group))})
+
+
+def all_reduce_(t: torch.Tensor, group, op=None, *, kind: str = "all-reduce",
+                nbytes: Optional[int] = None) -> torch.Tensor:
+    """``dist.all_reduce`` in place, counted in ``TRAFFIC`` and recorded
+    in ``RECORDS`` as the logical ``kind`` it carries out with the
+    operand size ``nbytes`` (default: ``t``'s); over a ``DryGroup`` it
+    only records."""
+    size = t.numel() * t.element_size()
     TRAFFIC["calls"] += 1
-    TRAFFIC["bytes"] += t.numel() * t.element_size()
+    TRAFFIC["bytes"] += size
+    record(kind, size if nbytes is None else nbytes, group, size)
+    if isinstance(group, DryGroup):
+        return t
     if op is None:
         dist.all_reduce(t, group=group)
     else:
@@ -163,7 +222,7 @@ def enter(x: torch.Tensor, axis="model") -> torch.Tensor:
     """Identity forward, all-reduce over ``axis`` backward: a replicated
     activation entering a computation split over ``axis``."""
     mesh, group = _group(axis)
-    return _Enter.apply(x, group)
+    return x if group is None else _Enter.apply(x, group)
 
 
 def reduce(x: torch.Tensor, axis="model") -> torch.Tensor:
@@ -171,7 +230,7 @@ def reduce(x: torch.Tensor, axis="model") -> torch.Tensor:
     ``lax.psum``), identity backward: the partial sums of a row-split
     projection, replicated after the sum."""
     mesh, group = _group(axis)
-    return _Reduce.apply(x, group)
+    return x if group is None else _Reduce.apply(x, group)
 
 
 def _blocks(mesh, axis, shapes, dims):
@@ -199,7 +258,7 @@ class _Gather(torch.autograd.Function):
                 view.narrow(dims[i], r * w, w).copy_(xs[i])
                 outs[i] = view
                 off += view.numel()
-            all_reduce_(buf, group)
+            all_reduce_(buf, group, kind="all-gather")
         return tuple(outs)
 
     @staticmethod
@@ -216,7 +275,8 @@ class _Gather(torch.autograd.Function):
                                          device=_device_of(gs)).reshape(-1)
                              if g is None else g.to(dt).reshape(-1))
             buf = torch.cat(parts)
-            all_reduce_(buf, ctx.group)
+            all_reduce_(buf, ctx.group, kind="reduce-scatter",
+                        nbytes=buf.numel() * buf.element_size() // ctx.n)
             off = 0
             for i in idx:
                 full = list(ctx.meta[i][1])
@@ -248,20 +308,18 @@ def gather(xs: Sequence[torch.Tensor], dims: Sequence[int],
 
 def all_sum(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum over ``axis`` of a tensor outside autograd (metrics, counts);
-    the identity for no axes."""
-    mesh, _ = _current()
-    axes = _axes(axis)
-    if mesh is None or not axes:
+    the identity for no axes or one rank."""
+    mesh, axes = _live(axis)
+    if mesh is None:
         return x
     return _all_reduce(x.detach(), mesh.group(axes))
 
 
 def all_max(x: torch.Tensor, axis) -> torch.Tensor:
     """Maximum over ``axis`` of a tensor outside autograd."""
-    mesh, _ = _current()
-    axes = _axes(axis)
+    mesh, axes = _live(axis)
     out = x.detach().contiguous().clone()
-    if mesh is not None and axes:
+    if mesh is not None:
         all_reduce_(out, mesh.group(axes), dist.ReduceOp.MAX)
     return out
 
@@ -278,6 +336,98 @@ def model_split(local: int, full: int) -> bool:
     axis; a dimension whose axis was dropped for divisibility is whole)."""
     mesh, _ = _current()
     return mesh is not None and local != full
+
+
+# ---------------------------------------------------------------------------
+# serving on the training mesh: plain collectives (no autograd), placed
+# by resolved specs; an axis set of extent 1 is the identity
+# ---------------------------------------------------------------------------
+
+def dim_axes(spec, d: int) -> Tuple[str, ...]:
+    """The mesh axes dimension ``d`` of a resolved ``spec`` is split over."""
+    spec = tuple(spec)
+    return _axes(spec[d]) if d < len(spec) and spec[d] is not None else ()
+
+
+def _live(axes):
+    mesh, _ = _current()
+    axes = _axes(axes) if axes else ()
+    if mesh is None or not axes or mesh.extent(axes) == 1:
+        return None, ()
+    return mesh, axes
+
+
+def split_axes(spec, d: int) -> Tuple[str, ...]:
+    """The axes that really split dimension ``d`` of a resolved ``spec``
+    on the active mesh (extent above 1); () off a mesh or for no spec."""
+    return () if spec is None else _live(dim_axes(spec, d))[1]
+
+
+def gather_dim(t: torch.Tensor, d: int, axes) -> torch.Tensor:
+    """All-gather ``t`` along ``d`` over ``axes`` (this rank's block written
+    into zeros of the full size and summed: exact, and all gloo offers for
+    CUDA tensors); recorded as the all-gather it is."""
+    if not axes:  # the common case off a mesh, without a lookup
+        return t
+    mesh, axes = _live(axes)
+    if mesh is None:
+        return t
+    n, r = mesh.extent(axes), mesh.coord(axes)
+    w = t.shape[d]
+    shape = list(t.shape)
+    shape[d] = w * n
+    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    buf.narrow(d, r * w, w).copy_(t)
+    return all_reduce_(buf, mesh.group(axes), kind="all-gather")
+
+
+def slice_dim(t: torch.Tensor, d: int, axes) -> torch.Tensor:
+    """This rank's block of ``t`` along ``d`` over ``axes``."""
+    if not axes:
+        return t
+    mesh, axes = _live(axes)
+    if mesh is None:
+        return t
+    n, r = mesh.extent(axes), mesh.coord(axes)
+    w = t.shape[d] // n
+    return t.narrow(d, r * w, w)
+
+
+def relayout(t: torch.Tensor, moves: Dict[int, Tuple]) -> torch.Tensor:
+    """``t`` with each dimension ``d`` of ``moves = {d: (have, want)}``,
+    split over the axes ``have``, split over ``want`` instead: every
+    changed dimension gathered first, then cut (a cut before another
+    dimension's gather would mix the ranks' blocks)."""
+    if not any(h or w for h, w in moves.values()):
+        return t
+    moves = {d: (tuple(h or ()), tuple(w or ())) for d, (h, w) in moves.items()}
+    moves = {d: hw for d, hw in moves.items() if hw[0] != hw[1]}
+    for d, (have, _) in moves.items():
+        t = gather_dim(t, d, have)
+    for d, (_, want) in moves.items():
+        t = slice_dim(t, d, want)
+    return t
+
+
+def psum(t: torch.Tensor, axes) -> torch.Tensor:
+    """Sum of ``t`` over ``axes`` in its dtype (a fresh tensor on a mesh)."""
+    if not axes:
+        return t
+    mesh, axes = _live(axes)
+    if mesh is None:
+        return t
+    return all_reduce_(t.contiguous().clone(), mesh.group(axes))
+
+
+def pmax(t: torch.Tensor, axes) -> torch.Tensor:
+    """Maximum of ``t`` over ``axes`` (a fresh tensor on a mesh)."""
+    if not axes:
+        return t
+    mesh, axes = _live(axes)
+    if mesh is None:
+        return t
+    return all_reduce_(t.contiguous().clone(), mesh.group(axes),
+                       dist.ReduceOp.MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +469,7 @@ def psum_if_tp(x: torch.Tensor) -> torch.Tensor:
         return x
     if not x.is_contiguous():
         raise ValueError("psum_if_tp: the partial sum must be contiguous")
+    record("all-reduce", x.numel() * x.element_size(), mesh.group)
     dist.all_reduce(x, group=mesh.group)
     return x
 

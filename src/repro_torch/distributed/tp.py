@@ -99,6 +99,7 @@ def gather_stats(stats: Optional[Dict[int, Dict]], mesh) -> Optional[Dict[int, D
         view[..., r * w: (r + 1) * w] = t
         out[li][k] = view
         off += t.numel() * n
+    shlib.record("all-gather", buf.numel() * 4, mesh.group)
     dist.all_reduce(buf, group=mesh.group)
     return out
 
@@ -349,6 +350,12 @@ def block_slices(spec, shape, mesh) -> Tuple[slice, ...]:
     return tuple(out)
 
 
+def block_shape(spec, shape, mesh) -> Tuple[int, ...]:
+    """The shape of ``mesh``'s rank's block of a leaf of global ``shape``."""
+    return tuple(sl.stop - sl.start if sl.start is not None else n
+                 for sl, n in zip(block_slices(spec, shape, mesh), shape))
+
+
 def block_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """``mesh``'s rank's block of a global tensor (a fresh tensor when
     cut, so the global one can be freed)."""
@@ -506,6 +513,28 @@ class TrainTP:
             torch.device(device) if device is not None else self.mesh.device,
             select=lambda s, t: self.block(t, resolved[id(s)]))
 
+    def abstract_params(self) -> Dict:
+        """This rank's parameter blocks as ``meta`` tensors (shapes and
+        dtypes, no allocation, no draw)."""
+        dt = param_lib.torch_dtype(self.cfg.dtype)
+
+        def leaf(ps, rs):
+            return torch.empty(block_shape(rs, ps.shape, self.mesh), device="meta",
+                               dtype=param_lib.torch_dtype(ps.dtype) if ps.dtype
+                               else dt)
+
+        return self._walk(leaf, self.param_shapes, self.param_specs)
+
+    def abstract_train_state(self, optimizer) -> Dict:
+        """This rank's train state as ``meta`` tensors: its parameter
+        blocks and the optimizer state of those blocks (its layout follows
+        ``opt_specs``), built without the host draw of
+        ``init_train_state``."""
+        params = self.abstract_params()
+        return {"params": params,
+                "opt": optimizer.init(self._ref(params), shard=self.leaf_shards()),
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+
     def init_train_state(self, optimizer, seed: int = 0, device=None) -> Dict:
         """This rank's train state: ``init_params`` and the optimizer's
         initial state of its blocks."""
@@ -570,7 +599,8 @@ class TrainTP:
         bits = full.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
             full.element_size()]) if full.is_floating_point() else full
         buf = bits.to(torch.int32) if bits.element_size() < 4 else bits
-        shlib.all_reduce_(buf, self.mesh.group(self.mesh.axes))
+        shlib.all_reduce_(buf, self.mesh.group(self.mesh.axes),
+                          kind="all-gather")
         if buf is not bits:
             bits.copy_(buf.to(bits.dtype))
         return full

@@ -5,7 +5,8 @@
   ``device="cpu"`` (the tests do).
 * ``is_cuda`` — the one dispatch rule of every kernel wrapper: a CUDA
   tensor goes to the hand-written kernel, a CPU tensor to its plain
-  version (``kernels/ref.py``), anything else raises.  There is no
+  version (``kernels/ref.py``), as does a ``meta`` tensor (the
+  dry-run's explicit request for shapes), anything else raises.  There is no
   fallback from the kernel to the plain version.
 * ``lib`` — the ``ctypes`` handle of ``build/libgriffin_kernels.so``,
   built on first use (``kernels/build.py``).  Every C entry point
@@ -74,10 +75,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def is_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
+    """True for a CUDA tensor, False for a CPU tensor and for a ``meta``
+    one (the dry-run steps shapes through the plain versions, which do
+    no arithmetic there); raises otherwise."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: tensor on unsupported device {t.device}")
 

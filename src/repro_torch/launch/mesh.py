@@ -141,29 +141,57 @@ def abstract_train_mesh(shape: Sequence[int] = (2, 2),
     return TrainMesh(axes=tuple(axes), dims=tuple(shape))
 
 
-def _train_groups(axes: Tuple[str, ...], dims: Tuple[int, ...], rank: int):
-    """``dist.new_group`` for every set of axes and every block of ranks
-    that differ only along it, called in the same order on every rank (a
-    rank must join the creation of groups it is not in)."""
+def _group_blocks(axes: Tuple[str, ...], dims: Tuple[int, ...]):
+    """For every non-empty set of axes (in a fixed order), the blocks of
+    ranks that differ only along it, each with the coordinates of the
+    other axes (row-major rank layout)."""
     coords = list(itertools.product(*[range(d) for d in dims]))
-    mine = coords[rank]
-    out: Dict[FrozenSet[str], Any] = {}
     for k in range(1, len(axes) + 1):
         for sub in itertools.combinations(range(len(axes)), k):
-            key = frozenset(axes[i] for i in sub)
-            if k == len(axes):
-                out[key] = dist.group.WORLD
-                continue
             blocks: Dict[tuple, List[int]] = {}
             for r, c in enumerate(coords):
                 rest = tuple(c[i] for i in range(len(axes)) if i not in sub)
                 blocks.setdefault(rest, []).append(r)
-            for rest, ranks in blocks.items():
-                g = dist.new_group(ranks)
-                if rest == tuple(mine[i] for i in range(len(axes))
-                                 if i not in sub):
-                    out[key] = g
+            yield frozenset(axes[i] for i in sub), sub, coords, blocks
+
+
+def _train_groups(axes: Tuple[str, ...], dims: Tuple[int, ...], rank: int):
+    """``dist.new_group`` for every set of axes and every block of ranks
+    that differ only along it, called in the same order on every rank (a
+    rank must join the creation of groups it is not in)."""
+    out: Dict[FrozenSet[str], Any] = {}
+    for key, sub, coords, blocks in _group_blocks(axes, dims):
+        if len(sub) == len(axes):
+            out[key] = dist.group.WORLD
+            continue
+        mine = tuple(coords[rank][i] for i in range(len(axes)) if i not in sub)
+        for rest, ranks in blocks.items():
+            g = dist.new_group(ranks)
+            if rest == mine:
+                out[key] = g
     return out
+
+
+def dry_train_mesh(shape: Sequence[int] = (16, 16),
+                   axes: Sequence[str] = ("data", "model"),
+                   rank: int = 0) -> TrainMesh:
+    """Rank ``rank``'s view of a ``shape`` mesh whose groups are
+    ``sharding.DryGroup``s: the members ``make_host_mesh`` would give
+    that rank's groups (the same ``_group_blocks``), so a group that
+    crosses a node is one here too, and collectives are recorded, not
+    run.  The dry-run steps one rank's program on ``meta`` tensors over
+    it."""
+    from repro_torch.distributed.sharding import DryGroup
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside the mesh {shape}")
+    groups: Dict[FrozenSet[str], Any] = {}
+    for key, sub, coords, blocks in _group_blocks(axes, shape):
+        mine = tuple(coords[rank][i] for i in range(len(axes)) if i not in sub)
+        groups[key] = DryGroup(blocks[mine])
+    return TrainMesh(axes=axes, dims=shape, rank=rank, backend="dry",
+                     device=torch.device("meta"), groups=groups)
 
 
 def _check_backend(backend: str, device, n: int, what: str) -> torch.device:

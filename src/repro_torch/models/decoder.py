@@ -22,6 +22,8 @@ Public API:
     hidden_forward(params, cfg, tokens, ...) -> hidden states, Aux (autograd)
     loss_fn(params, batch, cfg)              -> loss, metrics (autograd)
     cache_specs(cfg, batch, max_len)         -> ParamSpec list (decode cache)
+    kv_specs(cfg, batch, seq)                -> ParamSpec list (prefill KV)
+    serve_specs(cfg, specs, mesh, rules)     -> resolved specs on a serving mesh
     init_cache(cfg, batch, max_len, device)  -> cache
     fill_cache_from_prefill(cfg, cache, kv)  -> cache
     recurrent_state(cfg, cache) / restore_recurrent_state(cache, saved)
@@ -34,6 +36,7 @@ Public API:
     draft_verify_paged(params, cfg, pools, bt, token, pos, k_r, live, ...)
                                              -> drafts, logits, pools
     extract_ffn_tree(params, cfg)            -> {li: dense-FF / MoE shared params}
+    pruned_ffn_specs(cfg, sparsity)          -> {li: compacted FF ParamSpecs}
     prune_stats_tree(stats, cfg)             -> {li: stats}
     train_specs(cfg, mesh, rules)            -> resolved spec tree (training mesh)
 
@@ -276,12 +279,24 @@ def _gather_dims(spec_tree, resolved) -> Any:
 
 
 @functools.lru_cache(maxsize=16)
-def _plan(cfg, axes, dims, rules_items) -> Dict:
+def _specs(cfg, axes, dims, rules_items) -> Dict:
     from repro_torch.launch.mesh import abstract_train_mesh
 
-    mesh = abstract_train_mesh(dims, axes)
-    return _gather_dims(model_specs(cfg),
-                        train_specs(cfg, mesh, dict(rules_items)))
+    return train_specs(cfg, abstract_train_mesh(dims, axes), dict(rules_items))
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(cfg, axes, dims, rules_items) -> Dict:
+    return _gather_dims(model_specs(cfg), _specs(cfg, axes, dims, rules_items))
+
+
+def _mesh_specs(cfg) -> Optional[Dict]:
+    """``train_specs`` on the active mesh (the layout of every parameter
+    block), or None outside one."""
+    mesh, rules = shlib.active_rules()
+    if mesh is None:
+        return None
+    return _specs(cfg, mesh.axes, mesh.dims, tuple(sorted(rules.items())))
 
 
 def _mesh_plan(cfg) -> Optional[Dict]:
@@ -693,6 +708,59 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> List[Dict]:
                                  cfg.dtype, dev)
 
 
+def kv_specs(cfg, batch: int, seq: int) -> List[Dict]:
+    """Per-layer specs of a prefill's cache material (``Aux.kv``) over
+    ``seq`` tokens: the decode cache's axes at full length (a window
+    layer's K/V are not yet cut to its ring)."""
+    out = []
+    for d in layer_descs(cfg):
+        if d.mixer == "attn" and not cfg.use_mla:
+            ax = "window" if (d.attn_kind == "local" and cfg.sliding_window) \
+                else "kv_seq"
+            out.append({name: ParamSpec(
+                (batch, seq, cfg.num_kv_heads, cfg.head_dim),
+                ("batch", ax, "kv_heads", "head_dim")) for name in ("k", "v")})
+        else:
+            out.append(_layer_cache_specs(cfg, d, batch, seq))
+    return out
+
+
+def serve_specs(cfg, spec_tree: List[Dict], mesh, rules) -> List[Dict]:
+    """Resolved specs of a per-layer cache (or cache material) tree on a
+    serving mesh: the SSM and RG-LRU layers' leaves whole over ``model``,
+    as their mixers are (``train_specs``)."""
+    out = shlib.tree_specs(spec_tree, mesh, rules)
+    for li, d in enumerate(layer_descs(cfg)):
+        if d.mixer in _WHOLE_MIXERS:
+            out[li] = {k: _drop_model(v) for k, v in out[li].items()}
+    return out
+
+
+def kv_blocks(cfg, kv: List[Dict], resolved: List[Dict]) -> List[Dict]:
+    """A mesh prefill's cache material cut (or gathered) to this rank's
+    blocks of ``resolved`` (``serve_specs`` of ``kv_specs``).  The rank
+    holds its batch rows, every position, and the KV heads its key /
+    value projections hold (their resolved ``kv_heads`` / ``head_dim``
+    axes); the latent and recurrent material has no model split."""
+    specs = _mesh_specs(cfg)
+    out = []
+    for li, (d, layer_kv, rs) in enumerate(zip(layer_descs(cfg), kv, resolved)):
+        held: Dict[str, Tuple] = {}
+        if d.mixer == "attn" and not cfg.use_mla:
+            ws = specs["layers"][li]["mixer"]
+            for name, w in (("k", "wk"), ("v", "wv")):
+                held[name] = ((), (), shlib.dim_axes(ws[w], 1),
+                              shlib.dim_axes(ws[w], 2))
+        blocks = {}
+        for name, t in layer_kv.items():
+            have = held.get(name, ((),) * t.dim())
+            blocks[name] = shlib.relayout(t, {
+                dim: (have[dim], shlib.dim_axes(rs[name], dim))
+                for dim in range(1, t.dim())})
+        out.append(blocks)
+    return out
+
+
 def fill_cache_from_prefill(cfg, cache: List[Dict], kv: List[Dict]) -> List[Dict]:
     """Scatter prefill K/V (``Aux.kv``) into the decode caches, and copy
     recurrent states and conv tails across (cast to the cache's dtype),
@@ -730,25 +798,44 @@ def restore_recurrent_state(cache: List[Dict], saved: Dict[int, Dict]) -> None:
 # Decode step
 # ---------------------------------------------------------------------------
 
+def _gather_pruned(pf: Optional[Dict], cfg) -> Optional[Dict]:
+    """A compacted FF block with its FSDP (``embed`` over ``data``) split
+    gathered (as it is off a mesh)."""
+    if pf is None or pf["w1"].shape[0] == cfg.d_model:
+        return pf
+    names = [k for k in ("w1", "wg", "w2") if k in pf]
+    full = shlib.gather([pf[k] for k in names],
+                        [1 if k == "w2" else 0 for k in names], "data")
+    return dict(pf, **dict(zip(names, full)))
+
+
 def _apply_layer_decode(lp: Dict, desc: LayerDesc, cache: Dict,
                         x: torch.Tensor, pos: int, cfg,
-                        pruned_ffn: Optional[Dict], rope=None):
+                        pruned_ffn: Optional[Dict], rope=None, gdims=None,
+                        wspec: Optional[Dict] = None,
+                        cspec: Optional[Dict] = None):
+    lp = _gather(lp, gdims)  # FSDP: this layer's weights, inside the layer
+    pruned_ffn = _gather_pruned(pruned_ffn, cfg)
     h = apply_norm(lp["mixer_norm"], x, cfg)
     if desc.mixer == "ssm":
         y, cache = ssm_lib.ssm_decode(lp["mixer"], cache, h, cfg)
     elif desc.mixer == "rec":
         y, cache = rglru_lib.rglru_decode(lp["mixer"], cache, h, cfg)
     elif cfg.use_mla:
-        y, cache = mla_lib.mla_decode(lp["mixer"], cache, h, pos, cfg, rope=rope)
+        y, cache = mla_lib.mla_decode(lp["mixer"], cache, h, pos, cfg,
+                                      rope=rope, wspec=wspec, cspec=cspec)
     else:
         y, cache = attn_lib.attn_decode(lp["mixer"], cache, h, pos, cfg,
-                                        kind=desc.attn_kind, rope=rope)
+                                        kind=desc.attn_kind, rope=rope,
+                                        wspec=wspec, cspec=cspec)
     x = x + y
     if desc.ffn != "none":
         h = apply_norm(lp["ffn_norm"], x, cfg)
         if desc.ffn == "dense":
-            fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
-            y, _ = ffn_lib.ffn_forward(fp, h, cfg)
+            # a split hidden (mlp over model) reduces its down-projection
+            fp, F = (lp["ffn"], cfg.d_ff) if pruned_ffn is None else \
+                (pruned_ffn, ffn_lib.mesh_width(pruned_ffn["w1"].shape[-1]))
+            y, _ = ffn_lib.ffn_forward(fp, h, cfg, d_ff=F)
         else:
             y = moe_lib.moe_decode(lp["ffn"], pruned_ffn, h, cfg)
         x = x + y
@@ -763,6 +850,7 @@ def decode_step(
     token: torch.Tensor,
     pos: int,
     pruned: Optional[Dict[int, Dict]] = None,
+    cache_specs: Optional[List[Dict]] = None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One generation step.  token: [B,1] int; ``pos``: tokens so far, a
     host int shared by the batch.
@@ -775,15 +863,35 @@ def decode_step(
     two steps from one cache at one ``pos`` equal to the reference's; a
     recurrent layer's state moves on at every step, so such a caller
     restores it in between (``recurrent_state``).
-    Returns (logits [B,1,V] fp32, cache)."""
+    Returns (logits [B,1,V] fp32, cache).
+
+    On a serving mesh (``sharding.axis_rules``, more than one rank) this
+    is one rank's shard: ``params``, ``cache`` and ``pruned`` hold its
+    blocks, ``cache_specs`` the cache's resolved specs (``serve_specs``),
+    and the logits are this rank's block of the vocabulary.  Each layer
+    gathers its FSDP leaves, attention places its collectives by the
+    resolved specs of its weights and cache block, the FF blocks reduce
+    their split down-projections, MoE layers take the training forward's
+    expert-parallel paths, and the SSM / RG-LRU mixers run whole.  Off a
+    mesh every one of these is the identity."""
     pos = int(pos)
+    mesh, _ = shlib.active_rules()
+    if mesh is not None and mesh.size > 1 and cache_specs is None:
+        raise ValueError("decode_step on a serving mesh needs the "
+                         "cache's resolved specs (serve_specs)")
+    plan, specs = _mesh_plan(cfg), _mesh_specs(cfg)
+    params = _gather_top(params, cfg)
     x = embed_lookup(params["embed"], token.long(), cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     rope = rope_cos_sin(positions, _rope_width(cfg), cfg.rope_theta)
     for li, desc in enumerate(layer_descs(cfg)):
-        x, _ = _apply_layer_decode(params["layers"][li], desc, cache[li], x,
-                                   pos, cfg, (pruned or {}).get(li), rope)
+        x, _ = _apply_layer_decode(
+            params["layers"][li], desc, cache[li], x, pos, cfg,
+            (pruned or {}).get(li), rope,
+            gdims=plan and plan["layers"][li],
+            wspec=specs and specs["layers"][li]["mixer"],
+            cspec=cache_specs and cache_specs[li])
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params.get("head", {}), params["embed"], x, cfg)
     return logits, cache
@@ -1078,6 +1186,26 @@ def extract_ffn_tree(params: Dict, cfg) -> Dict[int, Dict]:
             ffn = params["layers"][li]["ffn"]
             out[li] = ffn["shared"] if d.ffn == "moe" else ffn
     return out
+
+
+def pruned_ffn_specs(cfg, sparsity: Optional[float] = None, *, gcfg=None,
+                     tier: Optional[float] = None, profile=None
+                     ) -> Dict[int, Dict]:
+    """ParamSpec tree ``{li: ffn specs}`` of the GRIFFIN-compacted decode
+    FF blocks (the dry-run's abstract inputs), mirroring
+    ``extract_ffn_tree``.  Budgets come from ``griffin.plan_k_tree``:
+    pass a ``gcfg`` (and optionally ``tier`` / ``profile``) for per-layer
+    widths, or the scalar ``sparsity`` (``keep = 1 - sparsity``).  Each
+    layer keeps its own width (the reference stacks the instances of a
+    scan leaf at the widest)."""
+    from repro_torch.core import griffin as griffin_lib
+
+    if gcfg is None:
+        if sparsity is None:
+            raise ValueError("pruned_ffn_specs: pass sparsity or gcfg")
+        gcfg = griffin_lib.GriffinConfig(sparsity=sparsity)
+    ks = griffin_lib.plan_k_tree(cfg, gcfg, tier=tier, profile=profile)
+    return {li: ffn_lib.ffn_specs(cfg, d_ff=k) for li, k in ks.items()}
 
 
 def prune_stats_tree(stats: Dict[int, Dict], cfg) -> Dict[int, Dict]:

@@ -86,18 +86,18 @@ def _project_qkv(params, x, positions, cfg, use_rope: bool, rope=None,
     return q, k, v
 
 
-def _out_proj(params, ctx, cfg, split: bool = False):
+def _out_proj(params, ctx, cfg, split: bool = False, axes=()):
     """ctx: [B,S,H,hd] -> [B,S,D].
 
-    Under tensor parallelism (``sharding.tp_axis`` active, or ``split``
-    on a training mesh) the head axis is split over the ranks, so the
-    contraction over heads is a partial sum — all-reduced before the
-    (replicated) bias, so the bias counts once.  Every attention path
-    (paged, chunked, decode) ends here."""
+    Under tensor parallelism (``sharding.tp_axis`` active, ``split`` on a
+    training mesh, or ``axes``: the axes a serving mesh splits ``wo``'s
+    heads and ``head_dim`` over) the contraction is a partial sum per
+    rank — all-reduced before the (replicated) bias, so the bias counts
+    once.  Every attention path (paged, chunked, decode) ends here."""
     B, S, H, hd = ctx.shape
     wo = params["wo"]
     y = (ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).reshape(B, S, -1)
-    y = psum_if_tp(y)
+    y = shlib.psum(psum_if_tp(y), axes)
     if split:
         y = shlib.reduce(y, "model")
     if "bo" in params:
@@ -159,15 +159,17 @@ def chunked_attention(
             k_start = max(0, q_lo - window) if window else 0
         else:
             k_start, k_end = 0, Sk
-        qpos = q_lo + np.arange(chunk)[:, None]
-        kpos = k_start + np.arange(k_end - k_start)[None, :]
+        # the mask is built where the scores live (no host array, no copy)
+        qpos = q_lo + torch.arange(chunk, device=q.device)[:, None]
+        kpos = k_start + torch.arange(k_end - k_start, device=q.device)[None, :]
         if causal:
             m = kpos <= qpos
             if window:
                 m &= kpos > qpos - window
         else:
-            m = np.ones((chunk, k_end - k_start), bool)
-        mask = torch.from_numpy(m).to(q.device)[None, None, None]
+            m = torch.ones((chunk, k_end - k_start), dtype=torch.bool,
+                           device=q.device)
+        mask = m[None, None, None]
         outs.append(_attend(q_i, k[:, k_start:k_end], v[:, k_start:k_end],
                             mask, scale))
     out = torch.cat(outs, dim=1)[:, :S]
@@ -195,16 +197,18 @@ def attn_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     if split:
         xs = shlib.enter(x, "model")
         kv_split = shlib.model_split(params["wk"].shape[1], cfg.num_kv_heads)
-        q, k, v = _project_qkv(params, xs, positions, cfg, use_rope, rope=rope,
-                               x_kv=xs if kv_split else x)
-        if not kv_split:
-            k, v = _local_kv_heads(q.shape[2], k, v, cfg)
+        q, k_out, v_out = _project_qkv(params, xs, positions, cfg, use_rope,
+                                       rope=rope, x_kv=xs if kv_split else x)
+        k, v = (k_out, v_out) if kv_split else \
+            _local_kv_heads(q.shape[2], k_out, v_out, cfg)
     else:
         q, k, v = _project_qkv(params, x, positions, cfg, use_rope, rope=rope)
+        k_out, v_out = k, v
     window = cfg.sliding_window if kind == "local" else 0
     ctx = chunked_attention(q, k, v, causal=cfg.is_causal, window=window,
                             q_chunk=q_chunk)
-    return _out_proj(params, ctx, cfg, split), (k, v)
+    # the cache material: the KV heads this rank projected
+    return _out_proj(params, ctx, cfg, split), (k_out, v_out)
 
 
 def _local_kv_heads(h_local: int, k, v, cfg):
@@ -286,8 +290,38 @@ def fill_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
     return cache
 
 
+def sum_scores(s: torch.Tensor, axes) -> torch.Tensor:
+    """Scores whose contraction (``head_dim``) is split over ``axes``:
+    the ranks' partial q.k summed before the softmax."""
+    return shlib.psum(s, axes)
+
+
+def split_softmax_ctx(scores: torch.Tensor, valid: torch.Tensor, v, seq_axes,
+                      pv: str) -> torch.Tensor:
+    """``softmax(scores) @ v`` over keys split along ``seq_axes`` (the
+    flash-decoding merge): each rank holds its block's scores (fp32,
+    ``[..., C_local]``) and values; the max is all-reduced, each rank
+    rescales by it, the sums of exponentials and the partial contexts
+    are all-reduced.  ``pv`` is the einsum of the probabilities and
+    ``v``; the products run in ``v``'s dtype, as the unsplit softmax's."""
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = shlib.pmax(scores.amax(dim=-1, keepdim=True), seq_axes)
+    p = torch.exp(scores - m)
+    l = shlib.psum(p.sum(dim=-1, keepdim=True), seq_axes)
+    ctx = torch.einsum(pv, (p / l).to(v.dtype), v)
+    return shlib.psum(ctx, seq_axes)
+
+
+def _full(t: torch.Tensor, spec) -> torch.Tensor:
+    """A small leaf (bias, norm scale) gathered along every split dim."""
+    for d in range(t.dim()):
+        t = shlib.gather_dim(t, d, shlib.split_axes(spec, d))
+    return t
+
+
 def attn_decode(params: Dict, cache: Dict, x: torch.Tensor, pos: int, cfg,
-                kind: str = "global", rope=None) -> Tuple[torch.Tensor, Dict]:
+                kind: str = "global", rope=None, wspec: Optional[Dict] = None,
+                cspec: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  x: [B,1,D]; ``pos``: tokens so far (a host int).
 
     The new K/V are written into the cache **in place** at slot ``pos``
@@ -296,40 +330,107 @@ def attn_decode(params: Dict, cache: Dict, x: torch.Tensor, pos: int, cfg,
     Callers that run two steps from one cache (``evaluate.
     classification_sim``) rely on that order: each step rewrites slot
     ``pos`` before reading it, and no slot it reads is one another step
-    at the same ``pos`` writes.  Returns (y [B,1,D], cache)."""
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, positions, cfg, use_rope=True,
-                                   rope=rope)
+    at the same ``pos`` writes.
 
-    C = cache["k"].shape[1]
+    On a serving mesh (``sharding.axis_rules``, ``launch.cells``) this is
+    one rank's shard: ``params`` and ``cache`` hold its blocks, ``wspec``
+    and ``cspec`` the resolved specs of the layer's weights and of its
+    cache (``("batch", "kv_seq" | "window", "kv_heads", "head_dim")``),
+    and ``x`` [B_local,1,D] is replicated over the model axes.  Each
+    collective goes where those specs split a dimension; without specs
+    (or on one rank) every one is the identity.
+
+    * q and the new K/V are gathered along ``head_dim`` where the weights
+      split it (RoPE and the q/k norms need whole heads), then cut to the
+      cache block's KV heads and ``head_dim`` (query heads: those of the
+      block's KV heads).
+    * Only the rank whose sequence block holds the slot writes the token.
+    * ``head_dim`` split: the partial q.k are summed before the softmax
+      (``sum_scores``) and the context stays split.
+    * ``kv_seq`` / ``window`` split: each rank attends over its block and
+      the ranks merge by log-sum-exp (``split_softmax_ctx``).
+    * The context goes to the out-projection's layout, whose partial sums
+      are reduced over its split axes before the bias.
+    Returns (y [B,1,D], cache)."""
+    ws, cs = wspec or {}, (cspec or {}).get("k")
+    ax = shlib.split_axes
+    B = x.shape[0]
+    KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q = _proj(x, params["wq"])
+    k_new = _proj(x, params["wk"])
+    v_new = _proj(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k_new = k_new + params["bk"]
+        v_new = v_new + params["bv"]
+    q = shlib.gather_dim(q, 3, ax(ws.get("wq"), 2))
+    k_new = shlib.gather_dim(k_new, 3, ax(ws.get("wk"), 2))
+    v_new = shlib.gather_dim(v_new, 3, ax(ws.get("wv"), 2))
+    if "q_norm" in params:
+        q = rms_normalize(q) * _full(params["q_norm"],
+                                     ws.get("q_norm")).to(q.dtype)
+        k_new = rms_normalize(k_new) * _full(params["k_norm"],
+                                             ws.get("k_norm")).to(k_new.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta, rope)
+
+    seq_axes, kv_axes, hd_axes = ax(cs, 1), ax(cs, 2), ax(cs, 3)
+    k_new = shlib.relayout(k_new, {2: (ax(ws.get("wk"), 1), kv_axes),
+                                   3: ((), hd_axes)})
+    v_new = shlib.relayout(v_new, {2: (ax(ws.get("wv"), 1), kv_axes),
+                                   3: ((), hd_axes)})
+    q = shlib.relayout(q, {2: (ax(ws.get("wq"), 1), kv_axes),
+                           3: ((), hd_axes)})
+
+    mesh, _ = shlib.active_rules()
+    C_loc = cache["k"].shape[1]
+    C = C_loc * (mesh.extent(seq_axes) if seq_axes else 1)
+    off = (mesh.coord(seq_axes) if seq_axes else 0) * C_loc
     is_ring = bool(kind == "local" and cfg.sliding_window
                    and C == cfg.sliding_window)
     slot = pos % C if is_ring else min(pos, C - 1)
-    if cache["k"].dtype == torch.int8:
-        kq, ks = quantize_kv(k_new)
-        vq, vs = quantize_kv(v_new)
-        for name, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-            cache[name][:, slot:slot + 1] = val
+    int8 = cache["k"].dtype == torch.int8
+    if off <= slot < off + C_loc:  # this rank's block holds the new token
+        j = slot - off
+        if int8:
+            if hd_axes:
+                raise NotImplementedError(
+                    "an int8 cache split over head_dim (ROADMAP, Queue A item 4)")
+            for name, val in zip(("k", "k_scale", "v", "v_scale"),
+                                 quantize_kv(k_new) + quantize_kv(v_new)):
+                cache[name][:, j:j + 1] = val
+        else:
+            cache["k"][:, j:j + 1] = k_new
+            cache["v"][:, j:j + 1] = v_new
+    if int8:
         k_cache = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         v_cache = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][:, slot:slot + 1] = k_new
-        cache["v"][:, slot:slot + 1] = v_new
         k_cache, v_cache = cache["k"], cache["v"]
 
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    H = cfg.num_heads
-    qg = q.reshape(B, 1, KV, H // KV, hd)
-    slots_idx = torch.arange(C, device=x.device)
+    kv_loc, hd_loc = k_cache.shape[2], k_cache.shape[3]
+    G = H // KV
+    qg = q.reshape(B, 1, kv_loc, G, hd_loc)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache).float()
+    scores = sum_scores(scores, hd_axes) * (1.0 / math.sqrt(hd))
+    slots_idx = off + torch.arange(C_loc, device=x.device)
     if is_ring:
         # ring slot s holds global position: the latest p <= pos with p%C==s
         valid = (pos - slots_idx) % C < min(pos + 1, C)  # age < n_valid
     else:
         valid = slots_idx <= pos
-    ctx = _attend(qg, k_cache, v_cache, valid, 1.0 / math.sqrt(hd))
-    y = _out_proj(params, ctx.reshape(B, 1, H, hd), cfg)
-    return y, cache
+    if seq_axes:
+        ctx = split_softmax_ctx(scores, valid, v_cache, seq_axes,
+                                "bkgqs,bskh->bqkgh")
+    else:  # _attend's softmax, on the summed scores
+        probs = torch.softmax(torch.where(
+            valid, scores, torch.full_like(scores, NEG_INF)), dim=-1)
+        ctx = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v_cache.dtype), v_cache)
+    ctx = ctx.reshape(B, 1, kv_loc * G, hd_loc)
+    o_heads, o_hd = ax(ws.get("wo"), 0), ax(ws.get("wo"), 1)
+    ctx = shlib.relayout(ctx, {2: (kv_axes, o_heads), 3: (hd_axes, o_hd)})
+    return _out_proj(params, ctx, cfg, axes=o_heads + o_hd), cache
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ def ffn_activations(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return act(h1)
 
 
-def griffin_stat_sq(z: torch.Tensor) -> torch.Tensor:
+def griffin_stat_sq(z: torch.Tensor, split: bool = False) -> torch.Tensor:
     """Per-sample squared statistic from activations z [B,S,F] (eq. 6):
     ``s_sq[b, j] = sum_t z[b,t,j]^2 / ||z[b,t]||^2`` in fp32 -> [B, F].
     On the card this launches the ``expert_stat`` kernel.
@@ -66,7 +66,12 @@ def griffin_stat_sq(z: torch.Tensor) -> torch.Tensor:
     norm is a partial sum: it is all-reduced (``psum_if_tp``) between the
     kernel's two steps, so every local column is normalized by the
     *global* row norm; the statistic itself stays rank-local (the TP step
-    rebuilds the global one, ``distributed.tp.gather_stats``)."""
+    rebuilds the global one, ``distributed.tp.gather_stats``).  On a
+    serving mesh (``split``: this rank holds a ``model`` block of F) the
+    row norm is summed over ``model`` the same way."""
+    if split:
+        return ops.griffin_stat_from_norm(
+            z, shlib.psum(ops.griffin_row_sq(z), "model"))
     if tp_mesh() is None:
         return ops.griffin_stat(z)
     return ops.griffin_stat_from_norm(z, psum_if_tp(ops.griffin_row_sq(z)))
@@ -95,7 +100,7 @@ def ffn_forward(
     stats = None
     if collect_stats:
         stats = {
-            "s_sq": griffin_stat_sq(z),
+            "s_sq": griffin_stat_sq(z, split),
             "x_sq": x.float().square().sum(dim=(0, 1)),
             "z_sq": z.float().square().sum(dim=(0, 1)),
         }
@@ -108,6 +113,18 @@ def ffn_forward(
     if "b2" in params:
         y = y + params["b2"]
     return y, stats
+
+
+def mesh_width(local: int) -> int:
+    """The global hidden width of a compacted FF block of which this rank
+    holds ``local`` columns on the active serving mesh: the selection
+    pads ``k`` to a multiple of the ``mlp`` axes (``tp_shards``), so the
+    rules split it whenever they name an axis of the mesh."""
+    mesh, rules = shlib.active_rules()
+    rule = (rules or {}).get("mlp")
+    axes = tuple(a for a in ((rule,) if isinstance(rule, str) else (rule or ()))
+                 if mesh is not None and a in mesh.axis_names)
+    return local * mesh.extent(axes) if axes else local
 
 
 def ffn_forward_perslot(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:

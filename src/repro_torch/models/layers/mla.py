@@ -15,7 +15,7 @@ activation dtype, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -159,33 +159,85 @@ def mla_decode(
     pos: int,
     cfg,
     rope=None,
+    wspec: Optional[Dict] = None,
+    cspec: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-form decode: scores and context live in the r-dim latent
     space.  x [B,1,D] at position ``pos`` (a host int).  The step's
     compressed KV is written into the cache **in place** before it is
     read, so two steps from one cache at one ``pos`` see the reference's
-    values (as ``attention.attn_decode``)."""
-    B = x.shape[0]
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    scale = 1.0 / math.sqrt(dn + dr)
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    values (as ``attention.attn_decode``).
 
-    q_nope, q_rope = _queries(params, x, positions, cfg, rope)  # [B,1,H,*]
-    ckv_new, kr_new = _compress_kv(params, x, positions, cfg, rope)
-    cache["ckv"][:, pos : pos + 1] = ckv_new
-    cache["kr"][:, pos : pos + 1] = kr_new
+    On a serving mesh ``wspec`` / ``cspec`` are the resolved specs of the
+    weights and of the latent cache block, and the collectives go where
+    they split a dimension (``attention.attn_decode`` does the same for
+    GQA; without specs every one is the identity).  The latent cache has
+    no heads: where its sequence axis is split every rank scores all
+    heads over its block (the absorbed queries gathered over the head
+    split) and the ranks merge by log-sum-exp; otherwise each rank keeps
+    its heads.  A split ``head_dim`` of the shared rope key sums its
+    partial scores over ranks that score the same heads (the heads are
+    gathered over those axes first).  The context goes back to the heads of ``w_uv`` and
+    the out-projection's partial sums are reduced."""
+    from repro_torch.models.layers.attention import (split_softmax_ctx,
+                                                     sum_scores)
+
+    ws, cs = wspec or {}, cspec or {}
+    ax = shlib.split_axes
+    B = x.shape[0]
+    dn = cfg.qk_nope_head_dim
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_head_dim)
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    if "w_dq" in params:
+        cq = x @ params["w_dq"]
+        cq = rms_normalize(cq) * params["q_norm"].to(x.dtype)
+        q, qs = _up(cq, params["w_uq"]), ws.get("w_uq")
+    else:
+        q, qs = _up(x, params["w_q"]), ws.get("w_q")
+    q = shlib.gather_dim(q, 3, ax(qs, 2))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, rope)
+    ckv_new = x @ params["w_dkv"]
+    ckv_new = rms_normalize(ckv_new) * params["kv_norm"].to(x.dtype)
+    kr_new = shlib.gather_dim(x @ params["w_kr"], 2, ax(ws.get("w_kr"), 1))
+    kr_new = apply_rope(kr_new[:, :, None, :], positions, cfg.rope_theta,
+                        rope)[:, :, 0]
+
+    seq_axes, kr_hd = ax(cs.get("ckv"), 1), ax(cs.get("kr"), 2)
+    mesh, _ = shlib.active_rules()
+    C_loc = cache["ckv"].shape[1]
+    off = (mesh.coord(seq_axes) if seq_axes else 0) * C_loc
+    if off <= pos < off + C_loc:  # this rank's block holds the new token
+        cache["ckv"][:, pos - off: pos - off + 1] = ckv_new
+        cache["kr"][:, pos - off: pos - off + 1] = shlib.slice_dim(kr_new, 2, kr_hd)
     ckv, kr = cache["ckv"], cache["kr"]
 
     # absorb W_UK into the query: q_lat [B,1,H,r]
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, params["w_uk"])
+    uk = ws.get("w_uk")
+    q_nope = shlib.relayout(q_nope, {2: (ax(qs, 1), ax(uk, 1)),
+                                     3: ((), ax(uk, 2))})
+    q_lat = shlib.psum(torch.einsum("bqhn,rhn->bqhr", q_nope, params["w_uk"]),
+                       ax(uk, 2))
+    # the heads each rank scores: all of them where the sequence is split;
+    # none split over the rope key's head_dim axes, whose partial scores
+    # are summed over the ranks (each must hold the same heads)
+    heads = () if seq_axes else tuple(a for a in ax(uk, 1) if a not in kr_hd)
+    q_lat = shlib.relayout(q_lat, {2: (ax(uk, 1), heads)})
+    q_rope = shlib.relayout(q_rope, {2: (ax(qs, 1), heads), 3: ((), kr_hd)})
     s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
-    s_rope = torch.einsum("bqhk,bsk->bhqs", q_rope, kr)
+    s_rope = sum_scores(torch.einsum("bqhk,bsk->bhqs", q_rope, kr), kr_hd)
     scores = (s_lat + s_rope).float() * scale
-    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
-    scores = torch.where(valid[None, None, None], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # [B,1,H,r]
+    valid = (off + torch.arange(C_loc, device=x.device) <= pos)[None, None, None]
+    if seq_axes:
+        ctx_lat = split_softmax_ctx(scores, valid, ckv, seq_axes, "bhqs,bsr->bqhr")
+    else:
+        scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # [B,1,H,r]
+    uv, wo = ws.get("w_uv"), ws.get("wo")
+    ctx_lat = shlib.relayout(ctx_lat, {2: (heads, ax(uv, 1))})
     ctx = torch.einsum("bqhr,rhk->bqhk", ctx_lat, params["w_uv"])  # [B,1,H,dv]
+    ctx = shlib.relayout(ctx, {2: (ax(uv, 1), ax(wo, 0)),
+                               3: (ax(uv, 2), ax(wo, 1))})
     y = torch.einsum("bqhk,hkd->bqd", ctx, params["wo"])  # [B,1,D]
-    return y, cache
+    return shlib.psum(y, ax(wo, 0) + ax(wo, 1)), cache

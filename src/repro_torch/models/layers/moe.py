@@ -76,14 +76,18 @@ def _capacity(n_tokens: int, cfg, pool: int = 0) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8, floor at 8
 
 
-def _route(params, x: torch.Tensor, cfg):
-    """x [T,D] -> (gate [T,k] fp32, idx [T,k] int64, aux_loss scalar)."""
+def _route(params, x: torch.Tensor, cfg, want_aux: bool = True):
+    """x [T,D] -> (gate [T,k] fp32, idx [T,k] int64, aux_loss scalar, or
+    None without ``want_aux``: decode needs no loss, nor its sums over
+    the batch axes)."""
     logits = x.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = srt[:, :k], order[:, :k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if not want_aux:
+        return gate, idx, None
     # switch-style load-balance aux loss
     E = cfg.num_experts
     # fraction routed (top-1 proxy): the mean of a one-hot, built without
@@ -218,7 +222,7 @@ def _ep2d_info(cfg):
     return mesh, nd, nm
 
 
-def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm):
+def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux: bool = True):
     """Group-limited routing over 2D-sharded experts.
 
     Tokens route ONLY to the E/nd experts of their own data row, so no
@@ -237,14 +241,16 @@ def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm):
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = srt[:, :k], order[:, :k]  # idx in [0, E_row)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    me = torch.softmax(logits, dim=-1).mean(dim=0)
-    fe = (row_ids[idx[:, :1]] == torch.arange(E, device=dev)).float().mean(dim=0)
-    aux = E * (me * fe).sum()
     y = _dispatch_combine_local(
         _expert_params(params), shlib.enter(xt, "model"),
         shlib.enter(gate, "model"), idx, cfg, e0=col * E_sub, e_loc=E_sub,
         cap_experts=E_row)
     y = shlib.reduce(y, "model")
+    if not want_aux:
+        return y, None
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    fe = (row_ids[idx[:, :1]] == torch.arange(E, device=dev)).float().mean(dim=0)
+    aux = E * (me * fe).sum()
     return y, shlib.reduce(aux, "data") / nd
 
 
@@ -259,7 +265,7 @@ def _mlp_split(params, cfg) -> bool:
             f"{(cfg.num_experts, cfg.d_model, cfg.moe_d_ff)} with no "
             f"expert-parallel path (routed EP needs experts over 'model' "
             f"dividing {cfg.num_experts}; experts over (data, model) need "
-            f"moe_group_limit > 0)")
+            f"moe_group_limit > 0; ROADMAP, Queue A item 4)")
     return w1.shape[-1] != cfg.moe_d_ff
 
 
@@ -277,24 +283,30 @@ def moe_forward(
     chunks of ``chunk_tokens`` (one piece when it does not divide).  On
     a training mesh this rank's tokens are its data row's, and the
     expert-parallel paths apply (module docstring)."""
+    y, aux = _routed(params, x, cfg, chunk_tokens)
+    stats = None
+    if "shared" in params:
+        Fs = cfg.moe_d_ff * cfg.num_shared_experts
+        ys, stats = ffn_lib.ffn_forward(params["shared"], x, cfg,
+                                        collect_stats=collect_stats,
+                                        want_z=want_z, d_ff=Fs)
+        y = y + ys
+    return y, aux, stats
+
+
+def _routed(params: Dict, x: torch.Tensor, cfg, chunk_tokens: int = 16_384,
+            want_aux: bool = True):
+    """The routed experts of ``moe_forward``: ``(y [B,S,D], aux)``."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
-    Fs = cfg.moe_d_ff * cfg.num_shared_experts
 
     ep2d = _ep2d_info(cfg)
     if ep2d is not None:
         mesh, nd, nm = ep2d
-        y, aux = _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm)
-        y = y.reshape(B, S, D)
-        stats = None
-        if "shared" in params:
-            ys, stats = ffn_lib.ffn_forward(params["shared"], x, cfg,
-                                            collect_stats=collect_stats,
-                                            want_z=want_z, d_ff=Fs)
-            y = y + ys
-        return y, aux, stats
+        y, aux = _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux)
+        return y.reshape(B, S, D), aux
 
-    gate, idx, aux = _route(params, xt, cfg)
+    gate, idx, aux = _route(params, xt, cfg, want_aux)
 
     T = B * S
     ep = _ep_shard_info(cfg)
@@ -319,14 +331,7 @@ def moe_forward(
     y = torch.cat([piece(xt[i : i + chunk], gate[i : i + chunk],
                          idx[i : i + chunk])
                    for i in range(0, T, chunk)]).reshape(B, S, D)
-
-    stats = None
-    if "shared" in params:
-        ys, stats = ffn_lib.ffn_forward(params["shared"], x, cfg,
-                                        collect_stats=collect_stats,
-                                        want_z=want_z, d_ff=Fs)
-        y = y + ys
-    return y, aux, stats
+    return y, aux
 
 
 def moe_decode(
@@ -339,6 +344,20 @@ def moe_decode(
     dispatch); the shared experts optionally replaced by their
     GRIFFIN-compacted block."""
     B, S, D = x.shape
+    mesh, _ = shlib.active_rules()
+    if mesh is not None:  # a serving mesh: the training forward's EP paths
+        y, _ = _routed(params, x, cfg, want_aux=False)
+        if pruned_shared is not None:
+            ys, _ = ffn_lib.ffn_forward(
+                pruned_shared, x, cfg,
+                d_ff=ffn_lib.mesh_width(pruned_shared["w1"].shape[-1]))
+            y = y + ys
+        elif "shared" in params:
+            ys, _ = ffn_lib.ffn_forward(
+                params["shared"], x, cfg,
+                d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+            y = y + ys
+        return y
     xt = x.reshape(B * S, D)
     gate, idx, _ = _route(params, xt, cfg)
     y = _dispatch_combine(params, xt, gate, idx, cfg).reshape(B, S, D)

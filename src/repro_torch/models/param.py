@@ -19,6 +19,7 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
     "int8": torch.int8,
+    "int32": torch.int32,
     "float8_e4m3fn": torch.float8_e4m3fn,
 }
 
@@ -134,6 +135,23 @@ def abstract_params(spec_tree: Any, dtype) -> Any:
         lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype) if s.dtype else dt,
                               device="meta"),
         spec_tree)
+
+
+def logical_axes(spec_tree: Any) -> Any:
+    """Tree of logical-axis tuples, mirroring the spec tree."""
+    return tree_map_specs(lambda s: s.axes, spec_tree)
+
+
+def param_count(spec_tree: Any) -> int:
+    """Number of parameters of a spec tree."""
+    total = 0
+
+    def add(s: ParamSpec):
+        nonlocal total
+        total += int(np.prod(s.shape))
+
+    tree_map_specs(add, spec_tree)
+    return total
 
 
 def _path_hash(s: str) -> int:

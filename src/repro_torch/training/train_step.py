@@ -91,9 +91,10 @@ def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict, cfg
     return loss.detach(), metrics, rebuild(list(grads))
 
 
-def _rows(mesh, rules, accum_steps: int):
-    """``slice_of(x, m)``: this data rank's rows of microbatch ``m``."""
-    axes = shlib.batch_axes(mesh, rules) if mesh is not None else ()
+def _rows(mesh, rules, accum_steps: int, local: bool = False):
+    """``slice_of(x, m)``: this data rank's rows of microbatch ``m`` (of
+    the global batch, or with ``local`` of the rank's own rows)."""
+    axes = shlib.batch_axes(mesh, rules) if mesh is not None and not local else ()
     n = mesh.extent(axes) if axes else 1
     r = mesh.coord(axes) if axes else 0
 
@@ -116,6 +117,7 @@ def build_train_step(
     loss_fn: Optional[Callable] = None,
     mesh=None,
     rules=None,
+    local_batch: bool = False,
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -129,12 +131,14 @@ def build_train_step(
     this rank's share of the sharded step (module docstring): ``state``
     holds its blocks (``TrainTP(cfg, mesh, rules).init_train_state``, or
     ``bridge.train_state_from_jax(..., tp=)`` of a checkpoint), ``batch``
-    the global rows.
+    the global rows (with ``local_batch``, this data rank's block of them,
+    as a cell of ``launch.cells`` holds it; microbatch ``m`` is then the
+    ``m``-th slice of that block).
     """
     loss_fn = loss_fn or decoder.loss_fn
     tp = TrainTP(cfg, mesh, rules) if mesh is not None else None
     shards = tp.leaf_shards() if tp is not None else None
-    slice_of = _rows(mesh, rules, accum_steps)
+    slice_of = _rows(mesh, rules, accum_steps, local_batch)
 
     def grads_of(params, mb):
         with shlib.axis_rules(mesh, rules) if tp is not None else nullcontext():

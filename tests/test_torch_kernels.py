@@ -10,6 +10,7 @@ fused kernel never writes and no reader attends; gathers exact.
 """
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -224,8 +225,14 @@ def test_no_hidden_device():
     params = decoder.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedServer(cfg, params)
+    # a meta tensor is an explicit request for shapes (the dry-run): the
+    # plain version runs there and does no arithmetic; any other device
+    # is refused
+    out = ops.griffin_stat(torch.zeros((2, 3, 5), device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 5)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.griffin_stat(torch.zeros((2, 3), device="meta"))
+        backend.is_cuda(types.SimpleNamespace(device=torch.device("xpu")),
+                        "griffin_stat")
 
 
 def test_port_imports_no_jax():
