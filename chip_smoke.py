@@ -96,7 +96,7 @@ Phases (any failure raises and the script exits non-zero):
    JSON and served by ``launch.serve.main --tier 0.5 --sparsity-profile``;
    ``expert_stat`` launched once per FF layer on every prefill with
    statistics and nothing else launched; (b) phase 4's Yi-9B model:
-   ``GenerationEngine`` over 2 prompts of 512 tokens and 64 new tokens,
+   ``GenerationEngine`` over 2 prompts of 512 tokens and 32 new tokens,
    dense and GRIFFIN 0.5 (prefill ms, selection ms, decode tokens/s, TPOT
    p50, peak memory, ``expert_stat`` launches per prefill -- 48 -- and
    the token agreement of the two, no floor: random weights), then
@@ -196,8 +196,8 @@ Phases (any failure raises and the script exits non-zero):
    rank, to one rank on the card and to the CPU (all with
    ``GriffinConfig(tp_shards=N)``), per-rank pool bytes total / N; (c)
    one NCCL rank equals the plain server; (d) Yi-9B whole, bf16, TP=2
-   over gloo on the card through phase 4's requests beside one rank with
-   the same selection math: streams equal across ranks, the first
+   over gloo on the card through phase 4's prompts (``TP_YI_NEW`` new
+   tokens each) beside one rank with the same selection math: streams equal across ranks, the first
    (dense) prefill chunk's logits and gathered statistics within
    ``TP_LOGIT_TOL`` / ``TP_STAT_TOL``; then, the ranks selecting from
    the one rank's statistic, the first decode step's logits within
@@ -219,7 +219,7 @@ Phases (any failure raises and the script exits non-zero):
    at (2, 2), a checkpoint, re-meshed to (1, 2), one more step, its loss
    and parameters == one rank resumed from the same checkpoint; (d)
    Yi-9B at full width, 4 of its 48 layers, bf16, remat, at (2, 2) under
-   ``policy_for``'s rules (FSDP), AdamW, 3 steps on one 4 x 512 batch,
+   ``policy_for``'s rules (FSDP), AdamW, 2 steps on one 4 x 512 batch,
    beside one rank: the first loss and every leaf's gradient within
    ``MESH_FULL_LOSS_TOL`` / ``MESH_FULL_GRAD_TOL``, which mutants without
    the backward all-reduce before the column-split projections and
@@ -234,11 +234,15 @@ Phases (any failure raises and the script exits non-zero):
 16. the dry-run and Yi-9B's serving cells (``launch/cells.py``,
    ``launch/dryrun.py``, ``analysis/``): (a) ``python -m
    repro_torch.launch.dryrun --all`` at one and two pods and DeepSeek-V3
-   with ``--moe-group-limit 1`` at both, subprocesses started after
-   (c) that step on the host's cores alone (nothing else runs): every
-   supported cell ``ok`` but ``DRYRUN_NOT_PORTED`` (DeepSeek-V3 without a
-   group limit, refused naming ROADMAP), one line per cell (per-rank
-   bytes, dominant term, bound); (b) Yi-9B whole, bf16, GRIFFIN 0.5, its
+   with ``--moe-group-limit 1`` at both, and ``--seq-parallel`` at one pod
+   over the train and prefill cells of Yi-9B, Mamba2, RecurrentGemma and
+   DeepSeek-V3, subprocesses started after the build on host cores of
+   their own (``DRYRUN_CORES``; the measured phases keep the others),
+   read after phase 17:
+   every supported cell ``ok``
+   (DeepSeek-V3's six without a group limit among them;
+   ``DRYRUN_NOT_PORTED`` is empty), one line per cell (per-rank bytes,
+   dominant term, bound); (b) Yi-9B whole, bf16, GRIFFIN 0.5, its
    prefill cell (2 x 4,096, cut from 32 x 32,768) and decode cell (4
    sequences over a 32,768-token cache at pos 32,767, cut from 128, on
    the prefill's compacted FF) at (1, 1), built by ``cells.build_cell``
@@ -256,6 +260,31 @@ Phases (any failure raises and the script exits non-zero):
    ``CELL_MUTANTS`` (the log-sum-exp merge without rescaling, the
    ``head_dim`` partial scores unsummed) each beyond ``TP_LOGIT_TOL``;
    launches the two-step ``expert_stat``.
+17. the production mesh whole (all ranks on the card over gloo, each
+   beside the same cells or step at (1, 1)): (a) smoke setups at (2, 2)
+   (Mamba2, RecurrentGemma and the int8 cache at (1, 2)) on the card
+   against one rank on the card, itself against one rank on the CPU
+   (inputs drawn on the CPU): DeepSeek-V3 with its experts over
+   (data, model) and no group limit (capacity 0.5: assignments drop),
+   a train step from the mesh's init (its losses and synced gradient
+   blocks) and its prefill and decode cells; Yi-9B's sequence-parallel
+   train step (the same) and prefill cell; the SSM and
+   RG-LRU mixers split over model; tinylm's int8 cache over head_dim,
+   every write's codes equal to the whole head's; (b) DeepSeek-V3 at full
+   width, 4 layers, no MTP, bf16, prefill and decode cells at (2, 2)
+   against (1, 1) (``TP_LOGIT_TOL``; the routed experts' output in norm,
+   ``MESH_MOE_OUT_TOL``), each rank's peak during its init beside its
+   block bytes, mutants ``WHOLE_MUTANTS['17b']`` (the MoE block run again
+   on its inputs); (c) Mamba2-1.3B (fp32, and bf16 held against the fp32
+   (1, 1) cells within ``WHOLE_BF16_RATIO`` times the bf16 (1, 1) cells'
+   distance from them) and RecurrentGemma-9B (bf16) whole at (1, 2),
+   per-rank input bytes beside the dry-run's, the local-norm mutant on
+   the fp32 decode cell; (d) Yi-9B's decode cell with an
+   int8 cache over head_dim at (2, 2): codes to the bit, scales within
+   ``WHOLE_SCALE_TOL`` of the whole head's quantization; (e) Yi-9B
+   sequence-parallel: the prefill cell at (1, 2) against 16b's, 15d's
+   train step at (2, 2) against its one rank, the mutant without the
+   reduce-scatter.
 
 The second-to-last line is a JSON object listing the kernels (for
 ``paged_attn`` and ``paged_attn_quant`` the main fields are the Yi-9B
@@ -279,9 +308,11 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1866,7 +1897,7 @@ EVAL_METHODS = ("full", "griffin", "griffin_batched", "magnitude", "wanda",
 EVAL_RTOL = 1e-4
 #: 9b: prompts, prompt length, new tokens; the PPL protocol's prompt and
 #: generation partitions and its methods
-YI_ENGINE = dict(B=2, S=512, steps=64)
+YI_ENGINE = dict(B=2, S=512, steps=32)
 YI_PPL = dict(P=448, G=64, methods=("full", "griffin", "magnitude", "wanda"))
 
 
@@ -2098,7 +2129,7 @@ def engine_runs(torch, dev, cfg, params, prompts, steps: int, variants,
 
 def phase_engine_yi9b(torch, np, dev, cfg, params, profile: bool = False):
     """9b, Yi-9B at full size (bf16, random weights from seed 0):
-    ``engine_runs`` over B=2 prompts of 512 tokens and 64 new tokens,
+    ``engine_runs`` over B=2 prompts of 512 tokens and 32 new tokens,
     dense and with GRIFFIN 0.5 ``topk`` (``expert_stat`` launched once per
     FF layer of a GRIFFIN prefill); then ``evaluate.generation_ppl`` at
     P=448, G=64 for full, griffin, magnitude and wanda: every value
@@ -3096,6 +3127,9 @@ TP_TINY_NEW = 10
 #: (prefill) and 3.2% (decode) of max |logit|, 7.2% for the statistics;
 #: a missing or doubled all-reduce 104-122% and 150-168%, which the phase
 #: checks each run (``yi_tp_mutants``).
+#: 14d's new tokens a request (phase 4's 32 cut: ranks over gloo step
+#: ~7x slower than one rank)
+TP_YI_NEW = 16
 TP_LOGIT_TOL = 0.10
 TP_STAT_TOL = 0.20
 
@@ -3266,10 +3300,13 @@ def phase_tp_tinylm(torch, np, dev, nccl: str = "nccl"):
     from repro_torch.core.griffin import GriffinConfig
     from repro_torch.launch.mesh import run_ranks
 
+    from concurrent.futures import ThreadPoolExecutor
+
     cfg, host, prompts = tp_tiny_setup(np)
     cfg32, host32, prompts32 = tp_tiny_setup(np, head_dim=32)
     res, paths = {}, {}
-    for n in (2, 4):
+
+    def cases_of(n):
         gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=n)
         cases, names = [], []
         for spec_k in (0, 4):
@@ -3282,10 +3319,26 @@ def phase_tp_tinylm(torch, np, dev, nccl: str = "nccl"):
             cases.append((cfg32, host32, gcfg, prompts32,
                           dict(TP_TINY_SERVER, kv_dtype=kvd, kernel_backend="fused")))
             names.append(f"fused hd32 {kvd}")
+        return cases, names
+
+    def timed_ranks(n, cases):
         t0 = time.perf_counter()
-        ranks, counts = run_ranks(tp_cases_rank, n, backend="gloo",
-                                  device=dev.type, args=(cases,), timeout_s=300)
-        wall = time.perf_counter() - t0
+        out = run_ranks(tp_cases_rank, n, backend="gloo", device=dev.type,
+                        args=(cases,), timeout_s=300)
+        return out, time.perf_counter() - t0
+
+    # TP=2's and TP=4's ranks run at once, beside the one-rank servers
+    # they are held to (card and CPU), which this process runs meanwhile
+    with ThreadPoolExecutor(2) as ex:
+        futures = {n: ex.submit(timed_ranks, n, cases_of(n)[0]) for n in (2, 4)}
+        singles = {n: [(single_rank(c, h, g, p, kw, dev),
+                        single_rank(c, h, g, p, dict(kw, kernel_backend="gather"),
+                                    "cpu")[0])
+                       for c, h, g, p, kw in cases_of(n)[0]] for n in (2, 4)}
+        done = {n: f.result() for n, f in futures.items()}
+    for n in (2, 4):
+        cases, names = cases_of(n)
+        (ranks, counts), wall = done[n]
         counts = tp_counts(counts)
         check(counts["expert_stat_row_sq"] > 0 and counts["expert_stat_from_norm"] > 0
               and counts["expert_stat"] == 0 and counts["paged_gather"] > 0
@@ -3296,8 +3349,7 @@ def phase_tp_tinylm(torch, np, dev, nccl: str = "nccl"):
             what = f"14b tinylm-tp TP={n} {name}"
             streams = [r[i]["streams"] for r in ranks]
             check(all(s == streams[0] for s in streams), f"{what}: ranks differ {streams}")
-            card, total = single_rank(c, h, g, p, kw, dev)
-            cpu, _ = single_rank(c, h, g, p, dict(kw, kernel_backend="gather"), "cpu")
+            (card, total), cpu = singles[n][i]
             check(streams[0] == card, f"{what}: TP {streams[0]} != one rank {card}")
             check(card == cpu, f"{what}: card {card} != CPU {cpu}")
             check(len({t for s in card.values() for t in s}) > 4,
@@ -3310,7 +3362,7 @@ def phase_tp_tinylm(torch, np, dev, nccl: str = "nccl"):
                 rid0=streams[0][0], pool_bytes_per_rank=r0["pool_bytes"],
                 pool_bytes_one_rank=total, preemptions=r0["preemptions"],
                 spec_rounds=r0["spec_rounds"], prefix_hits=r0["prefix_hits"])
-        res[f"TP={n} wall_s"] = wall
+        res[f"TP={n} wall_s"] = wall  # TP=2 and TP=4 at once
     # 14c: NCCL at world size 1 == the plain server (tp_shards=1)
     gcfg = GriffinConfig(sparsity=0.5)
     kw = dict(TP_TINY_SERVER, kernel_backend="gather")
@@ -3423,7 +3475,8 @@ def selection_stats(torch, srv, given=None):
 def yi_tp_rank(mesh, arch, prompts, kw, gcfg, given):
     """One rank of 14d (a spawned process): Yi-9B drawn as phase 4 draws
     it (seed 0 on the card), cut to this rank's blocks leaf by leaf
-    (``PagedTP.init_params``), served over phase 4's requests, each
+    (``PagedTP.init_params``), served over phase 4's prompts (``TP_YI_NEW``
+    new tokens each), each
     request selecting from ``given[rid]`` (the single rank's statistic).
     Returns the streams, the first prefill chunk's and the first decode
     step's inputs and outputs, the decode ticks' walls, and this rank's
@@ -3539,7 +3592,8 @@ def stat_gap(np, a, b):
 
 def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
     """14d: Yi-9B whole, bf16, GRIFFIN 0.5, TP=2 with both ranks on the
-    card (gloo), over phase 4's requests, beside one rank with the same
+    card (gloo), over phase 4's prompts (``TP_YI_NEW`` new tokens each),
+    beside one rank with the same
     selection math (``GriffinConfig(tp_shards=2)``) on the same backend;
     the single rank runs first and is freed before the ranks draw their
     blocks.  Held: the first prefill chunk's logits and gathered
@@ -3554,8 +3608,8 @@ def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
     from repro_torch.serving.server import PagedServer
 
     cfg = get_config(arch)
-    rng = np.random.default_rng(1)  # phase 4's requests
-    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 32)
+    rng = np.random.default_rng(1)  # phase 4's prompts
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), TP_YI_NEW)
                for n in YI_PROMPT_LENS]
     gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=2)
     kw = dict(page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
@@ -3672,7 +3726,7 @@ MESH_MOE_TOL = 1e-5
 #: (2, 2) under ``policy_for``'s rules (FSDP), AdamW, one 4 x 512 batch;
 #: 15e: Moonshot-v1-16B-A3B at full width, 2 layers (its dense layer and
 #: one MoE layer), routed EP at (1, 2)
-MESH_YI = dict(layers=4, B=4, S=512, steps=3, lr=1e-4)
+MESH_YI = dict(layers=4, B=4, S=512, steps=2, lr=1e-4)
 MESH_MOON = dict(layers=2, B=2, S=512, steps=2, lr=1e-4)
 #: 15d/e against one rank on the card: the first step's loss (relative)
 #: and each leaf's gradient (largest difference over the leaf's largest
@@ -3904,11 +3958,12 @@ def mesh_full_cfg(arch: str, spec: dict):
         num_layers=spec["layers"])
 
 
-def mesh_full_rules(cfg, B: int, S: int):
+def mesh_full_rules(cfg, B: int, S: int, seq_parallel: bool = False):
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.launch.policies import policy_for
 
-    return policy_for(cfg, ShapeConfig("chip", S, B, "train")).rules
+    return policy_for(cfg, ShapeConfig("chip", S, B, "train"),
+                      seq_parallel=seq_parallel).rules
 
 
 def mesh_full_batch(torch, cfg, B, S, dev):
@@ -3982,21 +4037,22 @@ def _grad_gaps(torch, tp, grads, ref):
 
 
 @contextlib.contextmanager
-def _moe_trace():
+def _moe_trace(keep_inputs: bool = False):
     """What each MoE block does while the scope is open, one entry per
     block call in call order, on the host: ``idx``, the experts it routes
     its tokens to ([T, k]), and ``y``, the output of its routed experts
     alone ([B, S, D], fp32; the shared experts, which every rank runs
     whole, would hide a broken combine), from a second call without
-    them."""
+    them; with ``keep_inputs`` also ``calls``: each call's routed
+    parameters and input, on the device, to run the block again."""
     from repro_torch.models.layers import moe
 
-    got = {"idx": [], "y": []}
+    got = {"idx": [], "y": [], "calls": []}
     real_route, real_forward = moe._route, moe.moe_forward
     keep = [True]
 
-    def route(params, x, cfg, *a):
-        gate, idx, aux = real_route(params, x, cfg, *a)
+    def route(params, x, cfg, *a, **kw):
+        gate, idx, aux = real_route(params, x, cfg, *a, **kw)
         if keep[0]:
             got["idx"].append(idx.detach().cpu())
         return gate, idx, aux
@@ -4006,6 +4062,8 @@ def _moe_trace():
         keep[0] = False
         routed = {k: v for k, v in params.items() if k != "shared"}
         got["y"].append(real_forward(routed, x, cfg, *a, **kw)[0].detach().float().cpu())
+        if keep_inputs:
+            got["calls"].append((routed, x.detach(), cfg, a, kw))
         keep[0] = True
         return out
 
@@ -4042,6 +4100,10 @@ def _mutant(name: str):
     from repro_torch.distributed import sharding as shlib
     from repro_torch.models.layers import moe
 
+    if any(name in v for v in WHOLE_MUTANTS.values()):  # phase 17's
+        with whole_mutant(name):
+            yield
+        return
     if name in ("enter_backward", "reduce_forward"):
         cls, attr = ((shlib._Enter, "backward") if name == "enter_backward"
                      else (shlib._Reduce, "forward"))
@@ -4052,8 +4114,10 @@ def _mutant(name: str):
     else:
         cls, attr, real = moe, "shlib", moe.shlib
         broken = types.SimpleNamespace(**vars(shlib))
-        setattr(broken, "enter" if name == "ep_dispatch" else "reduce",
-                lambda x, axis="model": x)
+        if name == "ep_dispatch":  # the block's entry without its backward sum
+            broken.block_in = lambda x: x
+        else:  # the block's partial sums left unsummed
+            broken.block_out = lambda y, partial=True, d=1: y
         moe.shlib = broken
     try:
         yield
@@ -4084,7 +4148,7 @@ def mesh_full_rank(mesh, arch: str, spec: dict, ref_path: str, mutants: dict):
     on_card = dev.type == "cuda"  # a CPU rehearsal has no card
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     cfg = mesh_full_cfg(arch, spec)
-    rules = mesh_full_rules(cfg, spec["B"], spec["S"])
+    rules = mesh_full_rules(cfg, spec["B"], spec["S"], spec.get("seq_parallel", False))
     tp = TrainTP(cfg, mesh, rules)
     opt = opt_lib.adamw(spec["lr"])
     if on_card:
@@ -4099,9 +4163,10 @@ def mesh_full_rank(mesh, arch: str, spec: dict, ref_path: str, mutants: dict):
         flat, rebuild = ts._flatten(state["params"])
         with shlib.axis_rules(mesh, rules):
             loss, _, g = ts.value_and_grad(decoder.loss_fn, state["params"], local, cfg)
+            sp = shlib.sp_wanted(local["tokens"].shape[1])
         gflat = [torch.zeros_like(p) if x is None else x
                  for p, x in zip(flat, ts._flatten(g)[0])]
-        return float(loss), tp.sync_grads(rebuild(gflat))
+        return float(loss), tp.sync_grads(rebuild(gflat), sp)
 
     def loss_once():
         with torch.no_grad(), shlib.axis_rules(mesh, rules):
@@ -4411,19 +4476,26 @@ def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
 # ---------------------------------------------------------------------------
 
 #: (pods, arch, shape) of the dry-run cells whose error is the port's own
-#: refusal for ROADMAP Queue A item 4's remainder: DeepSeek-V3's experts
-#: over (data, model) without a group limit have no expert-parallel path
-DRYRUN_NOT_PORTED = frozenset(
-    (pods, "deepseek-v3-671b", shape) for pods in (1, 2)
-    for shape in ("train_4k", "prefill_32k", "decode_32k"))
+#: refusal naming ROADMAP: none is left (DeepSeek-V3's experts over
+#: (data, model) without a group limit step ``ok``)
+DRYRUN_NOT_PORTED: frozenset = frozenset()
+#: 16a's sequence-parallel cells at one pod: the train and prefill cells
+#: of these archs (the whole ``--all --seq-parallel`` sweep runs on the
+#: CPU, ``PERF.md``)
+DRYRUN_SP_ARCHS = ("yi-9b", "mamba2-1.3b", "recurrentgemma-9b", "deepseek-v3-671b")
+DRYRUN_SP_SHAPES = ("train_4k", "prefill_32k")
 #: the group limit of the 2-D EP tests (``tests/test_torch_train_mesh.py``);
 #: DeepSeek-V3's cells with it
 #: must be ``ok``
 DRYRUN_GROUP_LIMIT = 1
-#: cells stepped at once by each ``--all`` run: two such runs and the two
-#: group-limited ones fill the card machine's 8 cores, after 16c
+#: cells stepped at once by each ``--all`` run
 DRYRUN_JOBS = 3
-#: seconds from the dry-runs' start by which they must be done
+#: host cores the dry-runs run on from the build to the end of phase 17
+#: (the last of the script's own; the measured phases, their spawned
+#: ranks included, keep the others, so the dry-runs take no core from
+#: them); 16a then lets what is left of them use every core
+DRYRUN_CORES = 2
+#: seconds 16a waits, after phase 17, for the dry-runs still stepping
 DRYRUN_TIMEOUT_S = 420
 
 #: 16b / 16c: Yi-9B whole, bf16, GRIFFIN 0.5, random weights from seed 0;
@@ -4459,12 +4531,24 @@ CELL_TIE_GAPS = 2.0
 CELL_MUTANTS = ("lse_no_rescale", "head_dim_unsummed")
 
 
-def start_dryrun(out: Path):
-    """16a's dry-run subprocesses, started after 16c so that they step
-    on the host's cores while nothing else runs (no phase's host-bound
-    wall shares the cores with them): ``--all`` at one and two pods, and
-    DeepSeek-V3 with the group limit at both.  Returns ``{name: (process,
-    log path)}``."""
+def split_cores():
+    """(the measured phases' cores, the dry-runs' cores): the script's
+    own cores less the last ``DRYRUN_CORES`` of them, and those (all of
+    them for both on a host with too few to split)."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 3 * DRYRUN_CORES:
+        return cores, cores
+    return cores[:-DRYRUN_CORES], cores[-DRYRUN_CORES:]
+
+
+def start_dryrun(out: Path, cores):
+    """16a's dry-run subprocesses, started after the build on the host
+    ``cores`` that the measured phases do not use (``split_cores``), so
+    that they step beside phases 2-17 without taking their cores:
+    ``--all`` at one and two pods, DeepSeek-V3 with the group limit at
+    both, and ``--seq-parallel`` over ``DRYRUN_SP_ARCHS`` x
+    ``DRYRUN_SP_SHAPES`` at one pod.  Returns ``{name: (process, log
+    path)}``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTHONWARNINGS="ignore", OMP_NUM_THREADS="1")
     base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
@@ -4476,6 +4560,9 @@ def start_dryrun(out: Path):
             "--arch", "deepseek-v3-671b", "--pods", str(pods),
             "--moe-group-limit", str(DRYRUN_GROUP_LIMIT),
             "--tag", f"gl{DRYRUN_GROUP_LIMIT}", "--out", str(out / "gl")]
+    runs["sp_p1"] = base + ["--arch", *DRYRUN_SP_ARCHS, "--shape", *DRYRUN_SP_SHAPES,
+                            "--seq-parallel", "--pods", "1", "--jobs", "2",
+                            "--out", str(out / "sp")]
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, cmd in runs.items():
@@ -4483,8 +4570,37 @@ def start_dryrun(out: Path):
         with open(log, "w") as f:
             procs[name] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
                                             env=env, cwd=str(ROOT),
-                                            start_new_session=True), log)
+                                            start_new_session=True,
+                                            preexec_fn=lambda: os.sched_setaffinity(
+                                                0, cores)), log)
     return procs
+
+
+def widen_dryrun(procs, cores) -> None:
+    """Every thread of what is left of the dry-runs (their cell workers
+    too, found through ``/proc``) may run on ``cores``."""
+    kids: dict = {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(d.name))
+    todo = [p.pid for p, _ in procs.values() if p.poll() is None]
+    while todo:
+        pid = todo.pop()
+        todo += kids.get(pid, [])
+        try:
+            tids = [int(t.name) for t in Path(f"/proc/{pid}/task").iterdir()]
+        except OSError:
+            continue
+        for tid in tids:
+            try:
+                os.sched_setaffinity(tid, cores)
+            except OSError:
+                pass
 
 
 def stop_dryrun(procs) -> None:
@@ -4509,7 +4625,7 @@ def phase_dryrun(procs, out: Path, t_start: float):
     """16a: wait for the dry-runs, hold every record: ``ok`` or skipped,
     an error only on ``DRYRUN_NOT_PORTED`` (naming ROADMAP), and
     DeepSeek-V3's group-limited cells ``ok``.  One line per cell."""
-    deadline = t_start + DRYRUN_TIMEOUT_S
+    deadline = t_start + DRYRUN_TIMEOUT_S  # t_start: when 16a begins waiting
     for name, (p, log) in procs.items():
         try:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
@@ -4519,7 +4635,7 @@ def phase_dryrun(procs, out: Path, t_start: float):
             raise AssertionError(f"16a: the dry-run {name} outlived "
                                  f"{DRYRUN_TIMEOUT_S} s: {tail}")
     lines, counts = [], {"ok": 0, "skipped": 0, "not_ported": 0}
-    for sub in ("all", "gl"):
+    for sub in ("all", "gl", "sp"):
         for f in sorted((out / sub).glob("*.json")):
             r = json.loads(f.read_text())
             key = (r["pods"], r["arch"], r["shape"])
@@ -4541,11 +4657,12 @@ def phase_dryrun(procs, out: Path, t_start: float):
                 f" (compute {ro['compute_s']:.3e} memory {ro['memory_s']:.3e}"
                 f" collective {ro['collective_s']:.3e}) coll "
                 f"{r['collectives']['bytes_total']:.4e} B step {r['step_s']} s")
-    check(counts["ok"] + counts["not_ported"] == 64 + 6,
-          f"16a: {counts} (want 64 supported cells and DeepSeek-V3's 6 with "
-          f"the group limit)")
+    want = 64 + 6 + len(DRYRUN_SP_ARCHS) * len(DRYRUN_SP_SHAPES)
+    check(counts["ok"] + counts["not_ported"] == want,
+          f"16a: {counts} (want 64 supported cells, DeepSeek-V3's 6 with the "
+          f"group limit and the {want - 70} sequence-parallel ones)")
     for name, (p, log) in procs.items():
-        want = 0 if name.startswith("gl") else 1  # --all names its refusals
+        want = 1 if name.startswith("all") and DRYRUN_NOT_PORTED else 0
         check(p.returncode == want, f"16a: {name} exited {p.returncode}")
     return counts, lines
 
@@ -4818,13 +4935,16 @@ def cells_rank(mesh, experts, smoke: bool = False):
     cell = cells.build_cell(cfg, pre, mesh, pp)
     params, inputs = cells.materialize(cell, dev, seed=0)
     shlib.reset_records()
-    res = counted(lambda: cell.fn(params, inputs))
+    # the walls are the counted runs' (their first calls): a second run of
+    # each cell would cost the script ~10 s on a slow host
+    res = {}
+    out["prefill_ms"] = timed_ms(
+        torch, lambda: res.update(counted(lambda: cell.fn(params, inputs))), cuda)
     out["prefill_records"] = collectives.summary(shlib.RECORDS)
     out["prefill_logits"] = res["last_logits"].float().cpu().numpy()
     out["experts"] = {li: v.cpu().numpy() for li, v in res["experts"].items()}
     out["scores"] = {li: v.float().cpu().numpy() for li, v in res["scores"].items()}
     del res
-    out["prefill_ms"] = timed_ms(torch, lambda: cell.fn(params, inputs), cuda)
     ffn = decoder.extract_ffn_tree(params, cfg)
     c, n = mesh.coord("model"), mesh.extent("model")
     pruned = {li: griffin_lib.compact(ffn[li], griffin_lib.shard_indices(
@@ -4843,11 +4963,12 @@ def cells_rank(mesh, experts, smoke: bool = False):
         cell = dcell
         scale_cache(cache)
         shlib.reset_records()
-        logits, _ = counted(lambda: dcell.fn(params, cache, pruned, token, pos))
+        box = []
+        out[f"{tag}_ms"] = timed_ms(torch, lambda: box.append(
+            counted(lambda: dcell.fn(params, cache, pruned, token, pos))), cuda)
+        logits, _ = box.pop()
         out[f"{tag}_records"] = collectives.summary(shlib.RECORDS)
         out[f"{tag}_logits"] = logits.float().cpu().numpy()
-        out[f"{tag}_ms"] = timed_ms(
-            torch, lambda: dcell.fn(params, cache, pruned, token, pos), cuda)
         with cell_mutant(mutant):
             logits, _ = dcell.fn(params, cache, pruned, token, pos)
         out[f"{tag}_mutant_logits"] = logits.float().cpu().numpy()
@@ -4967,6 +5088,782 @@ def phase_cells_mesh(torch, np, ref, dev, smoke: bool = False):
     return c, res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the production mesh whole -- experts over (data, model) without
+# a group limit, the SSM / RG-LRU mixers split over model, an int8 cache
+# split over head_dim, sequence parallelism
+# ---------------------------------------------------------------------------
+
+#: 17a: the smoke setups (fp32, TF32 off) at (2, 2) and (1, 2) on the card
+#: against one rank on the card (the same cells and step at (1, 1)) and
+#: against the same ranks on the CPU
+WHOLE_SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
+#: 17a's train steps: each leaf's synced gradient blocks within this share
+#: of the one-rank leaf's largest |g| (a leaf whose gradient is zero but
+#: for rounding, as an attention key bias's: of ``WHOLE_ZERO_GRAD`` times
+#: the tree's largest |g|)
+WHOLE_GRAD_TOL = 1e-4
+WHOLE_ZERO_GRAD = 1e-3
+#: 17b: DeepSeek-V3 at full width, 4 layers (its 3 dense layers and one
+#: MoE layer), no MTP, bf16, GRIFFIN 0.5, random weights from seed 0,
+#: under ``policy_for``'s rules (experts over (data, model), no group
+#: limit); (batch, seq) of the prefill cell (cut from 32 x 32,768) and of
+#: the decode cell (cut from 128 sequences over 32,768); the expanded
+#: attention's query chunk (``q_chunk``, the policy's 1,024 cut: four
+#: ranks share the card)
+WHOLE_DS = dict(layers=4, prefill=(2, 1024), decode=(4, 4096), q_chunk=256)
+#: 17c: Mamba2-1.3B and RecurrentGemma-9B whole at (1, 2): (arch, dtype)
+#: of each run.  RecurrentGemma bf16 (``TP_LOGIT_TOL``).  Mamba2 in fp32,
+#: held to ``WHOLE_FP32_TOL`` (the split is the same computation), and in
+#: its config's bf16, where the layout's rounding (the out-projection's
+#: partial sums, each rounded to bf16 and added) grows through 48
+#: recurrent layers: held against the fp32 (1, 1) cells, within
+#: ``WHOLE_BF16_RATIO`` times the (1, 1) bf16 cells' own distance from
+#: them (bf16's rounding at full size; the two bf16 layouts each round
+#: their own way)
+WHOLE_REC = dict(prefill=(2, 1024), decode=(4, 4096),
+                 runs=(("mamba2-1.3b", "float32"), ("mamba2-1.3b", "bfloat16"),
+                       ("recurrentgemma-9b", "bfloat16")))
+#: 17c's fp32 cells against (1, 1): summation order alone (TF32 off)
+WHOLE_FP32_TOL = 1e-3
+WHOLE_BF16_RATIO = 2.0
+#: 17d / 17e: Yi-9B's decode cell (16b's shape) with an int8 cache, and
+#: its prefill cell (16b's) and 15d's train step under seq_parallel rules:
+#: its first loss and gradients (the forward, backward and gradient sums
+#: of the step), no optimizer step after them
+WHOLE_YI_TRAIN = dict(MESH_YI, steps=0, seq_parallel=True)
+#: 17b: a rank's peak memory while it draws its cell's inputs, above its
+#: blocks: the largest leaf drawn whole (below ``param.SLICED_NUMEL``:
+#: DeepSeek-V3's dense w1, fp32 and its bf16 cast, 0.8 GB) or one slice
+WHOLE_INIT_SLACK_GB = 1.0
+#: 17d: a block's scales against the whole head's (relative)
+WHOLE_SCALE_TOL = 1e-5
+#: the mutants: each must move its run past the limits it is held to
+#: (17b: a dispatch of this data row's tokens only, a combine without the
+#: sum over ``data``; 17c: the gated norm's mean square over this rank's
+#: block; 17e: the blocks' partial sums cut without their reduce-scatter)
+WHOLE_MUTANTS = {"17b": ("row_dispatch", "no_data_sum"), "17c": ("local_norm",),
+                 "17e": ("no_reduce_scatter",)}
+
+
+@contextlib.contextmanager
+def whole_mutant(name: str):
+    """One step of phase 17's paths broken (``WHOLE_MUTANTS``)."""
+    import types
+
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.models.layers import ssm
+
+    if name == "row_dispatch":
+        real, target, attr = shlib.exchange_in, shlib, "exchange_in"
+        broken = (lambda x, pos, n, owners, summers:
+                  real(x, pos, n, (), summers))
+    elif name == "no_data_sum":
+        real, target, attr = shlib.exchange_out, shlib, "exchange_out"
+        broken = (lambda y, pos, summers, owners: real(y, pos, (), owners))
+    elif name == "local_norm":
+        real, target, attr = ssm.shlib, ssm, "shlib"
+        broken = types.SimpleNamespace(**vars(shlib))
+        # sum x n / (n d_loc): the mean square of this rank's block alone
+        broken.reduce = lambda x, axis="model": x * shlib.active_rules()[0].extent(axis)
+    elif name == "no_reduce_scatter":
+        real, target, attr = shlib._SeqScatter, shlib, "_SeqScatter"
+        broken = types.SimpleNamespace(apply=lambda y, d: shlib.seq_cut(y, d))
+    else:
+        raise KeyError(name)
+    setattr(target, attr, broken)
+    try:
+        yield
+    finally:
+        setattr(target, attr, real)
+
+
+def whole_smoke_cfg(tag: str):
+    from repro_torch.configs.registry import get_config
+
+    if tag == "ds":  # capacity drops: 8 slots an expert
+        return get_config("deepseek-v3-671b", smoke=True).replace(capacity_factor=0.5)
+    if tag == "yi":
+        return mesh_smoke_cfg("yi")
+    if tag == "tiny8":
+        return get_config("tinylm").replace(kv_cache_int8=True)
+    return get_config(tag, smoke=True)
+
+
+def whole_policy(cfg, shape, *, expert_2d=False, seq_parallel=False,
+                 head_dim=False, griffin=True):
+    """The cells' policy: ``policy_for``'s, or for a smoke config (whose
+    name ``policy_for`` does not know) its rules spelled out."""
+    from repro_torch.core.griffin import GriffinConfig
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.policies import CellPolicy, policy_for
+
+    pol = policy_for(cfg, shape, seq_parallel=seq_parallel)
+    rules = dict(pol.rules)
+    if expert_2d:
+        rules["experts"] = ("data", "model")
+    if head_dim:  # the cache's head_dim over model, KV heads and kv_seq off it
+        rules = dict(make_rules(phase="serve", head_dim_fallback=True,
+                                seq_parallel=seq_parallel), kv_heads=None)
+    g = pol.griffin
+    if griffin and g is not None and cfg.name.endswith("-smoke"):
+        g = GriffinConfig(sparsity=0.5, tp_shards=2)
+    return CellPolicy(rules=rules, griffin=g if griffin else None)
+
+
+def _moved(tree, dev):
+    """A cell's arguments (tuples, dicts, lists, host ints) on ``dev``."""
+    if isinstance(tree, tuple):
+        return tuple(_moved(v, dev) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, dev) for v in tree]
+    return tree.to(dev) if hasattr(tree, "to") else tree
+
+
+def whole_cell(torch, np, mesh, cfg, shape, pol, *, params=None, mutants=(),
+               trace=False, record_quant=False, host_draw=False):
+    """One cell of this rank (``cells.build_cell`` + ``materialize``):
+    its output block (prefill: the last logits; decode: the logits) with
+    its rows and vocabulary columns, the launches of one run, the init's
+    wall, peak memory above what was held before and this rank's input
+    bytes beside the dry-run's count for the cell; ``trace``: the routed
+    experts' output (``_moe_trace``); each of ``mutants``' output (with
+    ``trace``: the MoE blocks' alone, run again on their inputs).
+    ``host_draw``: the inputs drawn on the CPU and copied (a card's
+    generator draws other values, and 17a holds the card to the CPU)."""
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import launch_counts
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    cell = cells.build_cell(cfg, shape, mesh, pol)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if host_draw:
+        args = _moved(cells.materialize(cell, "cpu", seed=0,
+                                        params=params), dev)
+    else:
+        args = cells.materialize(cell, dev, seed=0, params=params)
+    init_s = time.perf_counter() - t0
+    init_peak = (torch.cuda.max_memory_allocated() - held) / 1e9 if on_card else 0.0
+    if on_card and mesh.size > 1:
+        print(f"  [rank {mesh.rank}] {cell.name}: {cells.tree_bytes(args) / 1e9:.3f} "
+              f"GB of inputs, {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+              f"init peak +{init_peak:.3f} GB", flush=True)
+    res = dict(init_s=round(init_s, 2), init_peak_gb=round(init_peak, 3),
+               block_gb=round(cells.tree_bytes(args) / 1e9, 3),
+               dryrun_gb=round(cells.input_bytes(cell) / 1e9, 3))
+
+    def run():
+        out = cell.fn(*args)
+        lg = out["last_logits"] if cell.kind == "prefill" else out[0][:, 0]
+        return lg.float().cpu().numpy()
+
+    quant = []
+    if record_quant:  # the int8 write's inputs and outputs, per layer
+        from repro_torch.models.layers import attention
+
+        real_q = attention.quantize_kv
+
+        def spy(x, axes=()):
+            q, s = real_q(x, axes)
+            quant.append((x.float().cpu().numpy(), q.cpu().numpy(),
+                          s.cpu().numpy()))
+            return q, s
+
+        attention.quantize_kv = spy
+    before = launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        calls = []
+        if trace:
+            with _moe_trace(keep_inputs=bool(mutants)) as got:
+                res["out"] = run()
+            res["moe_y"] = [y.numpy() for y in got["y"]]
+            calls = got["calls"]
+        else:
+            res["out"] = run()
+    finally:
+        if record_quant:
+            attention.quantize_kv = real_q
+    # the counted run's wall (its first call: one run of each cell keeps
+    # phase 17 inside the script's time; with ``trace`` it holds the routed
+    # experts' second forward)
+    res["wall_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+    res["launches"] = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+                       if v - before.get(k, 0)}
+    res["quant"] = quant
+    if on_card:
+        torch.cuda.synchronize()
+        res["run_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        torch.cuda.empty_cache()
+        if mesh.size > 1:
+            print(f"  [rank {mesh.rank}] {cell.name}: run peak {res['run_peak_gb']} GB",
+                  flush=True)
+    lg = res["out"]
+    B_loc, V_loc = lg.shape[0], lg.shape[-1]
+    axes = shlib.batch_axes(mesh, pol.rules)
+    r = mesh.coord(axes) if axes else 0
+    c = mesh.coord("model") if V_loc != cfg.vocab_size else 0
+    res["rows"] = slice(r * B_loc, (r + 1) * B_loc)
+    res["cols"] = slice(c * V_loc, (c + 1) * V_loc)
+    for name in mutants:
+        if on_card:
+            torch.cuda.empty_cache()
+        with whole_mutant(name):
+            if trace:  # the MoE blocks alone, again on their inputs
+                from repro_torch.models.layers import moe
+
+                with shlib.axis_rules(mesh, pol.rules), torch.no_grad():
+                    res[f"mutant_{name}_moe_y"] = [
+                        moe.moe_forward(p, x, c, *a, **kw)[0].float().cpu().numpy()
+                        for p, x, c, a, kw in calls]
+            else:
+                res[f"mutant_{name}"] = run()
+    calls = None
+    res["params"] = args[0] if cell.kind == "prefill" else None
+    res["resolved"] = cell.resolved[0]
+    return res
+
+
+def whole_cells(torch, np, mesh, cfg, pre, dec, pre_pol, dec_pol, *,
+                mutants=(), mutants_on=("prefill",), trace=False, host_draw=False):
+    """A prefill then a decode cell of this rank (``whole_cell``), the
+    decode on the prefill's weights where both resolve them alike, with
+    ``mutants`` on the cells ``mutants_on`` names; the results without
+    the weights."""
+    from repro_torch.models import decoder
+
+    a = whole_cell(torch, np, mesh, cfg, pre, pre_pol, trace=trace,
+                   mutants=mutants if "prefill" in mutants_on else (),
+                   host_draw=host_draw)
+    params = a.pop("params")
+    same = decoder.train_specs(cfg, mesh, dec_pol.rules) == a.pop("resolved")
+    if host_draw and same:
+        params = _moved(params, "cpu")
+    b = whole_cell(torch, np, mesh, cfg, dec, dec_pol, params=params if same else None,
+                   mutants=mutants if "decode" in mutants_on else (), trace=trace,
+                   host_draw=host_draw)
+    del params
+    b.pop("resolved"), b.pop("params")
+    return {"prefill": a, "decode": b}
+
+
+def whole_launches(tree) -> dict:
+    """The kernel launches of the counted runs in a rank's results (each
+    cell's ``launches``: one run of it, not its timed or mutant runs)."""
+    out: dict = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "launches" and isinstance(v, dict):
+                for name, n in v.items():
+                    out[name] = out.get(name, 0) + n
+            else:
+                for name, n in whole_launches(v).items():
+                    out[name] = out.get(name, 0) + n
+    elif isinstance(tree, list):
+        for v in tree:
+            for name, n in whole_launches(v).items():
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def whole_train(torch, np, mesh, cfg, rules, steps, tokens):
+    """``steps`` AdamW steps (lr 1e-2) of this rank from the mesh's init
+    (``TrainTP.init_train_state``: each rank draws its blocks, on the CPU;
+    one rank: the plain step from ``init_train_state``): the losses, and
+    the first step's gradients as the optimizer takes them (the mesh:
+    this rank's blocks after ``TrainTP.sync_grads``, with their slices of
+    the global leaves; one rank: the whole leaves)."""
+    from repro_torch.distributed.tp import TrainTP
+    from repro_torch.models import decoder
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+
+    opt = opt_lib.adamw(MESH_SMOKE_LR)
+    # drawn on the CPU: the card's generator draws other values
+    if mesh.size == 1:  # one rank: the plain step
+        state = ts.init_train_state(cfg, opt, 0, "cpu")
+        step = ts.build_train_step(cfg, opt)
+    else:
+        state = TrainTP(cfg, mesh, rules).init_train_state(opt, 0, "cpu")
+        step = ts.build_train_step(cfg, opt, mesh=mesh, rules=rules)
+    state = _moved(state, mesh.device)
+    batch = {"tokens": torch.from_numpy(tokens).to(mesh.device)}
+    got = {}
+    if mesh.size == 1:
+        _, _, g = ts.value_and_grad(decoder.loss_fn, state["params"], batch, cfg)
+        got["grads"] = {k: (np.zeros(tuple(p.shape), np.float32) if v is None
+                            else v.float().cpu().numpy())
+                        for (k, v), p in zip(_paths(g).items(),
+                                             _paths(state["params"]).values())}
+    else:
+        tp, real = step.tp, step.tp.sync_grads
+
+        def sync(grads, seq_parallel=False):
+            grads = real(grads, seq_parallel)
+            if not got:
+                shapes = _paths(tp.param_shapes)
+                got["grads"] = {k: v.float().cpu().numpy()
+                                for k, v in _paths(grads).items()}
+                got["slices"] = {k: tp.slices(sp, shapes[k].shape)
+                                 for k, sp in _paths(tp.param_specs).items()}
+            return grads
+
+        tp.sync_grads = sync
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        out.append(float(m["loss"]))
+    return dict(losses=np.array(out), **got)
+
+
+def _grads_gap(np, ranks, one):
+    """The ranks' synced gradient blocks (``whole_train``) against one
+    rank's whole leaves: the largest gap over the leaf's largest |g| (a
+    leaf whose gradient is zero but for rounding: over ``WHOLE_ZERO_GRAD``
+    of the tree's largest)."""
+    want = one["grads"]
+    top = max(float(np.abs(w).max()) for w in want.values())
+    worst = 0.0
+    for r in ranks:
+        check(sorted(r["grads"]) == sorted(want), "17a: gradient trees differ")
+        for k, w in want.items():
+            blk = w[r["slices"][k]] if "slices" in r else w
+            scale = max(float(np.abs(w).max()), WHOLE_ZERO_GRAD * top, 1e-30)
+            worst = max(worst, float(np.abs(r["grads"][k] - blk).max()) / scale)
+    return worst
+
+
+def whole_smoke_jobs(torch, np, mesh, which: str):
+    """17a's jobs of this rank (``which``: the (2, 2) set or the (1, 2)
+    set); each a dict of numpy results."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.distributed.sharding import make_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = np.random.default_rng(1).integers(0, 256, (4, 32)).astype(np.int64)
+    pre, dec = ShapeConfig("p", 32, 4, "prefill"), ShapeConfig("d", 32, 4, "decode")
+    out = {}
+    if which == "22":
+        ds = whole_smoke_cfg("ds")
+        out["ds_train"] = whole_train(torch, np, mesh, ds, make_rules(
+            phase="train", expert_2d=True), 1, tokens)
+        out["ds_cells"] = whole_cells(torch, np, mesh, ds, pre, dec,
+                                      whole_policy(ds, pre, expert_2d=True),
+                                      whole_policy(ds, dec, expert_2d=True),
+                                      host_draw=True)
+        yi = whole_smoke_cfg("yi")
+        out["sp_train"] = whole_train(torch, np, mesh, yi, make_rules(
+            phase="train", fsdp=True, seq_parallel=True), 1, tokens)
+        out["sp_prefill"] = whole_cell(torch, np, mesh, yi, pre, whole_policy(
+            yi, pre, seq_parallel=True), host_draw=True)
+        out["sp_prefill"].pop("params")
+    else:
+        for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+            cfg = whole_smoke_cfg(arch)
+            out[arch] = whole_cells(torch, np, mesh, cfg, pre, dec,
+                                    whole_policy(cfg, pre), whole_policy(cfg, dec),
+                                    host_draw=True)
+        t8 = whole_smoke_cfg("tiny8")
+        out["int8"] = whole_cell(torch, np, mesh, t8, dec, whole_policy(
+            t8, dec, head_dim=True), record_quant=True, host_draw=True)
+        out["int8"].pop("params")
+    return out
+
+
+def whole_smoke_rank(mesh, which: str):
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    return whole_smoke_jobs(torch, np, mesh, which)
+
+
+def whole_full_rank(mesh, jobs):
+    """One rank of 17b-17e (a spawned process): each ``(job, spec)`` of
+    ``jobs`` in turn, the card's cache emptied between them (one spawn
+    a mesh shape); returns each job's results and its wall."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for job, spec in jobs:
+        t0 = time.perf_counter()
+        r = whole_full_job(torch, np, mesh, job, spec)
+        out.append((r, round(time.perf_counter() - t0, 1)))
+        if mesh.device.type == "cuda":
+            free(torch)
+    return out
+
+
+def whole_full_job(torch, np, mesh, job: str, spec: dict):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+
+    if job == "train":  # 17e: 15d's train step under seq_parallel rules
+        return mesh_full_rank(mesh, "yi-9b", spec["spec"], spec["ref_path"],
+                              spec["mutants"])
+
+    if job == "ds":  # 17b
+        cfg = get_config("deepseek-v3-671b", smoke=spec.get("smoke", False)).replace(
+            num_layers=spec["layers"], mtp_depth=0)
+        if spec.get("smoke"):
+            cfg = cfg.replace(capacity_factor=0.5)
+        (bp, sp), (bd, sd) = spec["prefill"], spec["decode"]
+        pre = ShapeConfig("prefill_32k", sp, bp, "prefill")
+        dec = ShapeConfig("decode_32k", sd, bd, "decode")
+        e2d = spec.get("smoke", False)
+        pols = [whole_policy(cfg, sh, expert_2d=e2d) for sh in (pre, dec)]
+        pols = [dataclasses.replace(p, q_chunk=spec.get("q_chunk", p.q_chunk))
+                for p in pols]
+        return whole_cells(torch, np, mesh, cfg, pre, dec, *pols,
+                           mutants=spec.get("mutants", ()), trace=True)
+    if job == "rec":  # 17c
+        cfg = get_config(spec["arch"], smoke=spec.get("smoke", False))
+        cfg = cfg.replace(dtype=spec["dtype"])
+        (bp, sp), (bd, sd) = spec["prefill"], spec["decode"]
+        pre = ShapeConfig("prefill_32k", sp, bp, "prefill")
+        dec = ShapeConfig("decode_32k", sd, bd, "decode")
+        return whole_cells(torch, np, mesh, cfg, pre, dec, whole_policy(cfg, pre),
+                           whole_policy(cfg, dec), mutants=spec.get("mutants", ()),
+                           mutants_on=("decode",))
+    if job == "int8":  # 17d
+        cfg, _, dec, _, _, _ = cell_setup(spec.get("smoke", False))
+        cfg = cfg.replace(kv_cache_int8=True)
+        r = whole_cell(torch, np, mesh, cfg, dec, whole_policy(cfg, dec, head_dim=True),
+                       record_quant=True)
+        r.pop("params"), r.pop("resolved")
+        return r
+    if job == "sp_prefill":  # 17e
+        cfg, pre, _, _, _, _ = cell_setup(spec.get("smoke", False))
+        r = whole_cell(torch, np, mesh, cfg, pre, whole_policy(cfg, pre,
+                                                               seq_parallel=True))
+        r.pop("params"), r.pop("resolved")
+        return r
+    raise KeyError(job)
+
+
+def _gap(np, got, want):
+    """max |got - want| over max |want|."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _block_gap(np, ranks, one, key):
+    """The ranks' blocks of ``key`` against one rank's whole: the largest
+    gap over its largest |value|."""
+    worst = 0.0
+    scale = max(float(np.abs(one[key]).max()), 1e-30)
+    for r in ranks:
+        worst = max(worst, float(np.abs(r[key] - one[key][r["rows"], r["cols"]]).max())
+                    / scale)
+    return worst
+
+
+def _mutant_gap(np, ranks, one, name):
+    """A mutant's output blocks against one rank's correct output."""
+    return _block_gap(np, [dict(r, out=r[f"mutant_{name}"]) for r in ranks], one,
+                      "out")
+
+
+def _moe_gap(np, ranks, one, key="moe_y"):
+    """The routed experts' output of the ranks' rows against one rank's,
+    in norm (difference over one rank's)."""
+    d = n = 0.0
+    for r in ranks:
+        for got, want in zip(r[key], one["moe_y"]):
+            w = want[r["rows"]]
+            d += float(np.square(got - w).sum())
+            n += float(np.square(w).sum())
+    return (d / max(n, 1e-30)) ** 0.5
+
+
+def _quant_check(torch, np, ranks, dev):
+    """17d: every layer's written codes and scales on the ranks against
+    the whole head's quantization of the same keys/values: each layer's
+    blocks gathered over ``model`` (ranks of one data row), quantized by
+    the same function on ``dev`` (the card divides by a scalar as a
+    product with its reciprocal, the CPU does not: one ulp of scale);
+    codes equal to the bit, scales within ``WHOLE_SCALE_TOL``.  Returns
+    (writes checked, worst scale gap)."""
+    from repro_torch.models.layers.attention import quantize_kv
+
+    n, worst = 0, 0.0
+    rows = {}
+    for i, r in enumerate(ranks):
+        rows.setdefault(r["rows"].start, []).append(i)
+    for _, members in rows.items():
+        for j in range(len(ranks[members[0]]["quant"])):
+            x = np.concatenate([ranks[i]["quant"][j][0] for i in members], axis=-1)
+            q, s = (t.cpu() for t in quantize_kv(torch.from_numpy(x).to(dev)))
+            w = x.shape[-1] // len(members)
+            for k, i in enumerate(members):
+                got_q, got_s = ranks[i]["quant"][j][1], ranks[i]["quant"][j][2]
+                check(np.array_equal(got_q, q.numpy()[..., k * w:(k + 1) * w]),
+                      f"17d: write {j} codes of rank {i} differ from the whole "
+                      f"head's")
+                gap = float(np.abs(got_s - s.numpy()).max()
+                            / max(float(np.abs(s.numpy()).max()), 1e-30))
+                worst = max(worst, gap)
+                n += 1
+    check(worst <= WHOLE_SCALE_TOL, f"17d: scales {worst} from the whole head's")
+    return n, worst
+
+
+def phase_whole(torch, np, dev, ref16, yi_ref_path, yi15_one, smoke: bool = False):
+    """Phase 17 (module docstring).  ``ref16``: 16b's results (its prefill
+    logits); ``yi_ref_path`` / ``yi15_one``: 15d's one-rank gradients and
+    results.  With ``dev`` the CPU and ``smoke``, a rehearsal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import TrainMesh, run_ranks
+
+    res, counts, timing = {}, {}, {}
+    card = dev.type
+    # the ranks' allocators map memory as they grow: four ranks share the
+    # card, and a rank's cached but unused blocks would starve the others
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def ranks_of(fn, shape, args, device=card):
+        out, c = run_ranks(fn, int(np.prod(shape)), backend="gloo", shape=shape,
+                           axes=("data", "model"), device=device, args=args,
+                           timeout_s=900)
+        return out, c
+
+    # 17a: the smoke setups, ranks on the card and on the CPU, one rank
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as ex:  # the (1, 2) ranks beside the (2, 2) ones
+        f12 = ex.submit(ranks_of, whole_smoke_rank, (1, 2), ("12",))
+        card22, _ = ranks_of(whole_smoke_rank, (2, 2), ("22",))
+        card12, _ = f12.result()
+    one = {w: whole_smoke_jobs(torch, np, TrainMesh(dims=(1, 1), device=dev), w)
+           for w in ("22", "12")}
+    card_ranks = {"22": card22, "12": card12}
+    a = {}
+    for w, jobs in (("22", ("ds_train", "ds_cells", "sp_train", "sp_prefill")),
+                    ("12", ("mamba2-1.3b", "recurrentgemma-9b", "int8"))):
+        for job in jobs:
+            o = one[w][job]
+            for where, ranks in (("card", card_ranks[w]),):
+                rs = [r[job] for r in ranks]
+                if "losses" in o:  # a train step: its losses and gradients
+                    gap = max(_gap(np, r["losses"], o["losses"]) for r in rs)
+                    a[f"{job}_{where}_grads"] = ggap = _grads_gap(np, rs, o)
+                    ok = ggap <= WHOLE_GRAD_TOL and all(
+                        np.allclose(r["losses"], o["losses"], **WHOLE_SMOKE_TOL)
+                        for r in rs)
+                else:
+                    parts = (("prefill", "decode") if "prefill" in o else (None,))
+                    gap, ok = 0.0, True
+                    for p in parts:
+                        oo = o[p] if p else o
+                        rr = [r[p] if p else r for r in rs]
+                        g = _block_gap(np, rr, oo, "out")
+                        gap = max(gap, g)
+                        ok = ok and all(np.allclose(r["out"], oo["out"][r["rows"], r["cols"]],
+                                                    **WHOLE_SMOKE_TOL) for r in rr)
+                check(ok, f"17a {job} {where} ranks vs one rank on the card: {gap}")
+                a[f"{job}_{where}"] = gap
+    # the card's one rank == the CPU's one rank (so the card's ranks ==
+    # the CPU's computation)
+    for w in ("22", "12"):
+        one_cpu = whole_smoke_jobs(torch, np, TrainMesh(dims=(1, 1)), w) if not smoke \
+            else one[w]
+        for job, o in one[w].items():
+            oc = one_cpu[job]
+            if "losses" in o:
+                g = max(_gap(np, o["losses"], oc["losses"]), _grads_gap(np, [o], oc))
+            else:
+                g = max(_gap(np, (o[p] if p else o)["out"], (oc[p] if p else oc)["out"])
+                        for p in (("prefill", "decode") if "prefill" in o else (None,)))
+            check(g <= 1e-4, f"17a {job}: one rank on the card vs the CPU {g}")
+            a[f"{job}_one_card_vs_cpu"] = g
+    n_q, sgap = _quant_check(torch, np, [r["int8"] for r in card12], dev)
+    a["int8_writes_checked"], a["int8_scale_gap"] = n_q, sgap
+    res["17a"] = a
+    add(whole_launches(card22 + card12))
+    timing["17a_s"] = round(time.perf_counter() - t0, 1)
+    if card == "cuda":
+        free(torch)
+
+    # 17b-17e: one rank at (1, 1) here for each, then one spawn a mesh
+    # shape running its jobs in turn: (1, 2) 17c and 17e's prefill, (2, 2)
+    # 17b, 17d and 17e's train step
+    one = TrainMesh(dims=(1, 1), device=dev)
+    ds_spec = dict(WHOLE_DS, smoke=smoke)
+    if smoke:
+        ds_spec.update(layers=2, prefill=(2, 32), decode=(4, 32))
+    rec_spec = dict(WHOLE_REC, smoke=smoke)
+    if smoke:
+        rec_spec.update(prefill=(2, 32), decode=(4, 32))
+    d_spec = dict(smoke=smoke)
+    t_spec = dict(spec=dict(WHOLE_YI_TRAIN, **({"layers": 2, "B": 4, "S": 32,
+                                                 "smoke": True} if smoke else {})),
+                  ref_path=yi_ref_path,
+                  mutants={n: "loss" for n in WHOLE_MUTANTS["17e"]})
+    # the local-norm mutant on Mamba2's fp32 decode cell
+    recs = [(f"{arch} {dt}", dict(rec_spec, arch=arch, dtype=dt, mutants=WHOLE_MUTANTS[
+        "17c"] if (arch, dt) == ("mamba2-1.3b", "float32") else ()))
+        for arch, dt in WHOLE_REC["runs"]]
+    t0 = time.perf_counter()
+    ones = {}
+    for key, spec in recs:
+        ones[key] = whole_full_job(torch, np, one, "rec", dict(spec, mutants=()))
+        if card == "cuda":
+            free(torch)
+    r12, _ = ranks_of(whole_full_rank, (1, 2), (
+        [("rec", spec) for _, spec in recs] + [("sp_prefill", dict(smoke=smoke))],))
+    timing["12_spawn_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    ds_one = whole_full_job(torch, np, one, "ds", ds_spec)
+    if card == "cuda":
+        free(torch)
+    d_one = whole_full_job(torch, np, one, "int8", d_spec)
+    if card == "cuda":
+        free(torch)
+        timing["17b_parent_reserved_gb"] = round(torch.cuda.memory_reserved() / 1e9, 3)
+    r22, _ = ranks_of(whole_full_rank, (2, 2), (
+        [("ds", dict(ds_spec, mutants=WHOLE_MUTANTS["17b"])), ("int8", d_spec),
+         ("train", t_spec)],))
+    timing["22_spawn_s"] = round(time.perf_counter() - t0, 1)
+    for i, key in enumerate([k for k, _ in recs] + ["17e_prefill"]):
+        timing[f"{key}_rank_s"] = r12[0][i][1]
+    for i, key in enumerate(("17b", "17d", "17e_train")):
+        timing[f"{key}_rank_s"] = r22[0][i][1]
+
+    # 17b: DeepSeek-V3 full width, 4 layers, (2, 2) against (1, 1)
+    ds_ranks = [r[0][0] for r in r22]
+    add(whole_launches(ds_ranks))
+    b = {}
+    for p in ("prefill", "decode"):
+        rs = [r[p] for r in ds_ranks]
+        b[f"{p}_gap"] = _block_gap(np, rs, ds_one[p], "out")
+        b[f"{p}_moe_gap"] = _moe_gap(np, rs, ds_one[p])
+        b[f"{p}_wall_ms"] = [r["wall_ms"] for r in rs]
+        b[f"{p}_one_wall_ms"] = ds_one[p]["wall_ms"]
+        b[f"{p}_init"] = [dict(peak_gb=r["init_peak_gb"], block_gb=r["block_gb"],
+                               dryrun_gb=r["dryrun_gb"], init_s=r["init_s"],
+                               run_peak_gb=r.get("run_peak_gb"))
+                          for r in rs]
+        b[f"{p}_one_run_peak_gb"] = ds_one[p].get("run_peak_gb")
+        b[f"{p}_one_block_gb"] = ds_one[p]["block_gb"]
+        check(b[f"{p}_gap"] <= TP_LOGIT_TOL, f"17b {p} logits {b[f'{p}_gap']} of "
+              f"(1, 1)'s largest")
+        check(b[f"{p}_moe_gap"] <= MESH_MOE_OUT_TOL, f"17b {p} routed experts' "
+              f"output {b[f'{p}_moe_gap']}")
+    for name in WHOLE_MUTANTS["17b"]:  # held on the MoE block's output
+        rs = [r["prefill"] for r in ds_ranks]
+        mg = _moe_gap(np, rs, ds_one["prefill"], f"mutant_{name}_moe_y")
+        b[f"mutant_{name}_moe_gap"] = mg
+        check(mg > MESH_MOE_OUT_TOL, f"17b mutant {name} passed: routed output {mg}")
+    for r in ds_ranks:  # the prefill cell draws the weights
+        p = r["prefill"]
+        check(p["init_peak_gb"] <= p["block_gb"] + WHOLE_INIT_SLACK_GB,
+              f"17b init peak {p['init_peak_gb']} GB beside {p['block_gb']} GB")
+    res["17b"] = b
+
+    # 17c: Mamba2-1.3B (fp32 and bf16) and RecurrentGemma-9B whole at (1, 2)
+    cres = {}
+    for i, (key, spec) in enumerate(recs):
+        o, rs = ones[key], [r[i][0] for r in r12]
+        add(whole_launches(rs))
+        mamba_bf16 = key == "mamba2-1.3b bfloat16"
+        tol = WHOLE_FP32_TOL if spec["dtype"] == "float32" else TP_LOGIT_TOL
+        cc = {"dtype": spec["dtype"], "tol": tol}
+        for p in ("prefill", "decode"):
+            rr = [r[p] for r in rs]
+            cc[f"{p}_gap"] = _block_gap(np, rr, o[p], "out")
+            if mamba_bf16:  # both bf16 layouts against the fp32 (1, 1) cell
+                o32 = ones["mamba2-1.3b float32"][p]
+                cc[f"{p}_one_vs_fp32"] = _gap(np, o[p]["out"], o32["out"])
+                cc[f"{p}_vs_fp32"] = _block_gap(np, rr, o32, "out")
+                cc[f"{p}_limit"] = WHOLE_BF16_RATIO * cc[f"{p}_one_vs_fp32"]
+                check(cc[f"{p}_vs_fp32"] <= cc[f"{p}_limit"],
+                      f"17c {key} {p} logits {cc[f'{p}_vs_fp32']} from the fp32 "
+                      f"(1, 1) cell's, (1, 1) bf16 {cc[f'{p}_one_vs_fp32']}")
+            else:
+                check(cc[f"{p}_gap"] <= tol, f"17c {key} {p} logits "
+                      f"{cc[f'{p}_gap']} (limit {tol})")
+            cc[f"{p}_bytes"] = dict(rank_gb=[r["block_gb"] for r in rr],
+                                    dryrun_gb=[r["dryrun_gb"] for r in rr],
+                                    one_gb=o[p]["block_gb"])
+            cc[f"{p}_wall_ms"] = [r["wall_ms"] for r in rr]
+            cc[f"{p}_one_wall_ms"] = o[p]["wall_ms"]
+        for name in spec["mutants"]:  # on the decode cell
+            g = _mutant_gap(np, [r["decode"] for r in rs], o["decode"], name)
+            cc[f"mutant_{name}"] = g
+            check(g > tol, f"17c mutant {name} passed: {g}")
+        cres[key] = cc
+    res["17c"] = cres
+
+    # 17d: Yi-9B's decode cell with an int8 cache, head_dim over model
+    d_ranks = [r[1][0] for r in r22]
+    add(whole_launches(d_ranks))
+    d = dict(gap=_block_gap(np, d_ranks, d_one, "out"),
+             wall_ms=[r["wall_ms"] for r in d_ranks], one_wall_ms=d_one["wall_ms"])
+    check(d["gap"] <= TP_LOGIT_TOL, f"17d logits {d['gap']}")
+    d["writes_checked"], d["scale_gap"] = _quant_check(torch, np, d_ranks, dev)
+    # the codes beside (1, 1)'s, a reading: the keys themselves move with
+    # the layout's bf16 partial sums from layer to layer
+    def code_diff(i, r, j):
+        got = r["quant"][j][1].astype(np.int32)
+        w = got.shape[-1]
+        want = d_one["quant"][j][1][r["rows"], ..., w * (i % 2): w * (i % 2 + 1)]
+        return np.abs(got - want.astype(np.int32))
+
+    diffs = [(j, code_diff(i, r, j)) for i, r in enumerate(d_ranks)
+             for j in range(len(r["quant"]))]
+    d["codes_vs_one_rank"] = dict(
+        equal_share=float(np.mean([float((x == 0).mean()) for _, x in diffs])),
+        within_one_share=float(np.mean([float((x <= 1).mean()) for _, x in diffs])),
+        layer0_equal_share=float(np.mean([float((x == 0).mean()) for j, x in diffs
+                                          if j < 2])),
+        max_step=int(max(int(x.max()) for _, x in diffs)))
+    res["17d"] = d
+
+    # 17e: Yi-9B under seq_parallel: prefill cell at (1, 2) against 16b's,
+    # the 4-layer (2, 2) FSDP train step against 15d's one rank
+    e_ranks = [r[len(recs)][0] for r in r12]
+    add(whole_launches(e_ranks))
+    e = dict(prefill_gap=_block_gap(np, e_ranks, {"out": ref16["prefill_logits"]}, "out"),
+             prefill_wall_ms=[r["wall_ms"] for r in e_ranks],
+             prefill_block_gb=[r["block_gb"] for r in e_ranks])
+    check(e["prefill_gap"] <= TP_LOGIT_TOL, f"17e prefill logits {e['prefill_gap']}")
+    t_ranks = [r[2][0] for r in r22]
+    loss_gap = max(abs(r["first_loss"] - yi15_one["first_loss"]) / abs(yi15_one["first_loss"])
+                   for r in t_ranks)
+    grad_gap = max(g[0] for r in t_ranks for g in r["gaps"].values())
+    e.update(first_loss=t_ranks[0]["first_loss"], one_rank_first_loss=yi15_one["first_loss"],
+             loss_gap=loss_gap, grad_gap=grad_gap,
+             peak_gb=max(r["peak_gb"] for r in t_ranks),
+             param_bytes=t_ranks[0]["param_bytes"])
+    check(loss_gap <= MESH_FULL_LOSS_TOL, f"17e first loss gap {loss_gap}")
+    check(grad_gap <= MESH_FULL_GRAD_TOL, f"17e gradient gap {grad_gap}")
+    for name in WHOLE_MUTANTS["17e"]:
+        g = max(abs(r["mutants"][name] - yi15_one["first_loss"]) / abs(yi15_one["first_loss"])
+                for r in t_ranks)
+        e[f"mutant_{name}"] = g
+        check(g > MESH_FULL_LOSS_TOL, f"17e mutant {name} passed: {g}")
+    res["17e"] = e
+    res["timing"] = timing
+    return counts, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4984,6 +5881,11 @@ def main() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the measured phases keep to their cores from here on (the processes
+    # they start inherit them), 16a's dry-runs to the others
+    all_cores = sorted(os.sched_getaffinity(0))
+    cores, dry_cores = split_cores()
+    os.sched_setaffinity(0, cores)
     import numpy as np
     import torch
 
@@ -5003,6 +5905,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
+    # 16a's dry-runs step from here on, on cores of their own; 16a reads
+    # them after phase 17
+    dry_start = time.perf_counter()
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = start_dryrun(dry_dir, dry_cores)
+    print(f"host cores: phases {cores}, 16a's dry-runs {dry_cores}")
+    atexit.register(stop_dryrun, dry_procs)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels, lines = phase_kernels(torch, dev, flush)
     del flush
@@ -5329,7 +6238,8 @@ def main() -> int:
     yi_tp_counts, yi_tp = phase_tp_yi9b(torch, np, dev, yi)
     tp_paths["tp2_yi9b"] = yi_tp_counts
     print(f"phase 14d yi-9b whole, bf16, GRIFFIN 0.5, TP=2 over gloo on one card, "
-          f"phase 4's requests, beside one rank with tp_shards=2 ({card}): "
+          f"phase 4's prompts, {TP_YI_NEW} new tokens each, beside one rank with "
+          f"tp_shards=2 ({card}): "
           f"{time.perf_counter() - t0:.1f} s, launches {yi_tp_counts}")
     for k, v in yi_tp.items():
         print(f"  {k}: {v}")
@@ -5337,8 +6247,10 @@ def main() -> int:
 
     free(torch)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        mesh_counts, mesh_train = phase_mesh_train(torch, np, dev, Path(tmp))
+    # 15d's one-rank gradients stay for 17e
+    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    atexit.register(shutil.rmtree, mesh_tmp, True)
+    mesh_counts, mesh_train = phase_mesh_train(torch, np, dev, Path(mesh_tmp))
     print(f"phase 15 sharded training, ranks on one card over gloo, TF32 off: "
           f"15a yi/tinylm smoke (2, 2) FSDP == one rank on the card == CPU; 15b "
           f"routed EP (Moonshot smoke) and 2-D EP (DeepSeek-V3 smoke) card == "
@@ -5372,15 +6284,46 @@ def main() -> int:
           f"launches {cells_mesh_counts}")
     for k, v in cells_mesh.items():
         print(f"  {k}: {v}")
-    # 16a's dry-runs step on the host's cores after every measured phase
+    # phase 17: the production mesh whole
+    free(torch)
+    t17 = time.perf_counter()
+    whole_counts, whole = phase_whole(
+        torch, np, dev, cells_ref, str(Path(mesh_tmp) / "yi_grads.pt"),
+        {"first_loss": mesh_train["15d_yi9b"]["one_rank_first_loss"]})
+    tm = whole["timing"]
+    print(f"phase 17a smoke setups card == CPU: DeepSeek-V3 (capacity 0.5) "
+          f"experts over (data, model) without a group limit, train step and "
+          f"prefill / decode cells at (2, 2); Yi-9B sequence-parallel train "
+          f"step and prefill cell at (2, 2); Mamba2 and RecurrentGemma cells "
+          f"split over model and tinylm's int8 cache over head_dim at (1, 2); "
+          f"each beside one rank ({card}): {tm['17a_s']} s")
+    print(f"phase 17b-e one rank each here, then one (1, 2) spawn (17c "
+          f"{', '.join(f'{a} {d}' for a, d in WHOLE_REC['runs'])} whole, prefill "
+          f"{WHOLE_REC['prefill']} decode {WHOLE_REC['decode']}, mutant "
+          f"{list(WHOLE_MUTANTS['17c'])}; 17e yi-9b sequence-parallel prefill "
+          f"cell vs 16b): {tm['12_spawn_s']} s, and one (2, 2) spawn (17b "
+          f"deepseek-v3 full width, {WHOLE_DS['layers']} layers, no MTP, bf16, "
+          f"GRIFFIN 0.5, prefill {WHOLE_DS['prefill']} and decode "
+          f"{WHOLE_DS['decode']}, mutants {list(WHOLE_MUTANTS['17b'])}; 17d "
+          f"yi-9b int8 decode over head_dim; 17e the {WHOLE_YI_TRAIN['layers']}"
+          f"-layer FSDP train step's loss and gradients vs 15d's one rank, "
+          f"mutant {list(WHOLE_MUTANTS['17e'])}) ({card}): {tm['22_spawn_s']} s")
+    for k, v in whole.items():
+        print(f"  {k}: {v}")
+    print(f"phase 17 total: {time.perf_counter() - t17:.1f} s, launches "
+          f"{whole_counts}")
+    # 16a: the dry-runs started after the build, now on every core
     t0 = time.perf_counter()
-    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
-    dry_procs = start_dryrun(dry_dir)
-    atexit.register(stop_dryrun, dry_procs)
+    left = sorted(n for n, (p, _) in dry_procs.items() if p.poll() is None)
+    widen_dryrun(dry_procs, all_cores)
     dry_counts, dry_lines = phase_dryrun(dry_procs, dry_dir, t0)
     print(f"phase 16a dry-run --all --pods 1 and 2 ({DRYRUN_JOBS} jobs each), "
-          f"DeepSeek-V3 with --moe-group-limit {DRYRUN_GROUP_LIMIT} at both, on "
-          f"the host's cores alone after 16c: {time.perf_counter() - t0:.1f} s, "
+          f"DeepSeek-V3 with --moe-group-limit {DRYRUN_GROUP_LIMIT} at both, "
+          f"--seq-parallel at one pod over {list(DRYRUN_SP_SHAPES)} of "
+          f"{list(DRYRUN_SP_ARCHS)}, on cores {dry_cores} beside phases 2-17 "
+          f"(on {cores}) from the build on, still running after phase 17: "
+          f"{left}: waited {time.perf_counter() - t0:.1f} s after phase 17, "
+          f"{time.perf_counter() - dry_start:.1f} s since they started, "
           f"{dry_counts}; not ported: {sorted(DRYRUN_NOT_PORTED)}")
     for line in dry_lines:
         print("  " + line)
@@ -5408,7 +6351,8 @@ def main() -> int:
              "command_r_plus": frontends["12c"]["launches"],
              "llava_next": frontends["12d"]["launches"],
              "hubert": frontends["12e"]["launches"], **tp_paths,
-             "cells_yi9b": cells_counts, "cells_yi9b_22": cells_mesh_counts}
+             "cells_yi9b": cells_counts, "cells_yi9b_22": cells_mesh_counts,
+             "mesh_whole": tp_counts(whole_counts)}
     sources = {
         "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                        "src/repro/kernels/paged_attn.py:340"),
@@ -5482,6 +6426,7 @@ def main() -> int:
              "train_tinylm": train_tiny, "train_yi9b": yi_train,
              "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp, "mesh_train": mesh_train,
              "cells_one": cells_one, "cells_mesh": cells_mesh,
+             "mesh_whole": whole,
              "dryrun": dry_lines,
              "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
             default=str))

@@ -31,8 +31,9 @@ count.
 """
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -114,6 +115,20 @@ _UNARY = frozenset({"exp", "neg", "rsqrt", "sqrt", "log", "abs", "tanh",
                     "clamp", "clamp_min", "clamp_max"})
 
 
+@functools.lru_cache(maxsize=4096)
+def _broadcast(shapes: Tuple[Tuple[int, ...], ...]) -> Optional[Tuple[int, ...]]:
+    """The broadcast of ``shapes`` (``torch.broadcast_shapes``, which is
+    slow on every call), or None where they do not broadcast."""
+    n = max(len(sh) for sh in shapes)
+    out = []
+    for i in range(n):
+        dims = {sh[len(sh) - n + i] for sh in shapes if len(sh) - n + i >= 0} - {1}
+        if len(dims) > 1:
+            return None
+        out.append(dims.pop() if dims else 1)
+    return tuple(out)
+
+
 def _fast_meta(func, args, kwargs):
     """The ``meta`` result of an out-of-place elementwise op (contiguous),
     or None to run the op itself."""
@@ -145,7 +160,9 @@ def _fast_meta(func, args, kwargs):
         if name == "div" and not dtype.is_floating_point and \
                 kwargs.get("rounding_mode") is None:
             dtype = torch.get_default_dtype()
-    shape = torch.broadcast_shapes(*[t.shape for t in ts])
+    shape = _broadcast(tuple(tuple(t.shape) for t in ts))
+    if shape is None:
+        return None
     return torch.empty(shape, dtype=dtype, device="meta")
 
 

@@ -39,7 +39,13 @@ built on ``all_reduce`` alone (gloo reduces CUDA tensors with
 * ``gather(xs, dims, axis)``: all-gather forward, reduce-scatter backward
   (FSDP's per-layer weight gather): each rank writes its block into a
   zeroed buffer of the full size and the buffer is all-reduced, which is
-  exact; the backward all-reduces the full gradient and keeps the block.
+  exact; the backward all-reduces the full gradient and keeps the block;
+* ``block_in`` / ``block_out``: ``enter`` / ``reduce`` over ``model``,
+  or under sequence parallelism the identity and a reduce-scatter along
+  the sequence (``seq_gather`` reads the whole sequence before a block);
+* ``exchange_in`` / ``exchange_out``: rows of a token chunk gathered
+  from their owners, partial outputs summed and cut back to them (the
+  experts over ``(data, model)`` without a group limit).
 """
 from __future__ import annotations
 
@@ -339,6 +345,201 @@ def model_split(local: int, full: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# sequence parallelism (``make_rules(seq_parallel=True)``)
+# ---------------------------------------------------------------------------
+#
+# Between layers the residual stream is this rank's block of the sequence
+# over ``model``.  A mixer or FF block reads the whole sequence
+# (``seq_gather``: all-gather forward, reduce-scatter backward), its
+# layers take their input as it is (``block_in``: the gather's backward
+# already sums the ranks' partial gradients) and hand back this rank's
+# block of the output (``block_out``: a reduce-scatter of the partial
+# sums in place of the all-reduce, or a cut of a whole output).  The
+# decoder turns it on per forward (``seq_parallel``), where the rules put
+# ``seq`` on ``model`` and the length divides (decode's one token does
+# not: there the stream is replicated, as the reference's divisibility-
+# aware resolution leaves it).
+
+@contextlib.contextmanager
+def seq_parallel(on: bool):
+    """Run the enclosed layers with the residual stream split along the
+    sequence over ``model`` (``on``) or not."""
+    prev = getattr(_state, "sp", False)
+    _state.sp = bool(on)
+    try:
+        yield
+    finally:
+        _state.sp = prev
+
+
+def sp_active() -> bool:
+    """Whether the layers run under ``seq_parallel``."""
+    return getattr(_state, "sp", False)
+
+
+def sp_wanted(length: int) -> bool:
+    """Whether the active rules split a sequence of ``length`` over
+    ``model``: ``seq`` holds ``model``, the axis has more than one rank
+    and divides the length."""
+    mesh, rules = _current()
+    if mesh is None or not rules or "model" not in _axes(rules.get("seq") or ()):
+        return False
+    n = mesh.extent("model") if "model" in mesh.axis_names else 1
+    return n > 1 and length % n == 0
+
+
+def _gather_along(x: torch.Tensor, d: int, mesh, axes) -> torch.Tensor:
+    n, r = mesh.extent(axes), mesh.coord(axes)
+    w = x.shape[d]
+    shape = list(x.shape)
+    shape[d] = w * n
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    buf.narrow(d, r * w, w).copy_(x)
+    return all_reduce_(buf, mesh.group(axes), kind="all-gather")
+
+
+def _scatter_along(y: torch.Tensor, d: int, mesh, axes) -> torch.Tensor:
+    n, r = mesh.extent(axes), mesh.coord(axes)
+    w = y.shape[d] // n
+    buf = all_reduce_(y.contiguous().clone(), mesh.group(axes),
+                      kind="reduce-scatter",
+                      nbytes=y.numel() * y.element_size() // n)
+    return buf.narrow(d, r * w, w).contiguous()
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, d, summed):
+        mesh, _ = _current()
+        ctx.mesh, ctx.d, ctx.summed = mesh, d, summed
+        ctx.w = x.shape[d]
+        return _gather_along(x, d, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return _scatter_along(g, ctx.d, ctx.mesh, ("model",)), None, None
+        r = ctx.mesh.coord("model")
+        return g.narrow(ctx.d, r * ctx.w, ctx.w).contiguous(), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, d):
+        mesh, _ = _current()
+        ctx.mesh, ctx.d = mesh, d
+        return _scatter_along(y, d, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g.contiguous(), ctx.d, ctx.mesh, ("model",)), None
+
+
+def seq_gather(x: torch.Tensor, d: int = 1) -> torch.Tensor:
+    """This rank's sequence block -> the whole sequence (all-gather over
+    ``model``); the backward sums the ranks' partial gradients and keeps
+    the block (a reduce-scatter): what a block split over ``model``
+    reads."""
+    return _SeqGather.apply(x, d, True)
+
+
+def seq_replicate(x: torch.Tensor, d: int = 1) -> torch.Tensor:
+    """The same gather for a computation every ``model`` rank runs whole
+    (its gradient is the same on every rank): the backward keeps this
+    rank's block of it."""
+    return _SeqGather.apply(x, d, False)
+
+
+def seq_cut(x: torch.Tensor, d: int = 1) -> torch.Tensor:
+    """This rank's block of a whole sequence along ``d``."""
+    mesh, _ = _current()
+    w = x.shape[d] // mesh.extent("model")
+    return x.narrow(d, mesh.coord("model") * w, w)
+
+
+def block_in(x: torch.Tensor) -> torch.Tensor:
+    """A replicated activation entering a computation split over
+    ``model``: ``enter`` (its gradient summed over ``model``), or under
+    ``seq_parallel`` the identity (the block's ``seq_gather`` sums it)."""
+    return x if sp_active() else enter(x, "model")
+
+
+def block_out(y: torch.Tensor, partial: bool = True, d: int = 1) -> torch.Tensor:
+    """A block's output: partial sums of a row-split projection
+    (``partial``) are reduced over ``model``, under ``seq_parallel``
+    reduce-scattered along the sequence (dimension ``d``); a whole output
+    passes, under ``seq_parallel`` cut to this rank's block."""
+    if not sp_active():
+        return reduce(y, "model") if partial else y
+    return _SeqScatter.apply(y, d) if partial else seq_cut(y, d)
+
+
+# ---------------------------------------------------------------------------
+# token exchange of experts over (data, model) without a group limit
+# ---------------------------------------------------------------------------
+
+class _Exchange(torch.autograd.Function):
+    """``out = psum_fwd(place(x))``: rows ``x`` written at ``pos`` of a
+    zeroed ``[n, ...]`` buffer and all-reduced over ``fwd`` axes;
+    backward: the gradient all-reduced over ``bwd`` axes, rows ``pos``
+    kept.  With ``take`` the roles turn: forward all-reduce over ``fwd``
+    then rows ``pos``; backward rows written at ``pos`` of zeros and
+    all-reduced over ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, pos, n, fwd, bwd, take):
+        mesh, _ = _current()
+        ctx.save_for_backward(pos)
+        ctx.mesh, ctx.n, ctx.bwd, ctx.take = mesh, n, bwd, take
+        ctx.rows = x.shape[0]
+        if take:
+            return _psum_rows(x, fwd, mesh, "reduce-scatter", pos.numel())[pos]
+        return _place(x, pos, n, fwd, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.take:
+            out = _place(g, pos, ctx.n, ctx.bwd, ctx.mesh)
+        else:
+            out = _psum_rows(g, ctx.bwd, ctx.mesh, "reduce-scatter",
+                             pos.numel())[pos]
+        return out, None, None, None, None, None
+
+
+def _place(x, pos, n, axes, mesh):
+    buf = x.new_zeros((n,) + tuple(x.shape[1:]))
+    buf[pos] = x
+    if axes and mesh.extent(axes) > 1:
+        all_reduce_(buf, mesh.group(axes), kind="all-gather")
+    return buf
+
+
+def _psum_rows(x, axes, mesh, kind, rows):
+    if not axes or mesh.extent(axes) == 1:
+        return x
+    row = x[0].numel() * x.element_size()
+    return all_reduce_(x.clone(), mesh.group(axes), kind=kind, nbytes=rows * row)
+
+
+def exchange_in(x: torch.Tensor, pos: torch.Tensor, n: int, owners, summers):
+    """Rows ``x`` of this rank, at positions ``pos`` of an ``n``-row
+    chunk, gathered with the other ``owners`` ranks' rows (the chunk, on
+    every rank); the backward sums the chunk's gradient over ``summers``
+    (the ranks whose partial gradients add up) and keeps rows ``pos``."""
+    return _Exchange.apply(x, pos, n, tuple(owners), tuple(summers), False)
+
+
+def exchange_out(y: torch.Tensor, pos: torch.Tensor, summers, owners):
+    """A chunk's partial outputs ``y`` summed over ``summers``, rows
+    ``pos`` kept; the backward gathers the rows' gradients of the
+    ``owners`` ranks into the chunk's."""
+    return _Exchange.apply(y, pos, y.shape[0], tuple(summers), tuple(owners),
+                           True)
+
+
+# ---------------------------------------------------------------------------
 # serving on the training mesh: plain collectives (no autograd), placed
 # by resolved specs; an axis set of extent 1 is the identity
 # ---------------------------------------------------------------------------
@@ -587,7 +788,8 @@ def make_rules(
     fsdp:         shard the ``embed`` axis of weights over ``data``
                   (ZeRO-3-ish; weights gathered per layer).
     seq_parallel: shard boundary activations' ``seq`` over ``model``
-                  (sequence parallelism; the port's train step refuses it).
+                  (sequence parallelism: the decoder's residual stream
+                  between blocks, ``seq_parallel`` above).
     expert_2d:    shard ``experts`` over (data, model)
                   (deepseek: 256 experts == 16x16 mesh exactly).
     kv_seq_model: additionally shard decode KV caches' sequence axis over

@@ -268,14 +268,14 @@ class PagedTP:
 
     def init_params(self, seed: int = 0, device=None) -> Dict:
         """This rank's block of ``decoder.init_params(cfg, seed, device)``,
-        drawn leaf by leaf (each global leaf is drawn as the single-device
-        init draws it, then cut), so the ranks together hold the single
+        drawn leaf by leaf (``param.init_params(blocks=)``: the block of
+        the single device's draw), so the ranks together hold the single
         device's weights and no rank ever holds the whole model."""
         return param_lib.init_params(
             self._param_shapes, seed, self.cfg.dtype,
             torch.device(device) if device is not None else self.mesh.device,
-            select=lambda s, t: self.block(
-                t, shlib.spec_for(s.axes, self.rules, self.mesh, s.shape)))
+            blocks=lambda s: self.slices(
+                shlib.spec_for(s.axes, self.rules, self.mesh, s.shape), s.shape))
 
     def init_pools(self, num_pages: int, page_size: int, device) -> Any:
         """Zeroed pools of this rank's KV heads."""
@@ -395,14 +395,15 @@ class TrainTP:
     without its second to last."""
 
     def __init__(self, cfg, mesh, rules):
-        if rules.get("seq"):
-            raise ValueError(
-                "seq_parallel: sequence parallelism is not ported to the "
-                "PyTorch train step (ROADMAP, Queue A item 4)")
+        from repro_torch.models.layers import moe as moe_lib
+
         self.cfg, self.mesh, self.rules = cfg, mesh, rules
         self.param_shapes = decoder.model_specs(cfg)
         self.param_specs = decoder.train_specs(cfg, mesh, rules)
         self.batch_axes = shlib.batch_axes(mesh, rules)
+        # experts over a batch axis with no group limit serve the global
+        # batch on every rank: their gradients are whole
+        self.global_experts = moe_lib.global_dispatch(cfg, mesh, rules)
 
     # -- blocks ------------------------------------------------------------
     def split_axes(self, spec) -> Tuple[str, ...]:
@@ -493,8 +494,10 @@ class TrainTP:
                           self.param_specs)
 
     def init_params(self, seed: int = 0, device=None) -> Dict:
-        """This rank's blocks of ``decoder.init_params(cfg, seed, device)``,
-        each global leaf drawn as the single device draws it, then cut."""
+        """This rank's blocks of ``decoder.init_params(cfg, seed, device)``:
+        each the block of the single device's draw, a large leaf drawn
+        only in the slices the block touches (``param.init_params``), so a
+        rank's peak is its blocks and one slice (or one small leaf)."""
         resolved: Dict[int, Any] = {}
 
         def note(ps, rs):
@@ -511,7 +514,7 @@ class TrainTP:
         return param_lib.init_params(
             self.param_shapes, seed, self.cfg.dtype,
             torch.device(device) if device is not None else self.mesh.device,
-            select=lambda s, t: self.block(t, resolved[id(s)]))
+            blocks=lambda s: self.slices(resolved[id(s)], s.shape))
 
     def abstract_params(self) -> Dict:
         """This rank's parameter blocks as ``meta`` tensors (shapes and
@@ -545,18 +548,27 @@ class TrainTP:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     # -- gradients ---------------------------------------------------------
-    def sync_grads(self, grads: Dict) -> Dict:
+    def sync_grads(self, grads: Dict, seq_parallel: bool = False) -> Dict:
         """Sum each gradient over the batch axes its leaf is not split
         over, in place (FSDP leaves arrive summed over ``data`` from the
-        gather's backward; a leaf split over ``data`` by its experts sees
-        only its rows' tokens).  Leaves are packed by (axes, dtype) into
-        buckets of at most ``GRAD_BUCKET_BYTES``, one all-reduce each, in the
-        same order on every rank."""
+        gather's backward; a leaf split over ``data`` by group-limited
+        experts sees only its rows' tokens; experts without a group limit
+        see the global batch on every rank, and take no sum).  After a
+        ``seq_parallel`` step each rank's gradient of a leaf ``model``
+        does not split is its sequence block's share: summed over
+        ``model`` too.  Leaves are packed by (axes, dtype) into buckets of
+        at most ``GRAD_BUCKET_BYTES``, one all-reduce each, in the same
+        order on every rank."""
         packs: Dict[Tuple, List[torch.Tensor]] = {}
+        over = self.batch_axes + (("model",) if seq_parallel else ())
+        experts = self._expert_leaves() if self.global_experts else set()
 
         def note(g, spec):
-            axes = tuple(a for a in self.batch_axes
-                         if a not in self.split_axes(spec))
+            if id(spec) in experts:
+                axes = tuple(a for a in over if a == "model"
+                             and a not in self.split_axes(spec))
+            else:
+                axes = tuple(a for a in over if a not in self.split_axes(spec))
             if axes and self.mesh.extent(axes) > 1:
                 packs.setdefault((axes, g.dtype), []).append(g)
             return g
@@ -579,6 +591,23 @@ class TrainTP:
                     off += g.numel()
                 i = j
         return grads
+
+    def _expert_leaves(self) -> set:
+        """ids of the resolved specs of the routed experts' leaves."""
+        out = set()
+
+        def walk(ps, rs):
+            if isinstance(ps, dict):
+                for k in ps:
+                    walk(ps[k], rs[k])
+            elif isinstance(ps, list):
+                for a, b in zip(ps, rs):
+                    walk(a, b)
+            elif "experts" in ps.axes:
+                out.add(id(rs))
+
+        walk(self.param_shapes, self.param_specs)
+        return out
 
     # -- gathering ---------------------------------------------------------
     def _gather_leaf(self, t: torch.Tensor, spec) -> torch.Tensor:

@@ -14,8 +14,10 @@ dry-run share these builders.
 
 Serving cells (prefill with GRIFFIN statistics and selection, decode on
 the compacted FF) run under the mesh's serve rules with the collectives
-written out (``serving.steps``); the SSM and RG-LRU mixers and their
-caches stay whole on every model rank (``Cell.notes`` says so).
+written out (``serving.steps``).  Under ``seq_parallel`` rules a batch's
+sequence arrives split over ``model`` (its resolved spec); the cell's
+program gathers it (``_whole_seq``) and the decoder splits the residual
+stream along it again.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.distributed import sharding as shlib
-from repro_torch.distributed.tp import TrainTP, block_of, block_shape
+from repro_torch.distributed.tp import (TrainTP, block_of, block_shape,
+                                        block_slices)
 from repro_torch.launch.policies import CellPolicy
 from repro_torch.models import decoder, param as param_lib
 from repro_torch.models.param import ParamSpec
@@ -77,12 +80,11 @@ def _meta(spec_tree, resolved, mesh, dtype):
         spec_tree, resolved)
 
 
-def _whole_notes(cfg) -> List[str]:
-    kinds = sorted({d.mixer for d in decoder.layer_descs(cfg)} & {"ssm", "rec"})
-    if not kinds:
-        return []
-    return [f"the {'/'.join(kinds)} mixers and their caches stay whole on "
-            f"every model rank (ROADMAP, Queue A item 4)"]
+def _whole_seq(inputs: Dict[str, torch.Tensor], resolved) -> Dict:
+    """The inputs with a sequence (dimension 1) their resolved specs split
+    gathered whole (inside the mesh's ``axis_rules``)."""
+    return {k: shlib.gather_dim(t, 1, shlib.split_axes(resolved[k], 1))
+            for k, t in inputs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +134,7 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     batch = _meta(b_specs, b_res, mesh, cfg.dtype)
     rows = next(iter(batch.values())).shape[0]
     accum = min(pol.accum_steps, rows)
-    notes = _whole_notes(cfg)
+    notes = []
     if accum != pol.accum_steps:
         notes.append(f"accum_steps {pol.accum_steps} -> {accum}: this rank "
                      f"holds {rows} rows of the batch")
@@ -140,6 +142,8 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                             rules=pol.rules, local_batch=True)
 
     def fn(state, batch):
+        with shlib.axis_rules(mesh, pol.rules):
+            batch = _whole_seq(batch, b_res)
         return step(state, batch)
 
     return Cell(name=f"{cfg.name}:{shape.name}:train", fn=fn,
@@ -163,14 +167,14 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     def fn(params, inputs):
         with shlib.axis_rules(mesh, rules):
+            inputs = _whole_seq(inputs, i_res)
             return prefill(params, inputs.get("tokens"), inputs.get("prefix_emb"))
 
     return Cell(name=f"{cfg.name}:{shape.name}:prefill", fn=fn,
                 args=(_meta(p_specs, p_res, mesh, cfg.dtype),
                       _meta(i_specs, i_res, mesh, cfg.dtype)),
                 specs=(p_specs, i_specs), resolved=(p_res, i_res), mesh=mesh,
-                policy=pol, kind="prefill", cfg=cfg, shape=shape,
-                notes=_whole_notes(cfg))
+                policy=pol, kind="prefill", cfg=cfg, shape=shape)
 
 
 def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -205,16 +209,11 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 + ("+griffin" if use_pruned else ""), fn=fn, args=args,
                 specs=(p_specs, c_specs, pr_specs, t_specs, None),
                 resolved=(p_res, c_res, pr_res, t_res, None), mesh=mesh,
-                policy=pol, kind="decode", cfg=cfg, shape=shape,
-                notes=_whole_notes(cfg))
+                policy=pol, kind="decode", cfg=cfg, shape=shape)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                pol: CellPolicy) -> Cell:
-    if pol.rules.get("seq") and shape.kind != "train":
-        raise NotImplementedError(
-            "seq_parallel: sequence parallelism is not ported to the serving "
-            "cells (ROADMAP, Queue A item 4)")
     if shape.kind == "train":
         return build_train_cell(cfg, shape, mesh, pol)
     if shape.kind == "prefill":
@@ -258,8 +257,9 @@ def materialize(cell: Cell, device, seed: int = 0, *, params=None,
     parameters as ``decoder.init_params(cfg, seed)`` draws them, the
     cache and float inputs from N(0, 1) (seeds + 1 and + 3), the
     compacted FF drawn as weights (seed + 2), tokens from ``numpy``
-    (seed + 3); each global leaf drawn whole and cut to this rank's
-    block, so every mesh and the one-device run see the same values.  A
+    (seed + 3); each leaf is this rank's block of the one-device draw
+    (``param.init_params(blocks=)``), so every mesh and the one-device
+    run see the same values.  A
     train cell gets ``TrainTP.init_train_state``.  ``params`` / ``pruned``
     given (this rank's blocks, e.g. a prefill cell's) are used as they
     are."""
@@ -271,7 +271,7 @@ def materialize(cell: Cell, device, seed: int = 0, *, params=None,
         _walk(lambda a, r: flat.__setitem__(id(a), r), tree, res)
         return param_lib.init_params(
             tree, s, cfg.dtype, dev,
-            select=lambda a, t: block_of(t, tuple(flat[id(a)]), mesh))
+            blocks=lambda a: block_slices(tuple(flat[id(a)]), a.shape, mesh))
 
     def tokens(spec: ParamSpec, res, s: int) -> torch.Tensor:
         rng = np.random.RandomState(s)

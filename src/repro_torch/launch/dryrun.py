@@ -21,6 +21,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --pods 2
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all        # every runnable cell
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-v3-671b --moe-group-limit 1
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --seq-parallel
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b mamba2-1.3b --shape train_4k prefill_32k --seq-parallel
 Artifacts: JSON per cell under --out (default artifacts/dryrun_torch/).
 """
 from __future__ import annotations
@@ -151,8 +153,8 @@ def run_cell(arch: str, shape_name: str, *, pods: int = 1, use_griffin: bool = T
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ASSIGNED_ARCHS + ["tinylm", "lm100m"])
-    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--arch", nargs="+", choices=ASSIGNED_ARCHS + ["tinylm", "lm100m"])
+    ap.add_argument("--shape", nargs="+", choices=list(SHAPES))
     ap.add_argument("--pods", type=int, default=1, choices=[1, 2])
     ap.add_argument("--all", action="store_true",
                     help="run every runnable (arch x shape) cell for this pod "
@@ -179,8 +181,11 @@ def main(argv=None) -> int:
 
     if args.all:
         todo = [(a, s) for a in ASSIGNED_ARCHS for s in SHAPES]
-    elif args.arch:  # one shape, or every shape of the arch
-        todo = [(args.arch, s) for s in ([args.shape] if args.shape else SHAPES)]
+        # the slowest steps first (train cells, the largest model's
+        # first), so that parallel jobs end together
+        todo.sort(key=lambda t: (t[1] != "train_4k", t[0] != "deepseek-v3-671b"))
+    elif args.arch:  # the shapes given, or every shape of each arch
+        todo = [(a, s) for a in args.arch for s in (args.shape or SHAPES)]
     else:
         ap.error("--arch [--shape] or --all required")
 
@@ -214,7 +219,8 @@ def _report(todo, recs, args, out_dir: Path) -> int:
     for (arch, shape_name), rec in zip(todo, recs):
         suffix = ("_" + args.tag) if args.tag else ""
         name = f"{arch}_{shape_name}_p{args.pods}" \
-               + ("_nogriffin" if args.no_griffin else "") + suffix
+               + ("_nogriffin" if args.no_griffin else "") \
+               + ("_sp" if args.seq_parallel else "") + suffix
         (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=1))
         status = rec["status"]
         if status == "ok":

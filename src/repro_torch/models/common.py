@@ -110,18 +110,21 @@ def _vocab_offset(local: int) -> int:
     return mesh.coord("model") * local
 
 
-def embed_lookup(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_lookup(params: Dict, tokens: torch.Tensor, cfg,
+                 summed: bool = True) -> torch.Tensor:
     """Rows of the table for ``tokens``.  On a training mesh whose rules
     split the (tied) table's rows over ``model``, each rank looks up the
     tokens it owns, zeros elsewhere, and the rows are summed over
-    ``model`` (exact: one rank contributes each row)."""
+    ``model`` (exact: one rank contributes each row); without ``summed``
+    the caller sums them (``decoder``'s sequence-parallel entry)."""
     table = params["table"]
     V = table.shape[0]
     if shlib.model_split(V, cfg.vocab_size):
         local = tokens - _vocab_offset(V)
         own = (local >= 0) & (local < V)
         x = table[local.clamp(0, V - 1)] * own[..., None].to(table.dtype)
-        x = shlib.reduce(x, "model")
+        if summed:
+            x = shlib.reduce(x, "model")
     else:
         x = table[tokens]
     # gemma-style sqrt(d) scaling keeps tied-embedding logits sane; the
@@ -145,7 +148,7 @@ def lm_logits(head_params: Dict, embed_params: Dict, x: torch.Tensor,
     reduces over ``model``: ``decoder.chunked_ce``)."""
     w = embed_params["table"].T if cfg.tie_embeddings else head_params["w"]
     if shlib.model_split(w.shape[-1], cfg.vocab_size):
-        x = shlib.enter(x, "model")
+        x = shlib.block_in(x)
     logits = (x @ w).float()  # [..., V]
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap

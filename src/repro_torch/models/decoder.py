@@ -45,13 +45,16 @@ On a training mesh (``sharding.axis_rules``) ``hidden_forward`` and
 ``train_specs``; each layer gathers its FSDP (``embed`` over ``data``)
 leaves inside the layer (so remat gathers them again in the
 recompute), the layers place their ``model`` collectives by the blocks
-they hold, and the loss is the global one (``chunked_ce``).
+they hold, and the loss is the global one (``chunked_ce``).  Where the
+rules put ``seq`` on ``model`` (``make_rules(seq_parallel=True)``) and
+the length divides, the residual stream between blocks is this rank's
+block of the sequence (``sharding.seq_gather`` before each block, its
+``block_out`` after it; the loss in ``_ce_sp``).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -216,44 +219,10 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict:
 # Training-mesh layout
 # ---------------------------------------------------------------------------
 
-#: mixers kept whole on every ``model`` rank on a training mesh: their
-#: leaves' ``model`` splits are dropped (ROADMAP lists the split ones)
-_WHOLE_MIXERS = ("ssm", "rec")
-_whole_warned: set = set()
-
-
-def _drop_model(spec):
-    def one(ax):
-        if ax is None or isinstance(ax, str):
-            return None if ax == "model" else ax
-        kept = tuple(a for a in ax if a != "model")
-        return kept[0] if len(kept) == 1 else (kept or None)
-    out = [one(ax) for ax in spec]
-    while out and out[-1] is None:
-        out.pop()
-    return tuple(out)
-
-
 def train_specs(cfg, mesh, rules) -> Dict:
     """The resolved spec of every parameter on a training mesh
-    (``sharding.tree_specs`` of ``model_specs``), except that the SSM and
-    RG-LRU mixers stay whole over ``model`` (their FSDP splits stay); a
-    one-time warning says so."""
-    specs = shlib.tree_specs(model_specs(cfg), mesh, rules)
-    for li, desc in enumerate(layer_descs(cfg)):
-        if desc.mixer not in _WHOLE_MIXERS:
-            continue
-        mixer = specs["layers"][li]["mixer"]
-        new = {k: _drop_model(v) for k, v in mixer.items()}
-        if new != mixer and cfg.name not in _whole_warned:
-            _whole_warned.add(cfg.name)
-            warnings.warn(
-                f"{cfg.name}: the {desc.mixer} mixers stay whole on every "
-                f"'model' rank of the training mesh (ROADMAP)", stacklevel=2)
-        specs["layers"][li]["mixer"] = new
-        if "mtp" in specs and li == cfg.num_layers - 1:
-            specs["mtp"]["layer"]["mixer"] = dict(new)
-    return specs
+    (``sharding.tree_specs`` of ``model_specs``)."""
+    return shlib.tree_specs(model_specs(cfg), mesh, rules)
 
 
 def _gather_dims(spec_tree, resolved) -> Any:
@@ -397,7 +366,10 @@ def _apply_layer(
     gdims=None,
 ):
     lp = _gather(lp, gdims)  # FSDP: this layer's weights, inside the layer
-    h = apply_norm(lp["mixer_norm"], x, cfg)
+    # sequence parallelism: x is this rank's block of the sequence; each
+    # block reads the whole of it and hands back its block (block_out)
+    whole = shlib.seq_gather if shlib.sp_active() else (lambda t: t)
+    h = whole(apply_norm(lp["mixer_norm"], x, cfg))
     if desc.mixer == "ssm":
         y, kv = ssm_lib.ssm_forward(lp["mixer"], h, cfg)
     elif desc.mixer == "rec":
@@ -414,7 +386,7 @@ def _apply_layer(
     x = x + y
     stats, aux = None, None
     if desc.ffn != "none":
-        h = apply_norm(lp["ffn_norm"], x, cfg)
+        h = whole(apply_norm(lp["ffn_norm"], x, cfg))
         if desc.ffn == "dense":
             fp = pruned_ffn if pruned_ffn is not None else lp["ffn"]
             y, stats = ffn_lib.ffn_forward(
@@ -484,15 +456,22 @@ def _forward(
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all|last|none, got {logits_mode!r}")
     plan = _mesh_plan(cfg)
-    params = _gather_top(params, cfg)
-    remat_kw = {}
-    if plan is not None:
-        # the recompute runs in the backward, on the device's autograd
-        # thread: it re-enters the mesh scope there
-        scope = shlib.active_rules()
-        remat_kw["context_fn"] = lambda: (contextlib.nullcontext(),
-                                          shlib.axis_rules(*scope))
-    parts = []
+    S = sum(t.shape[1] for t in (prefix_emb, tokens) if t is not None)
+    sp = plan is not None and shlib.sp_wanted(S)
+    with shlib.seq_parallel(sp):
+        return _forward_body(params, cfg, tokens, prefix_emb, plan, sp,
+                             collect_stats=collect_stats, want_kv=want_kv,
+                             q_chunk=q_chunk, logits_mode=logits_mode,
+                             pruned=pruned, want_z=want_z, remat=remat)
+
+
+def _embed(params: Dict, cfg, tokens, prefix_emb, sp: bool) -> torch.Tensor:
+    """The input embeddings [B, S, D] (prefix embeddings projected by the
+    frontend, then the tokens'); under sequence parallelism this rank's
+    block of the sequence: the whole sequence's partial sums (a split
+    table's rows; a whole part counted on ``model`` rank 0 only)
+    reduce-scattered, or, with no partial part, the whole cut."""
+    parts, partial = [], []
     if prefix_emb is not None:
         pe = prefix_emb
         if "frontend" in params:
@@ -500,10 +479,41 @@ def _forward(
             dt = torch.promote_types(pe.dtype, w.dtype)  # as jnp.einsum
             pe = pe.to(dt) @ w.to(dt)
         parts.append(pe.to(param_lib.torch_dtype(cfg.dtype)))
+        partial.append(False)
     if tokens is not None:
-        parts.append(embed_lookup(params["embed"], tokens.long(), cfg))
+        parts.append(embed_lookup(params["embed"], tokens.long(), cfg,
+                                  summed=not sp))
+        partial.append(sp and shlib.model_split(params["embed"]["table"].shape[0],
+                                                cfg.vocab_size))
+    if sp and any(partial):
+        mesh, _ = shlib.active_rules()
+        first = float(mesh.coord("model") == 0)
+        parts = [p if part else p * first for p, part in zip(parts, partial)]
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    B, S, _ = x.shape
+    return shlib.block_out(x, any(partial)) if sp else x
+
+
+@contextlib.contextmanager
+def _recompute_scope(scope, sp: bool):
+    """The mesh scope of a layer's recompute (remat's backward)."""
+    with shlib.axis_rules(*scope), shlib.seq_parallel(sp):
+        yield
+
+
+def _forward_body(params, cfg, tokens, prefix_emb, plan, sp: bool, *,
+                  collect_stats, want_kv, q_chunk, logits_mode, pruned,
+                  want_z, remat):
+    params = _gather_top(params, cfg)
+    remat_kw = {}
+    if plan is not None:
+        # the recompute runs in the backward, on the device's autograd
+        # thread: it re-enters the mesh scope there
+        scope = shlib.active_rules()
+        remat_kw["context_fn"] = lambda: (contextlib.nullcontext(),
+                                          _recompute_scope(scope, sp))
+    x = _embed(params, cfg, tokens, prefix_emb, sp)
+    B = x.shape[0]
+    S = sum(t.shape[1] for t in (prefix_emb, tokens) if t is not None)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = rope_cos_sin(positions, _rope_width(cfg), cfg.rope_theta)
     kv_list: List[Dict] = []
@@ -530,11 +540,14 @@ def _forward(
 
     x = apply_norm(params["final_norm"], x, cfg)
     if logits_mode == "none":
-        out = x
+        out = x  # under sequence parallelism: this rank's block
     elif logits_mode == "last":
+        if sp:  # the last position, from the last model rank's block
+            x = shlib.seq_replicate(x[:, -1:])
         out = lm_logits(params.get("head", {}), params["embed"], x[:, -1:], cfg)
     else:
-        out = lm_logits(params.get("head", {}), params["embed"], x, cfg)
+        out = lm_logits(params.get("head", {}), params["embed"],
+                        shlib.seq_replicate(x) if sp else x, cfg)
     return out, Aux(kv=kv_list if want_kv else None,
                     stats=stats_tree if collect_stats else None,
                     moe_aux=moe_aux)
@@ -576,19 +589,21 @@ def _ce_chunk(x, params, targets, mask, cfg):
 
 
 def chunked_ce(x: torch.Tensor, params: Dict, targets: torch.Tensor,
-               mask: torch.Tensor, cfg, chunk: int = 512
+               mask: torch.Tensor, cfg, chunk: int = 512,
+               over_model: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D]; targets/mask: [B,S]. Returns (sum nll, count), summed
     chunk by chunk in order (the reference's ``scan``).  On a training
     mesh both are sums over the whole batch: this data rank's sums are
     added over the batch axes (the nll with an identity backward, so each
     rank's gradient is its own rows' share and the train step sums
-    them)."""
+    them), and with ``over_model`` over ``model`` too (each rank holds a
+    block of the sequence)."""
     params = _gather_top(params, cfg)
     nll, cnt = _chunked_ce(x, params, targets, mask, cfg, chunk)
     mesh, rules = shlib.active_rules()
     if mesh is not None:
-        axes = shlib.batch_axes(mesh, rules)
+        axes = shlib.batch_axes(mesh, rules) + (("model",) if over_model else ())
         if axes:
             nll, cnt = shlib.reduce(nll, axes), shlib.all_sum(cnt, axes)
     return nll, cnt
@@ -622,22 +637,41 @@ def loss_fn(params: Dict, batch: Dict, cfg) -> Tuple[torch.Tensor, Dict]:
 
     For decoder LMs, targets default to next-token shift of ``tokens``;
     encoders require explicit framewise targets.  Returns (loss, metrics)
-    with autograd through every parameter the loss reads."""
+    with autograd through every parameter the loss reads.  Under sequence
+    parallelism (a mesh whose rules split ``seq`` and a length that
+    divides) the hidden states are this rank's block of the sequence:
+    ``_ce_sp`` forms the cross-entropy's sums and ``_mtp_loss_sp`` the
+    MTP term."""
     params = _gather_top(params, cfg)
     prefix = batch.get("prefix_emb")
-    if cfg.family == "encoder":
-        x, aux = hidden_forward(params, cfg, prefix_emb=prefix)
-        targets = batch["targets"]
-        mask = batch.get("mask", _ones(targets))
-        nll, cnt = chunked_ce(x, params, targets, mask, cfg)
-        loss = nll / torch.clamp_min(cnt, 1.0)
-        return loss, {"ce": loss}
-
-    tokens = batch["tokens"]
+    tokens = None if cfg.family == "encoder" else batch.get("tokens")
+    S = sum(t.shape[1] for t in (prefix, tokens) if t is not None)
+    mesh, _ = shlib.active_rules()
+    sp = mesh is not None and shlib.sp_wanted(S)
     x, aux = hidden_forward(params, cfg, tokens=tokens, prefix_emb=prefix)
-    P = 0 if prefix is None else prefix.shape[1]
-    x_text = x[:, P:]
+    nll, cnt = (_ce_sp if sp else _ce)(x, params, batch, tokens, cfg)
+    ce = nll / torch.clamp_min(cnt, 1.0)
+    if cfg.family == "encoder":
+        return ce, {"ce": ce}
+    loss = ce + cfg.router_aux_coef * aux.moe_aux
+
+    metrics = {"ce": ce, "moe_aux": aux.moe_aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_loss = (_mtp_loss_sp if sp else _mtp_loss)(params, x, tokens, cfg)
+        loss = loss + 0.1 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _ce(x, params: Dict, batch: Dict, tokens, cfg):
+    """(sum nll, count) over the text positions of the whole sequence
+    (an encoder's: every frame)."""
     targets = batch.get("targets")
+    if cfg.family == "encoder":
+        return chunked_ce(x, params, targets, batch.get("mask", _ones(targets)), cfg)
+    P = 0 if batch.get("prefix_emb") is None else batch["prefix_emb"].shape[1]
+    x_text = x[:, P:]
     if targets is None:
         targets = tokens[:, 1:]
         x_text = x_text[:, :-1]
@@ -645,17 +679,84 @@ def loss_fn(params: Dict, batch: Dict, cfg) -> Tuple[torch.Tensor, Dict]:
         mask = mask[:, : targets.shape[1]]
     else:
         mask = batch.get("mask", _ones(targets))
-    nll, cnt = chunked_ce(x_text, params, targets, mask, cfg)
-    ce = nll / torch.clamp_min(cnt, 1.0)
-    loss = ce + cfg.router_aux_coef * aux.moe_aux
+    return chunked_ce(x_text, params, targets, mask, cfg)
 
-    metrics = {"ce": ce, "moe_aux": aux.moe_aux}
-    if cfg.mtp_depth and "mtp" in params:
-        mtp_loss = _mtp_loss(params, x, tokens, cfg)
-        loss = loss + 0.1 * mtp_loss
-        metrics["mtp"] = mtp_loss
-    metrics["loss"] = loss
-    return loss, metrics
+
+def _full_targets(batch: Dict, tokens, P: int, S: int):
+    """Targets and mask [B, S] over every position of the sequence
+    (prefix and text), 0 where no target is read: the loss of ``_ce`` as
+    one sum over positions."""
+    targets = batch.get("targets")
+    if targets is not None:
+        mask = batch.get("mask", _ones(targets))
+        if targets.shape[1] == S:
+            return targets, mask
+        n = targets.shape[1]
+    else:
+        n = tokens.shape[1] - 1
+        targets = tokens[:, 1:]
+        mask = batch.get("mask", _ones(targets))[:, :n]
+    B = targets.shape[0]
+    t = targets.new_zeros((B, S))
+    m = torch.zeros((B, S), dtype=mask.dtype, device=mask.device)
+    t[:, P:P + n] = targets
+    m[:, P:P + n] = mask
+    return t, m
+
+
+def _ce_sp(x, params: Dict, batch: Dict, tokens, cfg):
+    """``_ce`` from this rank's block ``x`` of the sequence.  A vocabulary
+    split over ``model`` reads every position (``seq_gather``: the ranks'
+    partial gradients summed); a whole one reads this rank's block and
+    sums over ``model`` as over the batch axes."""
+    prefix = batch.get("prefix_emb")
+    P = 0 if prefix is None or tokens is None else prefix.shape[1]
+    S = sum(t.shape[1] for t in (prefix, tokens) if t is not None)
+    targets, mask = _full_targets(batch, tokens, P, S)
+    table = params["head"]["w"] if "head" in params else params["embed"]["table"].T
+    with shlib.seq_parallel(True):
+        if shlib.model_split(table.shape[-1], cfg.vocab_size):
+            return chunked_ce(shlib.seq_gather(x), params, targets, mask, cfg)
+        return chunked_ce(x, params, shlib.seq_cut(targets), shlib.seq_cut(mask),
+                          cfg, over_model=True)
+
+
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _mtp_loss_sp(params: Dict, x: torch.Tensor, tokens: torch.Tensor, cfg):
+    """The MTP loss under sequence parallelism: the block runs whole on
+    every ``model`` rank (its length, S - 2, does not split) from the
+    gathered hidden states, whose gradient is the same on every rank
+    (``seq_replicate`` keeps this rank's block of it).  The leaves it
+    reads that ``model`` does not split get 1/n of their gradient on each
+    rank, as the train step sums such leaves over ``model``."""
+    specs = _mesh_specs(cfg)
+    mesh, _ = shlib.active_rules()
+    n = mesh.extent("model")
+
+    def scaled(t, spec):
+        if isinstance(t, dict):
+            return {k: scaled(v, spec[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [scaled(v, spec[i]) for i, v in enumerate(t)]
+        split = any("model" in shlib.dim_axes(spec, d) for d in range(t.dim()))
+        return t if split else _GradScale.apply(t, 1.0 / n)
+
+    view = dict(params, **{k: scaled(params[k], specs[k])
+                           for k in ("mtp", "embed", "final_norm", "head")
+                           if k in params})
+    h = shlib.seq_replicate(x)
+    with shlib.seq_parallel(False):
+        return _mtp_loss(view, h, tokens, cfg)
 
 
 def _mtp_loss(params: Dict, h: torch.Tensor, tokens: torch.Tensor, cfg
@@ -727,30 +828,32 @@ def kv_specs(cfg, batch: int, seq: int) -> List[Dict]:
 
 def serve_specs(cfg, spec_tree: List[Dict], mesh, rules) -> List[Dict]:
     """Resolved specs of a per-layer cache (or cache material) tree on a
-    serving mesh: the SSM and RG-LRU layers' leaves whole over ``model``,
-    as their mixers are (``train_specs``)."""
-    out = shlib.tree_specs(spec_tree, mesh, rules)
-    for li, d in enumerate(layer_descs(cfg)):
-        if d.mixer in _WHOLE_MIXERS:
-            out[li] = {k: _drop_model(v) for k, v in out[li].items()}
-    return out
+    serving mesh."""
+    return shlib.tree_specs(spec_tree, mesh, rules)
 
 
 def kv_blocks(cfg, kv: List[Dict], resolved: List[Dict]) -> List[Dict]:
     """A mesh prefill's cache material cut (or gathered) to this rank's
     blocks of ``resolved`` (``serve_specs`` of ``kv_specs``).  The rank
-    holds its batch rows, every position, and the KV heads its key /
-    value projections hold (their resolved ``kv_heads`` / ``head_dim``
-    axes); the latent and recurrent material has no model split."""
+    holds its batch rows, every position, the KV heads its key / value
+    projections hold (their resolved ``kv_heads`` / ``head_dim`` axes),
+    an SSM layer's heads (``a_log``'s axes) with the whole conv tail, and
+    an RG-LRU layer's block of the width (``w_x``'s); the latent material
+    has no model split."""
     specs = _mesh_specs(cfg)
     out = []
     for li, (d, layer_kv, rs) in enumerate(zip(layer_descs(cfg), kv, resolved)):
         held: Dict[str, Tuple] = {}
+        ws = specs["layers"][li]["mixer"]
         if d.mixer == "attn" and not cfg.use_mla:
-            ws = specs["layers"][li]["mixer"]
             for name, w in (("k", "wk"), ("v", "wv")):
                 held[name] = ((), (), shlib.dim_axes(ws[w], 1),
                               shlib.dim_axes(ws[w], 2))
+        elif d.mixer == "ssm":
+            held["state"] = ((), shlib.dim_axes(ws["a_log"], 0), (), ())
+        elif d.mixer == "rec":
+            lru = shlib.dim_axes(ws["w_x"], 1)
+            held = {"h": ((), lru), "conv": ((), (), lru)}
         blocks = {}
         for name, t in layer_kv.items():
             have = held.get(name, ((),) * t.dim())
@@ -872,8 +975,9 @@ def decode_step(
     gathers its FSDP leaves, attention places its collectives by the
     resolved specs of its weights and cache block, the FF blocks reduce
     their split down-projections, MoE layers take the training forward's
-    expert-parallel paths, and the SSM / RG-LRU mixers run whole.  Off a
-    mesh every one of these is the identity."""
+    expert-parallel paths, and the SSM / RG-LRU mixers run on their
+    heads' or width's block (their caches hold that block).  Off a mesh
+    every one of these is the identity."""
     pos = int(pos)
     mesh, _ = shlib.active_rules()
     if mesh is not None and mesh.size > 1 and cache_specs is None:

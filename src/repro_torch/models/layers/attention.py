@@ -98,8 +98,8 @@ def _out_proj(params, ctx, cfg, split: bool = False, axes=()):
     wo = params["wo"]
     y = (ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).reshape(B, S, -1)
     y = shlib.psum(psum_if_tp(y), axes)
-    if split:
-        y = shlib.reduce(y, "model")
+    if shlib.active_rules()[0] is not None and not axes:
+        y = shlib.block_out(y, split)
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -195,7 +195,7 @@ def attn_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     use_rope = cfg.family != "encoder"
     split = shlib.model_split(params["wq"].shape[1], cfg.num_heads)
     if split:
-        xs = shlib.enter(x, "model")
+        xs = shlib.block_in(x)
         kv_split = shlib.model_split(params["wk"].shape[1], cfg.num_kv_heads)
         q, k_out, v_out = _project_qkv(params, xs, positions, cfg, use_rope,
                                        rope=rope, x_kv=xs if kv_split else x)
@@ -220,8 +220,8 @@ def _local_kv_heads(h_local: int, k, v, cfg):
     G = cfg.num_heads // cfg.num_kv_heads
     heads = mesh.coord("model") * h_local + torch.arange(h_local, device=k.device)
     idx = heads // G
-    k = shlib.enter(k, "model").index_select(2, idx)
-    v = shlib.enter(v, "model").index_select(2, idx)
+    k = shlib.block_in(k).index_select(2, idx)
+    v = shlib.block_in(v).index_select(2, idx)
     return k, v
 
 
@@ -239,10 +239,15 @@ def _kv_int8(cfg) -> bool:
     return getattr(cfg, "kv_cache_int8", False)
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[...,hd] -> (int8 [...,hd], f32 scale [...,1]).  Per-(token, head)."""
+def quantize_kv(x: torch.Tensor, axes=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[...,hd] -> (int8 [...,hd], f32 scale [...,1]).  Per-(token, head).
+
+    ``axes``: the mesh axes ``x``'s ``head_dim`` is split over (a block of
+    each head on this rank): the block's amax is all-reduced to the
+    head's max first, so the scale is the whole head's (replicated over
+    ``axes``) and the codes are the whole head's codes of this block."""
     xf = x.float()
-    s = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = shlib.pmax(xf.abs().amax(dim=-1, keepdim=True), axes) / 127.0
     q = torch.round(xf / torch.clamp(s, min=1e-8)).to(torch.int8)
     return q, s
 
@@ -344,7 +349,9 @@ def attn_decode(params: Dict, cache: Dict, x: torch.Tensor, pos: int, cfg,
       split it (RoPE and the q/k norms need whole heads), then cut to the
       cache block's KV heads and ``head_dim`` (query heads: those of the
       block's KV heads).
-    * Only the rank whose sequence block holds the slot writes the token.
+    * Only the rank whose sequence block holds the slot writes the token;
+      an int8 cache split over ``head_dim`` quantizes each block with the
+      whole head's scale (``quantize_kv``'s all-reduced amax).
     * ``head_dim`` split: the partial q.k are summed before the softmax
       (``sum_scores``) and the context stays split.
     * ``kv_seq`` / ``window`` split: each rank attends over its block and
@@ -394,11 +401,9 @@ def attn_decode(params: Dict, cache: Dict, x: torch.Tensor, pos: int, cfg,
     if off <= slot < off + C_loc:  # this rank's block holds the new token
         j = slot - off
         if int8:
-            if hd_axes:
-                raise NotImplementedError(
-                    "an int8 cache split over head_dim (ROADMAP, Queue A item 4)")
             for name, val in zip(("k", "k_scale", "v", "v_scale"),
-                                 quantize_kv(k_new) + quantize_kv(v_new)):
+                                 quantize_kv(k_new, hd_axes)
+                                 + quantize_kv(v_new, hd_axes)):
                 cache[name][:, j:j + 1] = val
         else:
             cache["k"][:, j:j + 1] = k_new

@@ -93,9 +93,11 @@ def ffn_forward(
     ``d_ff``: the block's full hidden width.  On a training mesh whose
     rules split it over ``model`` (this rank holds fewer columns), ``x``
     enters the split up-projections and the down-projection's partial
-    sums are reduced over ``model``."""
+    sums are reduced over ``model`` (``sharding.block_in`` /
+    ``block_out``: under sequence parallelism ``x`` is the whole sequence
+    and ``y`` comes back as this rank's block of it)."""
     split = d_ff is not None and shlib.model_split(params["w1"].shape[-1], d_ff)
-    xs = shlib.enter(x, "model") if split else x
+    xs = shlib.block_in(x) if split else x
     z = ffn_activations(params, xs, cfg)
     stats = None
     if collect_stats:
@@ -108,8 +110,8 @@ def ffn_forward(
             stats["z"] = z
     # a split F axis makes the down-projection a partial sum per rank
     y = psum_if_tp(z @ params["w2"])
-    if split:
-        y = shlib.reduce(y, "model")
+    if shlib.active_rules()[0] is not None:
+        y = shlib.block_out(y, split)
     if "b2" in params:
         y = y + params["b2"]
     return y, stats

@@ -56,7 +56,7 @@ def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _enter(x, split: bool):
-    return shlib.enter(x, "model") if split else x
+    return shlib.block_in(x) if split else x
 
 
 def _queries(params, x, positions, cfg, rope=None, split: bool = False):
@@ -131,8 +131,8 @@ def mla_forward(
     ctx = torch.cat(outs, dim=1)[:, :S]  # [B,S,H,dv]
     H, dv = ctx.shape[2], ctx.shape[3]
     y = (ctx.reshape(B * S, H * dv) @ params["wo"].reshape(H * dv, D)).reshape(B, S, D)
-    if split:
-        y = shlib.reduce(y, "model")
+    if shlib.active_rules()[0] is not None:
+        y = shlib.block_out(y, split)
     return y, (ckv_c, kr_c)
 
 

@@ -24,7 +24,8 @@ Ported as the reference has it, with two points made explicit:
   run to run.
 
 Expert parallelism on a training mesh (``sharding.axis_rules``), the
-reference's two ``shard_map`` paths, each rank holding its experts:
+reference's two ``shard_map`` paths and its GSPMD one, each rank holding
+its experts:
 
 * **routed EP** (``_moe_routed_ep``): experts split over ``model``;
   tokens stay on their data rank and are replicated over ``model``;
@@ -34,12 +35,20 @@ reference's two ``shard_map`` paths, each rank holding its experts:
 * **2-D EP** (``_moe_grouped_ep2d``, ``cfg.moe_group_limit > 0`` and
   ``experts`` over ``(data, model)``): each data row routes its tokens
   within its own ``E / n_data`` experts, so no token leaves its row and
-  the combine is again one sum over ``model``.
+  the combine is again one sum over ``model``;
+* **experts over ``(data, model)`` without a group limit**
+  (``_moe_global``): the single device's computation, which the
+  reference leaves to GSPMD.  Each chunk of the *global* token stream
+  (capacity from the global chunk's token count) is gathered over the
+  batch axes with its gates and expert ids, every rank dispatches it to
+  its ``E / (n_data n_model)`` experts, and the partial outputs are
+  summed over ``data`` (this row's rows kept) and over ``model``.
 
 Dispatch and gate enter the split computation through
-``sharding.enter`` (their gradients are the ranks' partial sums) and the
-combine is ``sharding.reduce``; the router and its load-balance loss
-stay replicated.
+``sharding.block_in`` (their gradients are the ranks' partial sums) and
+the combine is ``sharding.block_out`` (a sum over ``model``, or under
+sequence parallelism a reduce-scatter along the sequence); the router
+and its load-balance loss stay replicated.
 """
 from __future__ import annotations
 
@@ -76,10 +85,22 @@ def _capacity(n_tokens: int, cfg, pool: int = 0) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8, floor at 8
 
 
-def _route(params, x: torch.Tensor, cfg, want_aux: bool = True):
+def _own(t: torch.Tensor, seq) -> torch.Tensor:
+    """Rows of ``t`` [B*S, ...] that this rank counts in a sum over the
+    batch: all of them, or under sequence parallelism (the whole
+    sequence on every ``model`` rank) its block of the sequence."""
+    if seq is None or not shlib.sp_active():
+        return t
+    B, S = seq
+    return shlib.seq_cut(t.reshape(B, S, -1)).reshape(-1, t.shape[-1])
+
+
+def _route(params, x: torch.Tensor, cfg, want_aux: bool = True, seq=None):
     """x [T,D] -> (gate [T,k] fp32, idx [T,k] int64, aux_loss scalar, or
     None without ``want_aux``: decode needs no loss, nor its sums over
-    the batch axes)."""
+    the batch axes).  ``seq``: ``(B, S)`` of the tokens, whose sums run
+    over each rank's block of the sequence under sequence parallelism
+    (and over ``model`` with the batch axes)."""
     logits = x.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
@@ -96,8 +117,12 @@ def _route(params, x: torch.Tensor, cfg, want_aux: bool = True):
     hot = (idx[:, :1] == experts).float()
     mesh, rules = shlib.active_rules()
     axes = shlib.batch_axes(mesh, rules) if mesh is not None else ()
+    if shlib.sp_active():
+        axes = axes + ("model",)
+        probs, hot = _own(probs, seq), _own(hot, seq)
     if axes:  # the means over the whole batch, as the reference takes them
-        n = shlib.all_sum(torch.tensor(float(x.shape[0]), device=x.device), axes)
+        n = shlib.all_sum(torch.tensor(float(probs.shape[0]), device=x.device),
+                          axes)
         me = shlib.reduce(probs.sum(dim=0), axes) / n
         fe = shlib.all_sum(hot.sum(dim=0), axes) / n
     else:
@@ -179,30 +204,24 @@ def _expert_params(params) -> Dict:
 
 
 def _ep_shard_info(cfg):
-    """If a training mesh with a usable ``model`` axis is active, return
-    (mesh, n_model) for the routed EP path, else None (2D-sharded experts
-    take the grouped path or none)."""
-    mesh, rules = shlib.active_rules()
-    if mesh is None or "model" not in mesh.axis_names:
-        return None
-    exp_rule = (rules or {}).get("experts")
-    if isinstance(exp_rule, tuple) and len(exp_rule) > 1:
+    """If a training mesh splits the experts over ``model`` alone (more
+    than one rank), return (mesh, n_model) for the routed EP path, else
+    None (2D-sharded experts take the grouped or the global path)."""
+    mesh, _ = shlib.active_rules()
+    if mesh is None or _expert_axes(cfg) != ("model",):
         return None
     n_model = mesh.shape["model"]
-    if n_model <= 1 or cfg.num_experts % n_model != 0:
-        return None
-    return mesh, n_model
+    return (mesh, n_model) if n_model > 1 else None
 
 
 def _moe_routed_ep(params, xt, gate, idx, cfg, mesh, n_model):
     """Routed EP: experts split over ``model``; this rank's tokens are
-    replicated over ``model``; the combine is a sum over ``model``."""
+    replicated over ``model``; the partial outputs of its experts (the
+    caller sums them over ``model``)."""
     e_loc = cfg.num_experts // n_model
-    y = _dispatch_combine_local(
-        _expert_params(params), shlib.enter(xt, "model"),
-        shlib.enter(gate, "model"), idx, cfg,
-        e0=mesh.coord("model") * e_loc, e_loc=e_loc)
-    return shlib.reduce(y, "model")
+    return _dispatch_combine_local(
+        _expert_params(params), shlib.block_in(xt), shlib.block_in(gate),
+        idx, cfg, e0=mesh.coord("model") * e_loc, e_loc=e_loc)
 
 
 def _ep2d_info(cfg):
@@ -222,13 +241,15 @@ def _ep2d_info(cfg):
     return mesh, nd, nm
 
 
-def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux: bool = True):
+def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux: bool = True,
+                      seq=None):
     """Group-limited routing over 2D-sharded experts.
 
     Tokens route ONLY to the E/nd experts of their own data row, so no
     token crosses the ``data`` axis, and the only collective is the
-    row's combine sum over ``model``.  Returns (y, aux): aux is the mean
-    over the data rows of each row's load-balance loss."""
+    row's combine sum over ``model``.  Returns (y, aux): y the partial
+    outputs of this rank's experts (the caller sums them over ``model``),
+    aux the mean over the data rows of each row's load-balance loss."""
     E = cfg.num_experts
     E_row = E // nd
     E_sub = E_row // nm
@@ -242,31 +263,107 @@ def _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux: bool = True):
     gate, idx = srt[:, :k], order[:, :k]  # idx in [0, E_row)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     y = _dispatch_combine_local(
-        _expert_params(params), shlib.enter(xt, "model"),
-        shlib.enter(gate, "model"), idx, cfg, e0=col * E_sub, e_loc=E_sub,
-        cap_experts=E_row)
-    y = shlib.reduce(y, "model")
+        _expert_params(params), shlib.block_in(xt), shlib.block_in(gate),
+        idx, cfg, e0=col * E_sub, e_loc=E_sub, cap_experts=E_row)
     if not want_aux:
         return y, None
-    me = torch.softmax(logits, dim=-1).mean(dim=0)
-    fe = (row_ids[idx[:, :1]] == torch.arange(E, device=dev)).float().mean(dim=0)
+    p_all = torch.softmax(logits, dim=-1)
+    hot = (row_ids[idx[:, :1]] == torch.arange(E, device=dev)).float()
+    if shlib.sp_active():  # the row's means over each rank's sequence block
+        p_all, hot = _own(p_all, seq), _own(hot, seq)
+        n = shlib.all_sum(torch.tensor(float(p_all.shape[0]), device=dev),
+                          "model")
+        me = shlib.reduce(p_all.sum(dim=0), "model") / n
+        fe = shlib.all_sum(hot.sum(dim=0), "model") / n
+    else:
+        me, fe = p_all.mean(dim=0), hot.mean(dim=0)
     aux = E * (me * fe).sum()
     return y, shlib.reduce(aux, "data") / nd
 
 
+def _expert_axes(cfg) -> Tuple[str, ...]:
+    """The mesh axes the active rules split the experts over (resolved
+    with divisibility, as their leaves are), or ()."""
+    mesh, rules = shlib.active_rules()
+    if mesh is None:
+        return ()
+    return shlib.dim_axes(shlib.spec_for(("experts",), rules, mesh,
+                                         (cfg.num_experts,)), 0)
+
+
+def global_dispatch(cfg, mesh, rules) -> bool:
+    """Whether ``rules`` put the experts over a batch axis with no group
+    limit (``_moe_global``): each rank then serves every token of the
+    global batch, and its expert gradients need no sum over the batch
+    axes (``TrainTP.sync_grads``)."""
+    if not cfg.num_experts or cfg.moe_group_limit > 0:
+        return False
+    held = shlib.dim_axes(shlib.spec_for(("experts",), rules, mesh,
+                                         (cfg.num_experts,)), 0)
+    return bool(set(held) & set(shlib.batch_axes(mesh, rules)))
+
+
 def _mlp_split(params, cfg) -> bool:
-    """Without an EP path on a training mesh, this rank must hold every
-    expert; True if it holds a ``model`` block of their hidden width (the
-    combine is then a sum over ``model``)."""
+    """Without an expert-parallel path on a training mesh, this rank
+    holds every expert; True if it holds a ``model`` block of their
+    hidden width (the combine is then a sum over ``model``)."""
     w1 = params["w1"]
     if tuple(w1.shape[:2]) != (cfg.num_experts, cfg.d_model):
         raise NotImplementedError(
             f"{cfg.name}: experts held as {tuple(w1.shape)} of "
             f"{(cfg.num_experts, cfg.d_model, cfg.moe_d_ff)} with no "
-            f"expert-parallel path (routed EP needs experts over 'model' "
-            f"dividing {cfg.num_experts}; experts over (data, model) need "
-            f"moe_group_limit > 0; ROADMAP, Queue A item 4)")
+            f"expert-parallel path (ROADMAP, Queue A item 4)")
     return w1.shape[-1] != cfg.moe_d_ff
+
+
+def _moe_global(params, x: torch.Tensor, gate: torch.Tensor,
+                idx: torch.Tensor, cfg, chunk_tokens: int,
+                held: Tuple[str, ...]) -> torch.Tensor:
+    """Experts over ``held`` (batch axes among them) without a group
+    limit: the single device's dispatch of the global token stream, in
+    chunks of ``chunk_tokens`` of it (the reference's ``scan``), each
+    with the capacity of its global token count.
+
+    Each chunk's tokens, gates and ids are gathered over the batch axes
+    (``exchange_in``: every rank holds the chunk), dispatched to this
+    rank's experts only (``_dispatch_combine_local`` at the global
+    capacity), and the partial outputs summed over the expert axes but
+    ``model`` (``exchange_out``, this row's rows kept).  Returns the
+    partial sums over ``model`` of this rank's rows ``[B, S, D]`` (whole,
+    when ``model`` does not split the experts)."""
+    mesh, rules = shlib.active_rules()
+    B, S, D = x.shape
+    k = cfg.experts_per_token
+    owners = shlib.batch_axes(mesh, rules)
+    nb = mesh.extent(owners) if owners else 1
+    rb = mesh.coord(owners) if owners else 0
+    e_loc = cfg.num_experts // mesh.extent(held)
+    e0 = mesh.coord(held) * e_loc
+    summers = tuple(a for a in held if a != "model")
+    split = "model" in held
+    T_loc = B * S
+    T = T_loc * nb  # the global stream: data row rb holds [rb T_loc, ...)
+    chunk = min(chunk_tokens, T)
+    if T % chunk != 0:
+        chunk = T  # smoke shapes: do it in one piece
+    xt = x.reshape(T_loc, D)
+    if split:
+        xt, gate = shlib.block_in(xt), shlib.block_in(gate)
+    # gates and expert ids travel together in fp32 (ids < 2^24: exact)
+    gi = torch.cat([gate.float(), idx.to(torch.float32)], dim=-1)
+    lo, hi = rb * T_loc, (rb + 1) * T_loc
+    eparams = _expert_params(params)
+    outs = []
+    for c0 in range(0, T, chunk):
+        a, b = max(lo, c0), min(hi, c0 + chunk)
+        a, b = (a, b) if a < b else (c0, c0)  # no rows of this rank in it
+        pos = torch.arange(a - c0, b - c0, device=x.device)
+        xc = shlib.exchange_in(xt[a - lo: b - lo], pos, chunk, owners, summers)
+        gc = shlib.exchange_in(gi[a - lo: b - lo], pos, chunk, owners, summers)
+        yc = _dispatch_combine_local(eparams, xc, gc[:, :k], gc[:, k:].long(),
+                                     cfg, e0, e_loc, cap_experts=cfg.num_experts)
+        outs.append(shlib.exchange_out(yc, pos, summers, owners))
+    return torch.cat(outs).reshape(B, S, D)
 
 
 def moe_forward(
@@ -299,38 +396,45 @@ def _routed(params: Dict, x: torch.Tensor, cfg, chunk_tokens: int = 16_384,
     """The routed experts of ``moe_forward``: ``(y [B,S,D], aux)``."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
+    mesh, rules = shlib.active_rules()
 
     ep2d = _ep2d_info(cfg)
     if ep2d is not None:
-        mesh, nd, nm = ep2d
-        y, aux = _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux)
-        return y.reshape(B, S, D), aux
+        _, nd, nm = ep2d
+        y, aux = _moe_grouped_ep2d(params, xt, cfg, mesh, nd, nm, want_aux,
+                                   seq=(B, S))
+        return shlib.block_out(y.reshape(B, S, D)), aux
 
-    gate, idx, aux = _route(params, xt, cfg, want_aux)
+    gate, idx, aux = _route(params, xt, cfg, want_aux, seq=(B, S))
+    held = _expert_axes(cfg)
+    if mesh is not None and global_dispatch(cfg, mesh, rules):
+        y = _moe_global(params, x, gate, idx, cfg, chunk_tokens, held)
+        return shlib.block_out(y, partial="model" in held), aux
 
     T = B * S
     ep = _ep_shard_info(cfg)
-    mesh, rules = shlib.active_rules()
     # chunks of the global token stream, each split over the data ranks
     n_rows = mesh.extent(shlib.batch_axes(mesh, rules)) if mesh is not None else 1
     chunk = min(chunk_tokens, T * n_rows)
     if (T * n_rows) % chunk != 0:
         chunk = T * n_rows  # smoke shapes: do it in one piece
     chunk //= n_rows
+    partial = ep is not None or (mesh is not None and _mlp_split(params, cfg))
     if ep is not None:
         def piece(xc, gc, ic):
             return _moe_routed_ep(params, xc, gc, ic, cfg, *ep)
-    elif mesh is not None and _mlp_split(params, cfg):
+    elif partial:
         def piece(xc, gc, ic):
-            return shlib.reduce(_dispatch_combine(
-                params, shlib.enter(xc, "model"), shlib.enter(gc, "model"),
-                ic, cfg), "model")
+            return _dispatch_combine(params, shlib.block_in(xc),
+                                     shlib.block_in(gc), ic, cfg)
     else:
         def piece(xc, gc, ic):
             return _dispatch_combine(params, xc, gc, ic, cfg)
     y = torch.cat([piece(xt[i : i + chunk], gate[i : i + chunk],
                          idx[i : i + chunk])
                    for i in range(0, T, chunk)]).reshape(B, S, D)
+    if mesh is not None:
+        y = shlib.block_out(y, partial)
     return y, aux
 
 

@@ -15,6 +15,15 @@ activation) and a GeLU gate branch, per the RecurrentGemma recurrent
 block.  The cache holds the fp32 ``h`` [B, W] and the last
 ``conv_width - 1`` **pre-conv** inputs; ``rglru_decode`` writes both in
 place.
+
+Split over ``model`` (the reference's rules: ``lru`` on ``model``), a
+rank holds a contiguous block of the LRU width in every leaf, and the
+block-diagonal gates' blocks of it (whole blocks: the model axis must
+divide ``lru_blocks``).  Everything but the projections is elementwise
+along the width, so the block runs on its columns alone: ``x`` enters
+through ``sharding.block_in`` and the row-split ``w_out``'s partial sums
+leave through ``block_out``.  The cache holds the block's ``h`` and conv
+tail columns.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import activation_fn
 from repro_torch.models.layers.ssm import causal_conv, conv_tail
 from repro_torch.models.param import ParamSpec
@@ -101,12 +111,37 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
     return interleave(ea, oa), interleave(eb, ob)
 
 
+def _split(params, cfg) -> bool:
+    """Whether this rank holds a ``model`` block of the LRU width; refuses
+    a split that cuts through the gates' blocks."""
+    W = params["w_x"].shape[1]
+    if not shlib.model_split(W, cfg.lru_width):
+        return False
+    nb, wb, _ = params["w_a"].shape
+    if nb * wb != W:
+        raise NotImplementedError(
+            f"{cfg.name}: the RG-LRU width is split over 'model' but its "
+            f"{min(getattr(cfg, 'lru_blocks', 16), cfg.lru_width)} gate "
+            f"blocks are not divisible by the axis (ROADMAP, Queue A item 4)")
+    return True
+
+
+def _out(params, y, split: bool):
+    out = y @ params["w_out"]
+    if shlib.active_rules()[0] is None:
+        return out
+    return shlib.block_out(out, split)
+
+
 def rglru_forward(params: Dict, x: torch.Tensor, cfg, init_h=None
                   ) -> Tuple[torch.Tensor, Dict]:
     """x: [B,S,D] -> (y [B,S,D], cache material ``{h [B,W] fp32, conv
-    [B,W-1,W]}``).  ``init_h`` is folded into the first step:
-    ``b_0 += a_0 * init_h``."""
+    [B,W-1,W]}``; split over ``model``: this rank's columns of both).
+    ``init_h`` is folded into the first step: ``b_0 += a_0 * init_h``."""
     gelu = activation_fn("gelu")  # tanh approximation, as the reference
+    split = _split(params, cfg)
+    if split:
+        x = shlib.block_in(x)
     xb = x @ params["w_x"]
     yb = gelu(x @ params["w_y"])
     tail = conv_tail(xb, cfg.conv_width)
@@ -118,7 +153,7 @@ def rglru_forward(params: Dict, x: torch.Tensor, cfg, init_h=None
         b[:, 0] = b[:, 0] + a[:, 0] * init_h.to(torch.float32)
     _, h = associative_scan(a, b)
     y = h.to(x.dtype) * yb
-    return y @ params["w_out"], {"h": h[:, -1], "conv": tail}
+    return _out(params, y, split), {"h": h[:, -1], "conv": tail}
 
 
 def rglru_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
@@ -135,6 +170,9 @@ def rglru_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
     """Single-step recurrence. x: [B,1,D].  The cache's ``h`` and ``conv``
     are advanced **in place** (see ``ssm.ssm_decode``)."""
     gelu = activation_fn("gelu")
+    split = _split(params, cfg)
+    if split:
+        x = shlib.block_in(x)
     xb_new = x @ params["w_x"]  # [B,1,W]
     yb = gelu(x @ params["w_y"])
     win = torch.cat([cache["conv"].to(x.dtype), xb_new], dim=1)
@@ -142,7 +180,7 @@ def rglru_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
     a, b = _gates(params, xb)  # [B,1,W]
     h = a[:, 0] * cache["h"].to(torch.float32) + b[:, 0]  # [B,W]
     y = h[:, None].to(x.dtype) * yb
-    out = y @ params["w_out"]
+    out = _out(params, y, split)
     cache["h"].copy_(h)
     cache["conv"].copy_(win[:, 1:])
     return out, cache

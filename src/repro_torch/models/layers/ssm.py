@@ -12,6 +12,18 @@ a causal depthwise conv (SiLU after it) runs over [x | B | C], heads of
 size P share B/C within ``ssm_ngroups`` groups.  The cache holds the
 fp32 state ``[B, H, P, N]`` and the last ``conv_width - 1`` **pre-conv**
 inputs; ``ssm_decode`` writes both in place.
+
+Split over ``model`` (the reference's rules: ``ssm_inner`` and
+``ssm_heads`` on ``model``), each rank holds a contiguous block of
+every leaf, so its bytes are the reference's: a block of ``w_in``'s
+packed ``[z | x | B | C | dt]`` columns, which is not its heads' slice.
+So each rank gathers the projection (``_Local``), takes its heads'
+``z``, ``x`` and ``dt`` and the shared ``B`` / ``C``, runs the conv over
+those columns only (with the gathered ``conv_w``) and the SSD over its
+heads, takes the gated norm's mean square over the whole ``d_in`` (one
+all-reduce of the partial sums of squares) and hands the row-split
+``w_out``'s partial sums to ``sharding.block_out``.  The cache holds its
+heads' states and its block of the conv tail's columns.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import rms_normalize
 from repro_torch.models.param import ParamSpec
 
@@ -150,36 +163,127 @@ def ssd_chunked(xh, dt, A, Bv, Cv, init_state, chunk: int):
     return y, carry
 
 
-def _gated_out(params, y, z, x):
-    """Gated RMSNorm (mamba2): norm(y * silu(z)) * scale, then out-proj."""
-    y = rms_normalize(y * F.silu(z)) * params["norm"].to(x.dtype)
-    return y @ params["w_out"]
+class _Local:
+    """This rank's share of a Mamba-2 mixer: its heads ``[h0, h0 + H)``
+    of ``H_all``, their groups, and the collectives of the split (all
+    identities when the mixer is whole)."""
+
+    def __init__(self, params, cfg):
+        d_in, H, P, G, N, conv_dim = _dims(cfg)
+        h_loc = params["a_log"].shape[0]
+        self.split = shlib.model_split(h_loc, H)
+        self.n, self.r = 1, 0
+        if self.split:
+            mesh, _ = shlib.active_rules()
+            self.n, self.r = mesh.extent("model"), mesh.coord("model")
+            width = 2 * d_in + 2 * G * N + H
+            want = {"w_in": (params["w_in"].shape[1], width),
+                    "conv_w": (params["conv_w"].shape[1], conv_dim),
+                    "norm": (params["norm"].shape[0], d_in),
+                    "w_out": (params["w_out"].shape[0], d_in)}
+            bad = {k: v for k, v in want.items() if v[0] * self.n != v[1]}
+            hpg = H // G
+            if bad or (G > 1 and h_loc % hpg):
+                raise NotImplementedError(
+                    f"{cfg.name}: the SSM mixer's heads split over 'model' "
+                    f"({self.n}) but not {sorted(bad) or 'its groups'}: every "
+                    f"leaf's split must divide (ROADMAP, Queue A item 4)")
+        self.H, self.h0 = h_loc, self.r * h_loc
+        hpg = H // G
+        self.g0 = self.h0 // hpg
+        self.G = max(1, h_loc // hpg)
+        self.cfg = cfg
+
+    def cols(self, device) -> torch.Tensor:
+        """This rank's columns of the conv's ``[x | B | C]``: its heads'
+        ``x`` and its groups' ``B`` and ``C``."""
+        d_in, H, P, G, N, _ = _dims(self.cfg)
+        x = torch.arange(self.h0 * P, (self.h0 + self.H) * P)
+        gb = torch.arange(self.g0 * N, (self.g0 + self.G) * N)
+        return torch.cat([x, d_in + gb, d_in + G * N + gb]).to(device)
+
+    def whole(self, t: torch.Tensor, d: int, full: int) -> torch.Tensor:
+        """``t``'s dimension ``d`` gathered over ``model`` where it holds a
+        block of ``full`` (the backward keeps the block of the summed
+        gradient)."""
+        if t.shape[d] == full:
+            return t
+        return shlib.gather([t], [d], "model")[0]
+
+
+def _gated_out(params, y, z, x, loc: "_Local" = None):
+    """Gated RMSNorm (mamba2): norm(y * silu(z)) * scale, then out-proj;
+    split over ``model``, the mean square is over the whole ``d_in``
+    (the ranks' sums of squares all-reduced) and the out-projection's
+    partial sums go to ``sharding.block_out``."""
+    if loc is None or not loc.split:
+        y = rms_normalize(y * F.silu(z)) * params["norm"].to(x.dtype)
+        out = y @ params["w_out"]
+        return out if loc is None or shlib.active_rules()[0] is None \
+            else shlib.block_out(out, False)
+    v = y * F.silu(z)
+    vf = v.float()
+    ss = shlib.enter(shlib.reduce(vf.square().sum(dim=-1, keepdim=True),
+                                  "model"), "model")
+    ms = ss / (vf.shape[-1] * loc.n)
+    y = (vf * torch.rsqrt(ms + 1e-6)).to(v.dtype) * params["norm"].to(x.dtype)
+    return shlib.block_out(y @ params["w_out"])
+
+
+def _heads_proj(params, x: torch.Tensor, cfg, loc: "_Local"):
+    """x -> (z, x [B,S,H_loc*P], B, C [B,S,G_loc*N], dt [B,S,H_loc]) of this
+    rank's heads and groups, and the whole ``[x | B | C]`` (pre-conv)."""
+    d_in, H, P, G, N, _ = _dims(cfg)
+    if loc.split:
+        x = shlib.block_in(x)
+    width = 2 * d_in + 2 * G * N + H
+    proj = loc.whole(x @ params["w_in"], x.dim() - 1, width)
+    z, xc, Bv, Cv, dt = _split_proj(proj, cfg)
+    xbc = torch.cat([xc, Bv, Cv], dim=-1)
+    if not loc.split:
+        return z, xbc, dt, xbc
+    hs = slice(loc.h0 * P, (loc.h0 + loc.H) * P)
+    sel = xbc.index_select(-1, loc.cols(x.device))
+    return z[..., hs], sel, dt[..., loc.h0: loc.h0 + loc.H], xbc
+
+
+def _conv_params(params, cfg, loc: "_Local"):
+    """``conv_w`` / ``conv_b`` of this rank's conv columns."""
+    *_, conv_dim = _dims(cfg)
+    if not loc.split:
+        return params["conv_w"], params["conv_b"]
+    w = loc.whole(params["conv_w"], 1, conv_dim)
+    b = loc.whole(params["conv_b"], 0, conv_dim)
+    cols = loc.cols(w.device)
+    return w.index_select(1, cols), b.index_select(0, cols)
 
 
 def ssm_forward(params: Dict, x: torch.Tensor, cfg, init_state=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence Mamba-2 mixer. x: [B,S,D] -> (y [B,S,D], cache
-    material ``{state [B,H,P,N] fp32, conv [B,W-1,conv_dim]}``)."""
+    material ``{state [B,H,P,N] fp32, conv [B,W-1,conv_dim]}``; split over
+    ``model``: this rank's heads' states and the whole conv tail)."""
     B, S, D = x.shape
     d_in, H, P, G, N, conv_dim = _dims(cfg)
-    proj = x @ params["w_in"]
-    z, xc, Bv, Cv, dt = _split_proj(proj, cfg)
-    xbc = torch.cat([xc, Bv, Cv], dim=-1)
-    tail = conv_tail(xbc, cfg.conv_width)
-    xbc = F.silu(causal_conv(xbc, params["conv_w"], params["conv_b"]))
-    xc = xbc[..., :d_in].reshape(B, S, H, P)
-    Bv = xbc[..., d_in : d_in + G * N].reshape(B, S, G, N)
-    Cv = xbc[..., d_in + G * N :].reshape(B, S, G, N)
+    loc = _Local(params, cfg)
+    z, xbc, dt, pre = _heads_proj(params, x, cfg, loc)
+    tail = conv_tail(pre, cfg.conv_width)
+    cw, cb = _conv_params(params, cfg, loc)
+    xbc = F.silu(causal_conv(xbc, cw, cb))
+    h_in, g_n = loc.H * P, loc.G * N
+    xc = xbc[..., :h_in].reshape(B, S, loc.H, P)
+    Bv = xbc[..., h_in : h_in + g_n].reshape(B, S, loc.G, N)
+    Cv = xbc[..., h_in + g_n :].reshape(B, S, loc.G, N)
 
     f32 = torch.float32
     dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))
     A = -torch.exp(params["a_log"].to(f32))
     if init_state is None:
-        init_state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+        init_state = torch.zeros((B, loc.H, P, N), dtype=f32, device=x.device)
     y, state = ssd_chunked(xc, dt, A, Bv, Cv, init_state, cfg.ssm_chunk)
     y = y + xc.to(f32) * params["d_skip"].to(f32)[:, None]
-    y = y.reshape(B, S, d_in).to(x.dtype)
-    return _gated_out(params, y, z, x), {"state": state, "conv": tail}
+    y = y.reshape(B, S, h_in).to(x.dtype)
+    return _gated_out(params, y, z, x, loc), {"state": state, "conv": tail}
 
 
 def ssm_cache_specs(cfg, batch: int) -> Dict[str, ParamSpec]:
@@ -201,21 +305,28 @@ def ssm_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
     them in between (``evaluate.classification_sim``)."""
     B = x.shape[0]
     d_in, H, P, G, N, conv_dim = _dims(cfg)
-    proj = x @ params["w_in"]
-    z, xc, Bv, Cv, dt = _split_proj(proj, cfg)
-    xbc_new = torch.cat([xc, Bv, Cv], dim=-1)  # [B,1,conv_dim]
+    loc = _Local(params, cfg)
+    z, _, dt, xbc_new = _heads_proj(params, x, cfg, loc)  # [B,1,conv_dim]
 
-    # conv window: cache["conv"] holds the previous W-1 inputs
-    win = torch.cat([cache["conv"].to(x.dtype), xbc_new], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", win, params["conv_w"]) + params["conv_b"]
-    xbc = F.silu(conv_out)[:, None]  # [B,1,conv_dim]
+    # conv window: cache["conv"] holds the previous W-1 inputs (split:
+    # this rank's block of their columns)
+    tail = loc.whole(cache["conv"], 2, conv_dim)
+    win = torch.cat([tail.to(x.dtype), xbc_new], dim=1)
+    cw, cb = _conv_params(params, cfg, loc)
+    if loc.split:
+        win_sel = win.index_select(-1, loc.cols(x.device))
+    else:
+        win_sel = win
+    conv_out = torch.einsum("bwc,wc->bc", win_sel, cw) + cb
+    xbc = F.silu(conv_out)[:, None]  # [B,1,H_loc*P + 2*G_loc*N]
 
-    xh = xbc[..., :d_in].reshape(B, H, P)
-    Bv = xbc[..., d_in : d_in + G * N].reshape(B, G, N)
-    Cv = xbc[..., d_in + G * N :].reshape(B, G, N)
-    hpg = H // G
-    Bh = Bv[:, :, None].expand(B, G, hpg, N).reshape(B, H, N)
-    Ch = Cv[:, :, None].expand(B, G, hpg, N).reshape(B, H, N)
+    Hl, h_in, g_n, Gl = loc.H, loc.H * P, loc.G * N, loc.G
+    xh = xbc[..., :h_in].reshape(B, Hl, P)
+    Bv = xbc[..., h_in : h_in + g_n].reshape(B, Gl, N)
+    Cv = xbc[..., h_in + g_n :].reshape(B, Gl, N)
+    hpg = Hl // Gl
+    Bh = Bv[:, :, None].expand(B, Gl, hpg, N).reshape(B, Hl, N)
+    Ch = Cv[:, :, None].expand(B, Gl, hpg, N).reshape(B, Hl, N)
 
     f32 = torch.float32
     dt = F.softplus(dt.to(f32)[:, 0] + params["dt_bias"].to(f32))  # [B,H]
@@ -226,8 +337,10 @@ def ssm_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
         + torch.einsum("bhp,bhn->bhpn", dx, Bh.to(f32))
     y = torch.einsum("bhpn,bhn->bhp", state, Ch.to(f32))
     y = y + xh.to(f32) * params["d_skip"].to(f32)[:, None]
-    y = y.reshape(B, 1, d_in).to(x.dtype)
-    out = _gated_out(params, y, z, x)
+    y = y.reshape(B, 1, h_in).to(x.dtype)
+    out = _gated_out(params, y, z, x, loc)
     cache["state"].copy_(state)
-    cache["conv"].copy_(win[:, 1:])
+    w = cache["conv"].shape[2]
+    cache["conv"].copy_(win[:, 1:, loc.r * w:(loc.r + 1) * w]
+                        if loc.split else win[:, 1:])
     return out, cache

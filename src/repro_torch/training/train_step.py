@@ -148,25 +148,34 @@ def build_train_step(
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(flat, gflat)], loss, metrics
 
+    def seq_parallel(mb) -> bool:
+        """Whether the step split this microbatch's sequence over
+        ``model`` (``decoder.loss_fn``)."""
+        if tp is None:
+            return False
+        S = sum(mb[k].shape[1] for k in ("prefix_emb", "tokens") if k in mb)
+        with shlib.axis_rules(mesh, rules):
+            return shlib.sp_wanted(S)
+
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
         flat, rebuild = _flatten(params)
         if accum_steps == 1:
-            g, loss, metrics = grads_of(params, {k: slice_of(v, 0)
-                                                 for k, v in batch.items()})
+            mb = {k: slice_of(v, 0) for k, v in batch.items()}
+            g, loss, metrics = grads_of(params, mb)
         else:
             g = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in flat]
             loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
             for m in range(accum_steps):
-                gm, lm, _ = grads_of(params, {k: slice_of(v, m)
-                                              for k, v in batch.items()})
+                mb = {k: slice_of(v, m) for k, v in batch.items()}
+                gm, lm, _ = grads_of(params, mb)
                 g = [a + b.to(torch.float32) for a, b in zip(g, gm)]
                 loss = loss + lm
             metrics = {}
         grads = rebuild(g)
         if tp is not None:
-            grads = tp.sync_grads(grads)
+            grads = tp.sync_grads(grads, seq_parallel(mb))
         if accum_steps > 1:
             grads = rebuild([x / accum_steps for x in _flatten(grads)[0]])
             loss = loss / accum_steps

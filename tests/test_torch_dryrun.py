@@ -21,8 +21,8 @@ serving cells on a mesh, on the CPU, held against the JAX package.
   the bridged weights within ``TOL``, and each rank's recorded
   collectives equal the dry mesh's record for that rank.
 * The CLI in-process: ``smollm-360m decode_32k --pods 2`` (the
-  reference's own dry-run test cell) is ``ok``; DeepSeek-V3 without a
-  group limit is an ``error`` naming ROADMAP and the exit code says so.
+  reference's own dry-run test cell) is ``ok``, and so is DeepSeek-V3's
+  decode cell without a group limit, its tokens exchanged over ``data``.
 """
 import json
 import math
@@ -215,11 +215,8 @@ def test_cell_blocks_match_the_references_spec_for():
                     a, b = _check_blocks(jcfg, tcfg, sname, dims, axes, rank, j)
                     n += a
                     exc += b
-                    mixers = {d.mixer for d in tdec.layer_descs(tcfg)}
-                    if not mixers & {"ssm", "rec"}:
-                        assert b == 0, arch
     assert n > 4000
-    assert exc > 0  # the SSM / RG-LRU leaves, whole over 'model'
+    assert exc == 0  # the SSM / RG-LRU leaves split as the reference's too
 
 
 # ---------------------------------------------------------------------------
@@ -463,12 +460,15 @@ def test_dryrun_cli_in_process(tmp_path, capsys):
         assert coll["bytes_total"] > 0 and coll["bytes_network"] == coll["bytes_total"]
         r = rec["roofline"]
         assert r["dominant"] == "memory" and r["bound_s"] == r["memory_s"]
+        # DeepSeek-V3's production layout: experts over (data, model), no
+        # group limit
         rc = tdry.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k",
                         "--out", str(tmp_path)])
         out = capsys.readouterr().out
-        assert rc == 1 and "[error" in out and "1 cell(s) failed" in out
+        assert rc == 0 and "[ok" in out, out
         rec = json.loads((tmp_path / "deepseek-v3-671b_decode_32k_p1.json").read_text())
-        assert rec["status"] == "error" and "ROADMAP" in rec["error"]
+        assert rec["status"] == "ok" and rec["collectives"]["bytes_total"] > 0
+        assert {"all-gather", "reduce-scatter"} <= set(rec["collective_summary"])
         rc = tdry.main(["--arch", "hubert-xlarge", "--shape", "decode_32k",
                         "--out", str(tmp_path)])
         assert rc == 0 and "[skipped]" in capsys.readouterr().out

@@ -4,8 +4,8 @@ against the JAX package.
 * ``make_rules``, ``describe``, ``policy_for`` and the training spec
   trees equal the reference's for every arch (full and smoke) and every
   shape of ``configs/shapes.py``, on the pod and two-pod meshes (no
-  spawn).  ``decoder.train_specs`` is that tree with the SSM/RG-LRU
-  mixers whole over ``model``.
+  spawn); ``decoder.train_specs`` is that tree.  ``TrainTP`` takes
+  sequence-parallel rules.
 * One (2, 2) spawn, the reference's ``prog_train_mesh.py`` setup: the
   ``yi-9b`` smoke config at ``d_model=64, d_ff=128``, heads 4/2, vocab
   256, AdamW 1e-2, 3 steps on one batch, FSDP on and off, and tinylm
@@ -18,7 +18,7 @@ against the JAX package.
   Remat's gradients equal the ones without it, also with the backward
   (and its recompute's gathers) on another thread, as on the card.
   Every family with layers of its own (FSDP on; the SSM and RG-LRU
-  mixers whole over ``model``; DeepSeek-V3's MLA and MTP; the VLM's and
+  mixers split over ``model``; DeepSeek-V3's MLA and MTP; the VLM's and
   the encoder's frontends) trains 2 steps with the losses of the port's
   one rank.
   Routed EP (Moonshot smoke) and 2-D EP (``moe_group_limit=1``) on the
@@ -242,18 +242,13 @@ def test_rules_policies_and_spec_trees_match_the_reference():
                                 g = (None,) + _pad(g[0], nd - 1)
                             assert _pad(g, nd) == _pad(w, nd), (arch, dims, path)
                             n_leaves += 1
-                        # train_specs: the same, with the SSM / RG-LRU
-                        # mixers whole over 'model'
+                        # train_specs: the same, the SSM / RG-LRU mixers
+                        # split over 'model' as the reference's rules say
                         ts = tdec.train_specs(tcfg, tm, tp.rules)
                         rs = tshl.tree_specs(tspecs, tm, tp.rules)
                         for li, d in enumerate(tdec.layer_descs(tcfg)):
                             for k, s in ts["layers"][li]["mixer"].items():
-                                r = rs["layers"][li]["mixer"][k]
-                                if d.mixer in ("ssm", "rec"):
-                                    assert s == tdec._drop_model(r)
-                                    assert "model" not in str(s)
-                                else:
-                                    assert s == r
+                                assert s == rs["layers"][li]["mixer"][k]
     assert n_leaves > 1000
 
 
@@ -270,8 +265,9 @@ def test_mesh_shapes_refusals_and_plans():
         tmesh.make_production_mesh(multi_pod=True)
     with pytest.raises(ValueError, match="gloo"):
         tmesh.make_host_mesh((2, 2), backend="nccl", device="cpu")
-    with pytest.raises(ValueError, match="seq_parallel"):
-        TrainTP(_cfg("yi"), m, tshl.make_rules(phase="train", seq_parallel=True))
+    # sequence parallelism: the train step takes the rules (seq on model)
+    sp = TrainTP(_cfg("yi"), m, tshl.make_rules(phase="train", seq_parallel=True))
+    assert sp.rules["seq"] == ("model",) and not sp.global_experts
     x = torch.ones(2, 3)
     with tshl.axis_rules(m, tshl.make_rules(phase="train")):
         assert tshl.constrain(x, ("batch", "embed")) is x
@@ -444,7 +440,7 @@ def _family_losses(mesh=None, steps=2):
 
 
 def _job_families(mesh):
-    with warnings.catch_warnings():  # SSM / RG-LRU mixers whole, drops
+    with warnings.catch_warnings():  # divisibility drops
         warnings.simplefilter("ignore")
         return _family_losses(mesh)
 
