@@ -183,7 +183,14 @@ Phases (any failure raises and the script exits non-zero):
    finite, 4 steps on one fixed batch of 2 x 512 tokens with a finite,
    falling loss, the step's wall, a fifth step's device busy time
    (``torch.profiler``), peak memory, and its bounds: 8 N T bf16
-   operations (remat runs the forward twice) and the optimizer's bytes.
+   operations (remat runs the forward twice) and the optimizer's bytes;
+   (d) the reference's examples (``repro_torch.examples``) on the card
+   from (b)'s model, copied to where ``trained_tiny`` finds it (nothing
+   retrains): ``quickstart`` as ``python -m``, ``serve_batched`` (its
+   streams == the CPU's), ``flocking_analysis --emit-profile`` (the
+   profile within ``EXAMPLE_PROFILE_TOL`` of the CPU's, served by
+   ``launch.serve --tier 0.5 --sparsity-profile``), ``train_lm`` 3 steps
+   into a checkpoint.
 14. tensor-parallel paged serving (``distributed/tp.py``), one process per
    rank (``launch.mesh.run_ranks``), after phase 13's models are freed:
    (a) ``expert_stat_row_sq`` and ``expert_stat_from_norm`` (the
@@ -195,7 +202,8 @@ Phases (any failure raises and the script exits non-zero):
    over the reference's sharded-serving trace: streams equal on every
    rank, to one rank on the card and to the CPU (all with
    ``GriffinConfig(tp_shards=N)``), per-rank pool bytes total / N; (c)
-   one NCCL rank equals the plain server; (d) Yi-9B whole, bf16, TP=2
+   one NCCL rank equals the plain server; (d) Yi-9B at ``TP_YI_LAYERS``
+   of its 48 layers, bf16, TP=2
    over gloo on the card through phase 4's prompts (``TP_YI_NEW`` new
    tokens each) beside one rank with the same selection math: streams equal across ranks, the first
    (dense) prefill chunk's logits and gathered statistics within
@@ -204,7 +212,12 @@ Phases (any failure raises and the script exits non-zero):
    ``TP_LOGIT_TOL`` and the streams equal up to a token whose one-rank
    top-2 margin is within twice that step's gap; per-rank parameter, pool
    and compacted-FF bytes, the match rate and decode tick walls beside
-   phase 4's.
+   phase 4's (prefill chunks of ``TP_YI_CHUNK``); then the same ranks
+   behind the mesh frontend (``serving/relay.py``): rank 0 serves phase
+   8b's four concurrent ``POST /v1/generate`` on a free 127.0.0.1 port
+   and relays each tick to rank 1, each request selecting as in the
+   drain: the SSE streams == the drain's, the ranks' streams, aborts and
+   free pages equal; tick walls, TTFT and peak memory a rank.
 15. sharded training on the ``(data, model)`` training mesh
    (``distributed/tp.py::TrainTP``), one process per rank, all on the
    card over gloo, TF32 off, after phase 14's models are freed; no kernel
@@ -230,7 +243,12 @@ Phases (any failure raises and the script exits non-zero):
    beside one rank: the same, the routed experts held in norm
    (``MESH_ROUTED_GRAD_TOL``) with the routing assignments that moved
    counted, mutants without the dispatch's backward all-reduce and
-   without the combine's sum, expert bytes half a rank.
+   without the combine's sum, expert bytes half a rank; (f) the MoE
+   dispatch over several global chunks with assignments dropped, at
+   Moonshot's full width (``MOE_CHUNKS``): without EP on (c)'s 4 data
+   ranks and routed EP in (a)'s (2, 2) spawn, within ``MOE_CHUNK_TOL``
+   of one rank's ``moe_forward`` at the reference's grouping, which the
+   old per-row grouping must miss.
 16. the dry-run and Yi-9B's serving cells (``launch/cells.py``,
    ``launch/dryrun.py``, ``analysis/``): (a) ``python -m
    repro_torch.launch.dryrun --all`` at one and two pods and DeepSeek-V3
@@ -242,7 +260,8 @@ Phases (any failure raises and the script exits non-zero):
    every supported cell ``ok``
    (DeepSeek-V3's six without a group limit among them;
    ``DRYRUN_NOT_PORTED`` is empty), one line per cell (per-rank bytes,
-   dominant term, bound); (b) Yi-9B whole, bf16, GRIFFIN 0.5, its
+   dominant term, bound); (b) Yi-9B at ``CELL_LAYERS`` of its 48
+   layers, bf16, GRIFFIN 0.5, its
    prefill cell (2 x 4,096, cut from 32 x 32,768) and decode cell (4
    sequences over a 32,768-token cache at pos 32,767, cut from 128, on
    the prefill's compacted FF) at (1, 1), built by ``cells.build_cell``
@@ -297,7 +316,8 @@ the verify call's time and bound, and ``launches_decode`` /
 its numbers at phase 10's widths, ``recurrent_engine``, at phase 11's,
 and ``frontend_engine``, at phase 12's shapes; ``paged_attn`` adds
 ``gemma3_*`` and ``cmdr_*``, its phase 12 shapes, and ``yi9b_tp2_*`` /
-``kv1_*``, phase 14's local head counts; ``expert_stat_row_sq`` and
+``kv1_*``, phase 14's local head counts, and ``yi9b_one_prefill128``,
+14d's one rank at its prefill chunk; ``expert_stat_row_sq`` and
 ``expert_stat_from_norm`` list all of 14a's shapes under ``cases``); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -310,9 +330,11 @@ import atexit
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -3007,6 +3029,88 @@ def phase_train_tinylm(torch, np, dev, tmp: Path):
                 generation_ppl=ppl)
 
 
+#: 13d: the profile the flocking example derives on the card against the
+#: CPU's (fp32, TF32 off), weight by weight
+EXAMPLE_PROFILE_TOL = 1e-5
+
+
+def phase_examples(torch, np, dev, tmp: Path):
+    """13d: the four examples (``repro_torch.examples``) on the card from
+    13b's trained tinylm, its checkpoint copied to where
+    ``common.trained_tiny`` finds it (training there fails the phase):
+    ``quickstart`` as ``python -m`` in a process of its own, the others
+    through their ``main``; ``serve_batched``'s streams equal the CPU's,
+    the profile ``flocking_analysis --emit-profile`` derives is within
+    ``EXAMPLE_PROFILE_TOL`` of the CPU's and ``launch.serve --tier 0.5
+    --sparsity-profile`` serves it, ``train_lm`` runs 3 steps into a
+    checkpoint.  Returns the launches on the card and the numbers."""
+    from repro_torch.core.griffin import SparsityProfile
+    from repro_torch.examples import common, flocking_analysis, serve_batched, train_lm
+    from repro_torch.launch import serve
+
+    saved = common.ARTIFACTS, common.train
+
+    def no_training(*a, **kw):
+        raise AssertionError("13d: trained_tiny trained instead of loading 13b's model")
+
+    common.ARTIFACTS, common.train = tmp / "artifacts", no_training
+    res, out = {}, io.StringIO()
+    try:
+        cache = common.ckpt_dir("tinylm", TINY_RECIPE["steps"])
+        shutil.copytree(tmp / "full", cache)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.quickstart"], cwd=tmp,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0 and "token agreement" in proc.stdout,
+              f"13d quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
+        check(" loss " not in proc.stdout, "13d quickstart trained instead of "
+              f"loading 13b's model: {proc.stdout[:500]}")
+        res["quickstart"] = [ln for ln in proc.stdout.splitlines() if "agreement" in ln]
+        res["quickstart_s"] = round(time.perf_counter() - t0, 1)
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            card = serve_batched.main([])
+            fl = flocking_analysis.main(["--emit-profile", str(tmp / "profile_card.json")])
+            streams = serve.main(["--arch", "tinylm", "--requests", "2", "--tier", "0.5",
+                                  "--sparsity-profile", str(tmp / "profile_card.json"),
+                                  "--ckpt-dir", str(cache)])
+            tl = train_lm.main(["--steps", "3", "--ckpt-dir", str(tmp / "train_lm")])
+        counts = launches()
+        res["card_s"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            host = serve_batched.main(["--device", "cpu"])
+            flocking_analysis.main(["--device", "cpu", "--emit-profile",
+                                    str(tmp / "profile_cpu.json")])
+        res["cpu_s"] = round(time.perf_counter() - t0, 1)
+    finally:
+        common.ARTIFACTS, common.train = saved
+    text = out.getvalue().splitlines()
+    check(card == host, "13d serve_batched: card streams != the CPU's")
+    a = SparsityProfile.load(tmp / "profile_card.json").weights
+    b = SparsityProfile.load(tmp / "profile_cpu.json").weights
+    check([p for p, _ in a] == [p for p, _ in b], f"13d profile paths {a} vs {b}")
+    gap = max(abs(x - y) for (_, u), (_, v) in zip(a, b) for x, y in zip(u, v))
+    check(gap <= EXAMPLE_PROFILE_TOL, f"13d profile card vs CPU: {gap}")
+    check(sorted(streams) == [0, 1] and all(streams.values()), f"13d served {streams}")
+    check(tl.steps_done == 3 and all(np.isfinite(tl.losses))
+          and (tmp / "train_lm").is_dir(), f"13d train_lm: {tl.steps_done} steps")
+    check(counts["paged_attn"] > 0 and counts["expert_stat"] > 0,
+          f"13d launches {counts}")
+    res.update(
+        serve_batched=[ln for ln in text if "served 10 requests" in ln or "ttft" in ln],
+        serve_batched_tokens=sum(len(v) for v in card.values()),
+        flocking_layer_scores=[[round(x, 3) for x in sc] for sc in fl["scores"]],
+        flocking_intra_inter=(round(fl["intra"], 3), round(fl["inter"], 3)),
+        profile_card_vs_cpu=gap,
+        served_profile=[ln for ln in text if "[profile]" in ln or "paged: served" in ln],
+        train_lm_losses=[round(x, 4) for x in tl.losses])
+    return counts, res
+
+
 def phase_train_yi9b(torch, np, dev):
     """13c: Yi-9B whole (bf16, ``remat`` as its config has it), 8-bit Adam,
     ``accum_steps=1``: ``abstract_train_state``'s bytes, then
@@ -3127,11 +3231,27 @@ TP_TINY_NEW = 10
 #: (prefill) and 3.2% (decode) of max |logit|, 7.2% for the statistics;
 #: a missing or doubled all-reduce 104-122% and 150-168%, which the phase
 #: checks each run (``yi_tp_mutants``).
-#: 14d's new tokens a request (phase 4's 32 cut: ranks over gloo step
-#: ~7x slower than one rank)
-TP_YI_NEW = 16
+#: 14d's new tokens a request and prefill chunk (phase 4's 32 and 32,
+#: cut for the script's time: ranks over gloo step ~7x slower than one
+#: rank, and 14d's ranks also serve the mesh frontend; 14a checks
+#: ``paged_attn`` at the 128-token chunk, local and full heads)
+TP_YI_NEW = 8
+TP_YI_CHUNK = 128
+#: 14d's depth: 16 of Yi-9B's 48 layers, for the script's time (every
+#: layer costs the ranks two all-reduces over gloo); at 16 a rank still
+#: holds under 0.6 of one rank's parameter bytes (the embeddings are
+#: whole on each rank)
+TP_YI_LAYERS = 16
 TP_LOGIT_TOL = 0.10
 TP_STAT_TOL = 0.20
+
+
+def tp_yi_cfg(arch: str):
+    """14d's config: ``arch`` at ``TP_YI_LAYERS`` layers at most."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=min(cfg.num_layers, TP_YI_LAYERS))
 
 
 def tp_counts(counts):
@@ -3147,8 +3267,9 @@ def phase_tp_kernels(torch, dev, flush):
     the composed path (F cut in 2 blocks, both steps, row norms added on
     one rank) against the single launch at full F.  ``paged_attn`` at
     the local head counts: Yi-9B TP=2 (16 Q / 2 KV heads) decode and
-    prefill, and 1 KV head (2 Q, hd 32: tinylm-tp's TP=4 split at a head
-    dim the kernel takes)."""
+    prefill (32-token and 14d's ``TP_YI_CHUNK``-token chunks), Yi-9B's
+    full heads at 14d's chunk (its one rank), and 1 KV head (2 Q, hd 32:
+    tinylm-tp's TP=4 split at a head dim the kernel takes)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -3206,6 +3327,10 @@ def phase_tp_kernels(torch, dev, flush):
     for label, B, S, lens, shape in (
             ("yi9b_tp2_decode", 2, 1, [583, 431], dict(H=16, KV=2, hd=128, page=16, W=40)),
             ("yi9b_tp2_prefill", 1, 32, [448], dict(H=16, KV=2, hd=128, page=16, W=40)),
+            ("yi9b_tp2_prefill128", 1, TP_YI_CHUNK, [448],
+             dict(H=16, KV=2, hd=128, page=16, W=40)),
+            ("yi9b_one_prefill128", 1, TP_YI_CHUNK, [448],
+             dict(H=32, KV=4, hd=128, page=16, W=40)),
             ("kv1_decode", 3, 1, [43, 28, 9], dict(H=2, KV=1, hd=32, page=8, W=8)),
             ("kv1_prefill", 1, 16, [32], dict(H=2, KV=1, hd=32, page=8, W=8))):
         pool_dtype = torch.bfloat16 if label.startswith("yi") else torch.float32
@@ -3448,13 +3573,15 @@ def capture_first_prefill(torch, srv):
     return first
 
 
-def selection_stats(torch, srv, given=None):
+def selection_stats(torch, srv, given=None, key=None):
     """Wrap ``srv.sched.finish_prefill_chunk``, which runs just before a
     request's selection: with ``given`` None, record each request's
     accumulated statistic (rid -> numpy tree, returned); else replace it
-    by ``given[rid]``, so that the server selects what another one did."""
+    by ``given[key(req)]`` (default key: the rid), so that the server
+    selects what another one did."""
     got = {}
     finish = srv.sched.finish_prefill_chunk
+    key = key or (lambda req: req.rid)
 
     def fin(work, first_token):
         req = work.req
@@ -3463,7 +3590,7 @@ def selection_stats(torch, srv, given=None):
                 got[req.rid] = tree_np(req.s_sq_acc)
             else:
                 req.s_sq_acc = {li: {k: torch.as_tensor(
-                    given[req.rid][li][k], device=v.device).to(v.dtype)
+                    given[key(req)][li][k], device=v.device).to(v.dtype)
                     for k, v in st.items()} for li, st in req.s_sq_acc.items()}
                 got[req.rid] = True
         return finish(work, first_token)
@@ -3489,7 +3616,7 @@ def yi_tp_rank(mesh, arch, prompts, kw, gcfg, given):
     from repro_torch.serving.server import PagedServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(arch)
+    cfg = tp_yi_cfg(arch)
     on_card = mesh.device.type == "cuda"  # a CPU rehearsal has no card
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3509,12 +3636,124 @@ def yi_tp_rank(mesh, arch, prompts, kw, gcfg, given):
     wall, ticks, compacted = drain_timed(torch, srv)
     out = {rid: r.generated for rid, r in srv.sched.finished.items()}
     m = srv.metrics.summary()
-    return dict(streams=out, prefill=prefill, first=first, injected=sorted(injected),
-                wall_s=wall, init_s=init_s,
-                decode_ticks=ticks, param_bytes=tree_bytes(srv.params),
-                pool_bytes=pool_shard_bytes(srv.pools), compacted_bytes=compacted,
-                peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
-                tokens_per_s=m["tokens_per_sec"], ttft_p50_s=m["ttft_p50_s"])
+    res = dict(streams=out, prefill=prefill, first=first, injected=sorted(injected),
+               wall_s=wall, init_s=init_s,
+               decode_ticks=ticks, param_bytes=tree_bytes(srv.params),
+               pool_bytes=pool_shard_bytes(srv.pools), compacted_bytes=compacted,
+               peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
+               tokens_per_s=m["tokens_per_sec"], ttft_p50_s=m["ttft_p50_s"])
+    params = srv.params
+    del srv
+    res["frontend"] = tp_frontend_session(torch, np, mesh, cfg, params, gcfg, kw,
+                                          prompts, given)
+    return res
+
+
+#: 14d's mesh frontend: phase 8b's classes for phase 4's prompts
+TP_FE_SLOS = ("interactive", "batch", "interactive", "batch")
+
+
+def tp_frontend_session(torch, np, mesh, cfg, params, gcfg, kw, prompts, given):
+    """14d's mesh frontend (in a spawned rank, after the held drain): rank
+    0 serves phase 8b's four concurrent ``POST /v1/generate`` (phase 4's
+    prompts, ``TP_YI_NEW`` new tokens, two interactive and two batch)
+    through ``ServingFrontend.serve_http`` over a ``relay.MeshLeader`` on a
+    free 127.0.0.1 port; rank 1 replays them (``relay.follow``).  Each
+    request selects from ``given`` of its prompt, as the held drain did.
+    Returns the session's outcome (``relay.outcome``), rank 0's SSE token
+    streams by prompt index and TTFTs, each rank's tick walls (on rank 0
+    the leader's step: its control broadcast, then its server's step; on
+    a follower its server's step), all and decode-only (classified as
+    ``drain_timed`` does), rank 0's broadcast walls and each rank's peak
+    bytes."""
+    import asyncio
+
+    from repro_torch.serving import relay
+    from repro_torch.serving.frontend import FINISHED, ServingFrontend
+    from repro_torch.serving.server import PagedServer
+
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    srv = PagedServer(cfg, params, gcfg, mesh=mesh, **kw)
+    index = {np.asarray(p).tobytes(): i for i, (p, _) in enumerate(prompts)}
+    selection_stats(torch, srv, given,
+                    key=lambda req: index[np.asarray(req.prompt).tobytes()])
+    ticks, sends = [], []  # (wall, decode-only) a tick; a broadcast's wall
+
+    def timed_tick(step):
+        def tick():
+            before = launches()
+            t0 = time.perf_counter()
+            more = step()
+            if on_card:
+                torch.cuda.synchronize()
+            w = time.perf_counter() - t0
+            k = attn_kinds({n: v - before[n] for n, v in launches().items()})
+            ticks.append((w, k["decode"] and not k["prefill"] and not k["verify"]))
+            return more
+        return tick
+
+    ch = relay.ControlChannel()
+    send = ch.send
+
+    def timed_send(msg):
+        t0 = time.perf_counter()
+        send(msg)
+        sends.append(time.perf_counter() - t0)
+
+    ch.send = timed_send
+    out = dict(sse=None, ttft_p50_s=None, ttft_p99_s=None)
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        leader = relay.MeshLeader(srv, ch)
+        leader.step = timed_tick(leader.step)
+        fe = ServingFrontend(leader)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        bodies = [http_post("/v1/generate", {
+            "prompt": np.asarray(p).tolist(), "max_new": n, "slo": slo,
+            "deadline_s": FRONTEND_DEADLINE_S})
+            for (p, n), slo in zip(prompts, TP_FE_SLOS)]
+
+        async def run():
+            serving = asyncio.ensure_future(fe.serve_http("127.0.0.1", port))
+            while not fe._running:
+                await asyncio.sleep(0.01)
+            try:
+                return await asyncio.gather(*(http_call(asyncio, port, b)
+                                              for b in bodies))
+            finally:
+                fe.stop()
+                await serving
+
+        raws = asyncio.run(run())
+        leader.stop()
+        sse = {}
+        for raw in raws:
+            status, frames = parse_sse(raw)
+            check(status == "HTTP/1.1 200 OK" and frames[0][0] == "accepted"
+                  and frames[-1][0] == "done", f"14d SSE: {raw[:300]}")
+            h = fe.handles[frames[0][1]["rid"]]
+            check(h.state == FINISHED, f"14d SSE rid {h.rid}: {h.state}")
+            sse[index[np.asarray(h.prompt).tobytes()]] = \
+                [d["token"] for _, d in frames[1:-1]]
+        s = fe.summary()
+        out.update(sse=sse, ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"])
+    else:
+        srv.step = timed_tick(srv.step)
+        relay.follow(srv, ch)
+    p50 = lambda xs: statistics.median(xs) * 1e3 if xs else None  # noqa: E731
+    out.update(outcome=relay.outcome(srv), wall_s=time.perf_counter() - t0,
+               tick_wall_ms_p50=p50([w for w, _ in ticks]),
+               decode_tick_wall_ms_p50=p50([w for w, d in ticks if d]),
+               ticks=len(ticks), decode_ticks=sum(d for _, d in ticks),
+               broadcast_ms_p50=p50(sends),
+               broadcast_ms_max=max(sends) * 1e3 if sends else None,
+               messages=ch.messages,
+               peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0)
+    return out
 
 
 def yi_tp_mutants(mesh, arch, prompts, kw, gcfg):
@@ -3530,7 +3769,7 @@ def yi_tp_mutants(mesh, arch, prompts, kw, gcfg):
     from repro_torch.serving.server import PagedServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(arch)
+    cfg = tp_yi_cfg(arch)
     params = PagedTP(cfg, mesh).init_params(seed=0)
     real, out = dist.all_reduce, {}
     for mode in ("missing", "doubled"):
@@ -3591,7 +3830,7 @@ def stat_gap(np, a, b):
 
 
 def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
-    """14d: Yi-9B whole, bf16, GRIFFIN 0.5, TP=2 with both ranks on the
+    """14d: Yi-9B at ``TP_YI_LAYERS`` layers, bf16, GRIFFIN 0.5, TP=2 with both ranks on the
     card (gloo), over phase 4's prompts (``TP_YI_NEW`` new tokens each),
     beside one rank with the same
     selection math (``GriffinConfig(tp_shards=2)``) on the same backend;
@@ -3607,12 +3846,12 @@ def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
     from repro_torch.models import decoder
     from repro_torch.serving.server import PagedServer
 
-    cfg = get_config(arch)
+    cfg = tp_yi_cfg(arch)
     rng = np.random.default_rng(1)  # phase 4's prompts
     prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), TP_YI_NEW)
                for n in YI_PROMPT_LENS]
     gcfg = GriffinConfig(sparsity=0.5, per_shard_topk=True, tp_shards=2)
-    kw = dict(page_size=16, num_pages=256, n_slots=2, prefill_chunk=32,
+    kw = dict(page_size=16, num_pages=256, n_slots=2, prefill_chunk=TP_YI_CHUNK,
               max_len=640, kernel_backend="auto")
     params = decoder.init_params(cfg, seed=0, device=dev)
     full_bytes = tree_bytes(params)
@@ -3667,6 +3906,20 @@ def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
     bad = first_divergence_ok(tp, single, margins, 2 * dec_gap)
     check(not bad, f"14d: streams differ where the single rank's top-2 "
           f"margin exceeds {2 * dec_gap}: {bad}")
+    # the mesh frontend: the ranks agree, and the SSE streams are the held
+    # drain's (the same requests under the same selection)
+    fes = [r["frontend"] for r in ranks]
+    check(fes[0]["outcome"] == fes[1]["outcome"],
+          "14d frontend: the ranks' streams, aborts or free pages differ")
+    check(fes[0]["ticks"] == fes[1]["ticks"] > 0
+          and fes[0]["messages"] == fes[1]["messages"] > fes[0]["ticks"],
+          f"14d frontend: ticks {[f['ticks'] for f in fes]}, messages "
+          f"{[f['messages'] for f in fes]}")
+    check(sorted(fes[0]["sse"]) == list(range(len(prompts)))
+          and not fes[0]["outcome"]["aborted"], f"14d frontend: {fes[0]['outcome']}")
+    for i, toks in fes[0]["sse"].items():
+        check(toks == tp[i], f"14d frontend SSE stream {i} {toks} != the mesh "
+              f"drain()'s {tp[i]}")
     mutants, _ = run_ranks(yi_tp_mutants, 2, backend="gloo", device=dev.type,
                            args=(arch, prompts, kw, gcfg), timeout_s=300)
     mutant_gaps = {}
@@ -3702,7 +3955,18 @@ def phase_tp_yi9b(torch, np, dev, yi, arch: str = "yi-9b"):
         peak_gb_per_rank=[r["peak_bytes"] / gb for r in ranks],
         init_s_per_rank=[r["init_s"] for r in ranks],
         drain_wall_s_tp2=ranks[0]["wall_s"], spawn_to_result_s=spawn_wall,
-        rid0_tp2=tp[0][:8], rid0_one_rank=single[0][:8])
+        rid0_tp2=tp[0][:8], rid0_one_rank=single[0][:8],
+        frontend_sse_equal_drain=True,
+        frontend_wall_s=fes[0]["wall_s"],
+        frontend_tick_wall_ms_p50_per_rank=[f["tick_wall_ms_p50"] for f in fes],
+        frontend_decode_tick_wall_ms_p50_per_rank=[f["decode_tick_wall_ms_p50"]
+                                                   for f in fes],
+        frontend_ticks=fes[0]["ticks"], frontend_decode_ticks=fes[0]["decode_ticks"],
+        frontend_broadcast_ms_p50=fes[0]["broadcast_ms_p50"],
+        frontend_broadcast_ms_max=fes[0]["broadcast_ms_max"],
+        frontend_control_messages=fes[0]["messages"],
+        frontend_ttft_p50_s=fes[0]["ttft_p50_s"], frontend_ttft_p99_s=fes[0]["ttft_p99_s"],
+        frontend_peak_gb_per_rank=[f["peak_bytes"] / gb for f in fes])
     return counts, res
 
 # ---------------------------------------------------------------------------
@@ -3759,6 +4023,22 @@ MESH_MUTANTS = {
     "15d_yi9b": {"enter_backward": "grads", "reduce_forward": "loss"},
     "15e_moonshot": {"ep_dispatch": "routed", "ep_combine": "moe_out"},
 }
+
+#: 15f: the MoE dispatch over several global chunks at full width, on the
+#: MoE block of 15e's 2-layer Moonshot (fp32, capacity factor 1.0, so
+#: assignments drop): the dispatch without EP on the 4 data ranks of 15c's
+#: spawn, each global chunk of ``dp_chunk`` tokens spanning two of them,
+#: and routed EP at (2, 2) in 15a's spawn, with ``ep_chunk`` tokens a
+#: chunk (each split over the 2 data rows).  Held against one rank's
+#: ``moe_forward`` at the reference's grouping: the global chunks, and
+#: for routed EP blocks of ``ep_chunk / 2`` tokens each with its own
+#: capacity.  ``MOE_CHUNK_TOL``: the largest |difference| over the
+#: largest |y| (fp32, TF32 off: the ranks' expert products run at other
+#: batch shapes, and routed EP sums two partial outputs); the old per-row
+#: grouping of the dispatch without EP must miss by more.
+MOE_CHUNKS = dict(B=4, S=512, capacity_factor=1.0, dp_chunk=1024, ep_chunk=512,
+                  seed=3)
+MOE_CHUNK_TOL = 1e-4
 
 
 def _tree_np(tree):
@@ -3872,13 +4152,14 @@ def mesh_moe_block(torch, np, mesh, tag, dev):
     return out
 
 
-def mesh_smoke_rank(mesh, ckdir, yi_spec, yi_ref):
+def mesh_smoke_rank(mesh, ckdir, yi_spec, yi_ref, moe_ref=None):
     """One rank of 15a-d at (2, 2) (a spawned process, on the card or, for
     the comparison, on the CPU): the yi and tinylm smoke setups with FSDP,
     the MoE blocks (routed EP on Moonshot's smoke config, 2-D EP on
     DeepSeek-V3's with ``moe_group_limit=1``), with ``ckdir`` an elastic
     run's first step into a checkpoint there, and with ``yi_spec`` 15d
-    (``mesh_full_rank``, its mutants included)."""
+    (``mesh_full_rank``, its mutants included); with ``moe_ref`` 15f's
+    routed EP over several global chunks."""
     import numpy as np
     import torch
 
@@ -3915,15 +4196,19 @@ def mesh_smoke_rank(mesh, ckdir, yi_spec, yi_ref):
                     ckpt=CheckpointManager(ckdir, interval=1, use_async=False),
                     mesh=mesh, rules=erules)
         out["elastic"] = res.losses
+    if moe_ref is not None:
+        out["moe_ep"] = moe_chunk_rank(torch, mesh, moe_ref, "ep",
+                                       yi_spec is not None and yi_spec.get("smoke", False))
     if yi_spec is not None:
         out["yi9b"] = mesh_full_rank(mesh, "yi-9b", yi_spec, yi_ref,
                                      MESH_MUTANTS["15d_yi9b"])
     return out
 
 
-def mesh_compression_rank(mesh):
+def mesh_compression_rank(mesh, moe_ref=None, smoke=False):
     """15c: the reference's 20-step int8 error-feedback all-reduce check on
-    4 data ranks (identical gradients, then distinct ones)."""
+    4 data ranks (identical gradients, then distinct ones); with
+    ``moe_ref``, 15f's dispatch without EP on these ranks."""
     import numpy as np
     import torch
 
@@ -3946,6 +4231,118 @@ def mesh_compression_rank(mesh):
             comp_acc += mean["w"].cpu().numpy()
         out["same" if same else "distinct"] = float(
             np.abs(comp_acc - true_acc).max() / np.abs(true_acc).max())
+    if moe_ref is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out["moe_dp"] = moe_chunk_rank(torch, mesh, moe_ref, "dp", smoke)
+    return out
+
+
+def moe_chunk_setup(torch, dev, smoke: bool = False):
+    """15f's MoE block (fp32, drawn from ``MOE_CHUNKS['seed']`` on ``dev``)
+    without its shared experts (every rank runs them whole; their output
+    would hide a dropped assignment), and its input ``[B, S, D]``."""
+    from repro_torch.models import param as param_lib
+    from repro_torch.models.layers import moe
+
+    m = MOE_CHUNKS
+    cfg = mesh_full_cfg("moonshot-v1-16b-a3b", dict(MESH_MOON, smoke=smoke)).replace(
+        dtype="float32", capacity_factor=m["capacity_factor"])
+    specs = {k: v for k, v in moe.moe_specs(cfg).items() if k != "shared"}
+    params = param_lib.init_params(specs, m["seed"], "float32", dev)
+    g = torch.Generator(device=dev).manual_seed(m["seed"])
+    x = torch.randn(m["B"], m["S"], cfg.d_model, generator=g, device=dev)
+    return cfg, params, x
+
+
+def moe_chunk_one(torch, dev, path: str, smoke: bool = False):
+    """15f's one rank: ``moe_forward`` at the reference's grouping of each
+    job, saved to ``path``; the assignments each grouping drops."""
+    from repro_torch.models.layers import moe
+
+    m = MOE_CHUNKS
+    cfg, params, x = moe_chunk_setup(torch, dev, smoke)
+    xt = x.reshape(-1, cfg.d_model)
+    idx = moe._route(params, xt, cfg, want_aux=False)[1].cpu()
+
+    def dropped(width):
+        C = moe._capacity(width, cfg)
+        hot = torch.zeros(idx.shape[0], cfg.num_experts, dtype=torch.int64)
+        hot.scatter_(1, idx, 1)
+        load = hot.reshape(-1, width, cfg.num_experts).sum(1)
+        return int((load - C).clamp(min=0).sum())
+
+    out, drops = {}, {}
+    with torch.no_grad():
+        for job, chunk in (("dp", m["dp_chunk"]), ("ep", m["ep_chunk"] // 2)):
+            y, aux, _ = moe.moe_forward(params, x, cfg, chunk_tokens=chunk)
+            out[job] = dict(y=y.cpu(), aux=float(aux))
+            drops[job] = dropped(chunk)
+    drops["dp_old_per_row"] = dropped(m["dp_chunk"] // 4)
+    drops["assignments"] = idx.numel()
+    torch.save(out, path)
+    return drops
+
+
+def moe_chunk_rank(torch, mesh, path: str, job: str, smoke: bool = False):
+    """15f on one rank of a spawn: this rank's rows of the MoE block under
+    the training mesh's rules, against one rank's (``path``); the dispatch
+    without EP also with the old per-row grouping (a mutant)."""
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.tp import block_of
+    from repro_torch.models.layers import moe
+
+    m = MOE_CHUNKS
+    t_job = time.perf_counter()
+    cfg, full, x = moe_chunk_setup(torch, mesh.device, smoke)
+    rules = shlib.make_rules(phase="train")
+    specs = _paths(shlib.tree_specs(
+        {k: v for k, v in moe.moe_specs(cfg).items() if k != "shared"}, mesh, rules))
+    tree = {}
+    for k, v in _paths(full).items():
+        node, parts = tree, k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = block_of(v, specs[k], mesh)
+    del full
+    axes = shlib.batch_axes(mesh, rules)
+    nd, r = mesh.extent(axes), mesh.coord(axes)
+    w = m["B"] // nd
+    x = x[r * w:(r + 1) * w]
+    ref = torch.load(path)[job]
+    want = ref["y"][r * w:(r + 1) * w].to(mesh.device)
+    scale = float(ref["y"].abs().max())
+    chunk = m["dp_chunk"] if job == "dp" else m["ep_chunk"]
+
+    def gap():
+        with torch.no_grad(), shlib.axis_rules(mesh, rules):
+            y, aux, _ = moe.moe_forward(tree, x, cfg, chunk_tokens=chunk)
+        return float((y - want).abs().max()) / scale, float(aux)
+
+    t0 = time.perf_counter()
+    y_gap, aux = gap()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(y_gap=y_gap, aux_rel=abs(aux - ref["aux"]) / abs(ref["aux"]),
+               wall_ms=(time.perf_counter() - t0) * 1e3)
+    with shlib.axis_rules(mesh, rules):
+        out["ep"] = moe._ep_shard_info(cfg) is not None
+    if job == "dp":
+        good = moe._global_chunks
+
+        def old(idx, chunk, cfg, mesh, rules):
+            n = mesh.extent(shlib.batch_axes(mesh, rules))
+            return [(i, i + chunk // n, chunk // n, None)
+                    for i in range(0, idx.shape[0], chunk // n)]
+
+        moe._global_chunks = old
+        try:
+            out["old_grouping_y_gap"] = gap()[0]
+        finally:
+            moe._global_chunks = good
+    del tree, x, want
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["job_s"] = time.perf_counter() - t_job
     return out
 
 
@@ -4342,11 +4739,19 @@ def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
         yi_one = mesh_full_one(torch, np, dev, "yi-9b", yi_spec, yi_ref)
         moon_one = mesh_full_one(torch, np, dev, "moonshot-v1-16b-a3b", moon_spec,
                                  moon_ref)
+        # 15f's one rank
+        smoke = moon_spec.get("smoke", False)
+        moe_ref = str(tmp / "moe_chunks.pt")
+        t_moe = time.perf_counter()
+        drops = moe_chunk_one(torch, dev, moe_ref, smoke)
+        moe_one_s = time.perf_counter() - t_moe
+        if dev.type == "cuda":
+            free(torch)
         res["one_rank_s"] = round(time.perf_counter() - t0, 1)
-        # 15a-d: (2, 2) on the card
+        # 15a-d, 15f's routed EP: (2, 2) on the card
         t0 = time.perf_counter()
         card, c = run_ranks(mesh_smoke_rank, 4, device=card_dev,
-                            args=(ck, yi_spec, yi_ref), **mesh22)
+                            args=(ck, yi_spec, yi_ref, moe_ref), **mesh22)
         add(c)
         res["ranks_22_s"] = round(time.perf_counter() - t0, 1)
         cpu, _ = f_cpu.result()
@@ -4354,7 +4759,7 @@ def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
         t0 = time.perf_counter()
         f_comp = ex.submit(run_ranks, mesh_compression_rank, 4, backend="gloo",
                            device=card_dev, shape=(4,), axes=("data",),
-                           timeout_s=300)
+                           args=(moe_ref, smoke), timeout_s=300)
         tail, c = run_ranks(mesh_resume_rank, 2, backend="gloo", device=card_dev,
                             shape=(1, 2), axes=("data", "model"),
                             args=(ck, moon_spec, moon_ref), timeout_s=600)
@@ -4386,7 +4791,33 @@ def phase_mesh_train(torch, np, dev, tmp: Path, yi_spec=MESH_YI,
     # 15c: compression and elastic
     for r in comp:
         check(r["same"] < 2e-2 and r["distinct"] < 2e-2, f"15c compression {r}")
-    res["15c_compression_rel_err"] = comp[0]
+    res["15c_compression_rel_err"] = {k: comp[0][k] for k in ("same", "distinct")}
+    # 15f: several global chunks with drops, the ranks against one rank's
+    # moe_forward at the reference's grouping
+    check(drops["dp"] > 0 and drops["ep"] > 0, f"15f: nothing dropped {drops}")
+    f = dict(drops=drops, chunks=dict(dp=MOE_CHUNKS["B"] * MOE_CHUNKS["S"]
+                                      // MOE_CHUNKS["dp_chunk"],
+                                      ep=MOE_CHUNKS["B"] * MOE_CHUNKS["S"]
+                                      // MOE_CHUNKS["ep_chunk"]), tol=MOE_CHUNK_TOL)
+    for job, outs in (("dp", [r["moe_dp"] for r in comp]),
+                      ("ep", [r["moe_ep"] for r in card])):
+        f[f"{job}_y_gap"] = max(o["y_gap"] for o in outs)
+        f[f"{job}_aux_rel"] = max(o["aux_rel"] for o in outs)
+        f[f"{job}_wall_ms"] = max(o["wall_ms"] for o in outs)
+        f[f"{job}_job_s"] = max(o["job_s"] for o in outs)
+        check(all(o["ep"] == (job == "ep") for o in outs),
+              f"15f {job}: routed EP {[o['ep'] for o in outs]}")
+        check(f[f"{job}_y_gap"] <= MOE_CHUNK_TOL and f[f"{job}_aux_rel"] <= MOE_CHUNK_TOL,
+              f"15f {job}: y gap {f[f'{job}_y_gap']}, aux {f[f'{job}_aux_rel']}")
+    f["dp_old_grouping_y_gap"] = min(o["old_grouping_y_gap"] for o in
+                                     (r["moe_dp"] for r in comp))
+    # what 15f adds to the phase's wall: its one rank, then its jobs in the
+    # ranks of two spawns that were there
+    f["one_rank_s"] = moe_one_s
+    f["added_s"] = moe_one_s + f["dp_job_s"] + f["ep_job_s"]
+    check(f["dp_old_grouping_y_gap"] > MOE_CHUNK_TOL,
+          f"15f: the old per-row grouping passes: {f['dp_old_grouping_y_gap']}")
+    res["15f_moe_chunks"] = f
     # elastic: the (1, 2) mesh resumed from the (2, 2) checkpoint == one
     # rank resumed from it on the card
     resumed = tail[0]["resume"]
@@ -4498,11 +4929,15 @@ DRYRUN_CORES = 2
 #: seconds 16a waits, after phase 17, for the dry-runs still stepping
 DRYRUN_TIMEOUT_S = 420
 
-#: 16b / 16c: Yi-9B whole, bf16, GRIFFIN 0.5, random weights from seed 0;
+#: 16b / 16c: Yi-9B, bf16, GRIFFIN 0.5, random weights from seed 0;
 #: (shape name, seq, batch): prefill cut from 32 x 32,768 (the eager
 #: chunked attention, ROADMAP item 13), decode from 128 sequences
 CELL_PREFILL = ("prefill_32k", 4096, 2)
 CELL_DECODE = ("decode_32k", 32768, 4)
+#: 16b / 16c (and 17d / 17e, which reuse the cells): 24 of Yi-9B's 48
+#: layers, for the script's time (16c's four gloo ranks on one card pay
+#: every layer's collectives)
+CELL_LAYERS = 24
 #: the decode cache's keys are drawn at 8x the unit scale and its values
 #: at 4x: scores spread ~8 wide make each head attend to a few of the
 #: 32,768 keys, as a trained model's do (at unit scale every head
@@ -4677,6 +5112,8 @@ def cell_setup(smoke: bool = False):
     from repro_torch.launch.policies import CellPolicy, policy_for
 
     cfg = get_config("yi-9b", smoke=smoke)
+    if not smoke:
+        cfg = cfg.replace(num_layers=CELL_LAYERS)
     (_, sp, bp), (_, sd, bd) = ((None, 16, 2), (None, 32, 4)) if smoke else \
         (CELL_PREFILL, CELL_DECODE)
     pre = ShapeConfig(CELL_PREFILL[0], sp, bp, "prefill")
@@ -5902,6 +6339,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_script = time.perf_counter()
+    marks = {}  # seconds since the build began, at the end of each phase
     t0 = time.perf_counter()
     build.build()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
@@ -5945,12 +6383,14 @@ def main() -> int:
                      f"{r['bound_ms']:.5f} ms ({r['bound_by']})  max_abs_err "
                      f"{r['max_abs_err']:.3g}")
     kernels["expert_stat"]["frontend_engine"] = fe_stat
+    marks["2"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 2 kernels vs plain versions ({card}):")
     for line in lines:
         print("  " + line)
 
     t0 = time.perf_counter()
     tiny_counts, streams = phase_tinylm(torch, np, dev)
+    marks["3"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 3 tinylm fused == gather == CPU plain, fp32/int8/fp8 pools: "
           f"{time.perf_counter() - t0:.1f} s, launches {tiny_counts}, rid 0 "
           + ", ".join(f"{k} {v[0]}" for k, v in streams.items()))
@@ -5959,6 +6399,7 @@ def main() -> int:
     cfg, params, prompts, model = yi9b_model(torch, np, dev)
     yi, yi_streams = serve_paged(torch, np, dev, cfg, params, prompts, "fp32",
                                 args.profile)
+    marks["4"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 4 yi-9b ({card}): {time.perf_counter() - t0:.1f} s total, "
           f"{model['params'] / 1e9:.2f}B params, init {model['init_s']:.1f} s")
     keys = ("pool_dtype", "wall_s", "tokens_per_s", "ttft_p50_s", "tpot_p50_s",
@@ -5996,6 +6437,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ff_counts, ff = phase_ffn_entry_points(torch, dev, cfg, params)
+    marks["6"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 6 yi-9b FF entry points, {cfg.num_layers} layers "
           f"({card}): {time.perf_counter() - t0:.1f} s, launches "
           f"glu_ffn {ff_counts['glu_ffn']} griffin_ffn {ff_counts['griffin_ffn']}, "
@@ -6013,6 +6455,7 @@ def main() -> int:
     spec, spec_out = serve_paged(torch, np, dev, cfg, params, prompts, "fp32",
                                 args.profile, spec_k=4)
     spec["token_match_vs_dense"] = match_rate(spec_out, dense_out)
+    marks["7"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 7b yi-9b GRIFFIN 0.5 drafts, spec_k=4 fused, adaptive, bf16 "
           f"pools, beside a dense server ({card}): "
           f"{time.perf_counter() - t0:.1f} s total")
@@ -6048,6 +6491,7 @@ def main() -> int:
     print(f"phase 8c yi-9b loadgen, 6 sessions on the real clock ({card}):")
     for k, v in lg_res.items():
         print(f"  {k}: {v}")
+    marks["8"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 8 total: {time.perf_counter() - t8:.1f} s (8b-8c "
           f"{time.perf_counter() - t0:.1f} s)")
 
@@ -6065,6 +6509,7 @@ def main() -> int:
                                               args.profile)
     del params
     stat_engine = engine_shape_expert_stat(torch, dev, cfg.d_ff)
+    marks["9"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 9b yi-9b GenerationEngine B={YI_ENGINE['B']} prompt "
           f"{YI_ENGINE['S']} + {YI_ENGINE['steps']} new, generation_ppl "
           f"P={YI_PPL['P']} G={YI_PPL['G']} ({card}): "
@@ -6109,6 +6554,7 @@ def main() -> int:
               f"({card}): {time.perf_counter() - t0:.1f} s, launches {counts}")
         for k, v in res.items():
             print(f"  {k}: {v}")
+    marks["10"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
 
     t11 = t0 = time.perf_counter()
@@ -6146,6 +6592,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, launches {counts}")
         for k, v in res.items():
             print(f"  {k}: {v}")
+    marks["11"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 11 total: {time.perf_counter() - t11:.1f} s")
 
     t12 = t0 = time.perf_counter()
@@ -6185,6 +6632,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, launches {counts}")
         for k, v in res.items():
             print(f"  {k}: {v}")
+    marks["12"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 12 total: {time.perf_counter() - t12:.1f} s")
 
     t13 = t0 = time.perf_counter()
@@ -6197,11 +6645,20 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         train_tiny = phase_train_tinylm(torch, np, dev, Path(tmp))
-    print(f"phase 13b tinylm, the reference's recipe ({TINY_RECIPE['steps']} steps "
-          f"adamw warmup_cosine, batch {TINY_RECIPE['batch']} x {TINY_RECIPE['seq']}), "
-          f"preempted at {TINY_RECIPE['preempt_at']} and resumed, served, "
-          f"generation_ppl ({card}): {time.perf_counter() - t0:.1f} s")
-    for k, v in train_tiny.items():
+        print(f"phase 13b tinylm, the reference's recipe ({TINY_RECIPE['steps']} steps "
+              f"adamw warmup_cosine, batch {TINY_RECIPE['batch']} x "
+              f"{TINY_RECIPE['seq']}), preempted at {TINY_RECIPE['preempt_at']} and "
+              f"resumed, served, generation_ppl ({card}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        for k, v in train_tiny.items():
+            print(f"  {k}: {v}")
+        t0 = time.perf_counter()
+        examples_counts, examples = phase_examples(torch, np, dev, Path(tmp))
+    print(f"phase 13d the examples (quickstart as python -m; serve_batched, "
+          f"flocking_analysis --emit-profile served at tier 0.5, train_lm 3 steps) "
+          f"from 13b's model, serve_batched and the profile card == CPU ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {examples_counts}")
+    for k, v in examples.items():
         print(f"  {k}: {v}")
     t0 = time.perf_counter()
     yi_train_counts, yi_train = phase_train_yi9b(torch, np, dev)
@@ -6210,6 +6667,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, launches {yi_train_counts}")
     for k, v in yi_train.items():
         print(f"  {k}: {v}")
+    marks["13"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 13 total: {time.perf_counter() - t13:.1f} s")
 
     free(torch)
@@ -6237,12 +6695,15 @@ def main() -> int:
     t0 = time.perf_counter()
     yi_tp_counts, yi_tp = phase_tp_yi9b(torch, np, dev, yi)
     tp_paths["tp2_yi9b"] = yi_tp_counts
-    print(f"phase 14d yi-9b whole, bf16, GRIFFIN 0.5, TP=2 over gloo on one card, "
-          f"phase 4's prompts, {TP_YI_NEW} new tokens each, beside one rank with "
-          f"tp_shards=2 ({card}): "
+    print(f"phase 14d yi-9b at {TP_YI_LAYERS} layers, bf16, GRIFFIN 0.5, TP=2 over "
+          f"gloo on one card, "
+          f"phase 4's prompts, {TP_YI_NEW} new tokens each, prefill chunks of "
+          f"{TP_YI_CHUNK}, beside one rank with tp_shards=2, then the ranks behind "
+          f"the mesh frontend (8b's four POSTs, SSE == the drain) ({card}): "
           f"{time.perf_counter() - t0:.1f} s, launches {yi_tp_counts}")
     for k, v in yi_tp.items():
         print(f"  {k}: {v}")
+    marks["14"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 14 total: {time.perf_counter() - t14:.1f} s")
 
     free(torch)
@@ -6251,6 +6712,7 @@ def main() -> int:
     mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     atexit.register(shutil.rmtree, mesh_tmp, True)
     mesh_counts, mesh_train = phase_mesh_train(torch, np, dev, Path(mesh_tmp))
+    marks["15"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 15 sharded training, ranks on one card over gloo, TF32 off: "
           f"15a yi/tinylm smoke (2, 2) FSDP == one rank on the card == CPU; 15b "
           f"routed EP (Moonshot smoke) and 2-D EP (DeepSeek-V3 smoke) card == "
@@ -6259,7 +6721,10 @@ def main() -> int:
           f"yi-9b {MESH_YI['layers']} layers full width bf16 remat (2, 2) FSDP "
           f"AdamW, {MESH_YI['steps']} steps of {MESH_YI['B']} x {MESH_YI['S']}; "
           f"15e moonshot {MESH_MOON['layers']} layers full width routed EP "
-          f"(1, 2) ({card}): {time.perf_counter() - t0:.1f} s, launches "
+          f"(1, 2); 15f its MoE block over {MOE_CHUNKS['B']} x {MOE_CHUNKS['S']} "
+          f"tokens, several global chunks, without EP on 4 data ranks and "
+          f"routed EP at (2, 2) vs one rank ({card}): "
+          f"{time.perf_counter() - t0:.1f} s, launches "
           f"{mesh_counts}")
     for k, v in mesh_train.items():
         print(f"  {k}: {v}")
@@ -6267,7 +6732,9 @@ def main() -> int:
     free(torch)
     t16 = t0 = time.perf_counter()
     cells_counts, cells_one, cells_ref = phase_cells_one(torch, np, dev)
-    print(f"phase 16b yi-9b whole, bf16, GRIFFIN 0.5, random weights from seed 0, "
+    marks["16b"] = round(time.perf_counter() - t_script, 1)
+    print(f"phase 16b yi-9b at {CELL_LAYERS} layers, bf16, GRIFFIN 0.5, random "
+          f"weights from seed 0, "
           f"cells at (1, 1) from cells.build_cell + materialize: prefill "
           f"{CELL_PREFILL[2]} x {CELL_PREFILL[1]} (cut from 32 x 32,768), decode "
           f"{CELL_DECODE[2]} sequences over a {CELL_DECODE[1]}-token cache at pos "
@@ -6277,6 +6744,7 @@ def main() -> int:
         print(f"  {k}: {v}")
     t0 = time.perf_counter()
     cells_mesh_counts, cells_mesh = phase_cells_mesh(torch, np, cells_ref, dev)
+    marks["16c"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 16c the same cells at (2, 2), four gloo ranks on the one card "
           f"(decode twice: kv_seq split under policy_for's rules, head_dim split "
           f"under the fallback with kv_heads off model), mutants "
@@ -6310,6 +6778,7 @@ def main() -> int:
           f"mutant {list(WHOLE_MUTANTS['17e'])}) ({card}): {tm['22_spawn_s']} s")
     for k, v in whole.items():
         print(f"  {k}: {v}")
+    marks["17"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 17 total: {time.perf_counter() - t17:.1f} s, launches "
           f"{whole_counts}")
     # 16a: the dry-runs started after the build, now on every core
@@ -6327,6 +6796,7 @@ def main() -> int:
           f"{dry_counts}; not ported: {sorted(DRYRUN_NOT_PORTED)}")
     for line in dry_lines:
         print("  " + line)
+    marks["16a"] = round(time.perf_counter() - t_script, 1)
     print(f"phase 16 total: {time.perf_counter() - t16:.1f} s; script "
           f"{time.perf_counter() - t_script:.1f} s since the build began")
 
@@ -6350,7 +6820,8 @@ def main() -> int:
              "gemma3": frontends["12b"]["launches"],
              "command_r_plus": frontends["12c"]["launches"],
              "llava_next": frontends["12d"]["launches"],
-             "hubert": frontends["12e"]["launches"], **tp_paths,
+             "hubert": frontends["12e"]["launches"],
+             "examples_tinylm": examples_counts, **tp_paths,
              "cells_yi9b": cells_counts, "cells_yi9b_22": cells_mesh_counts,
              "mesh_whole": tp_counts(whole_counts)}
     sources = {
@@ -6423,13 +6894,16 @@ def main() -> int:
              "families_smoke": fam_smoke, "recurrent_smoke": rec_smoke,
              "families": family, "frontends_smoke": fe_smoke,
              "frontends": frontends, "train_smoke": train_smoke,
-             "train_tinylm": train_tiny, "train_yi9b": yi_train,
+             "train_tinylm": train_tiny, "examples": examples,
+             "train_yi9b": yi_train,
              "tp_tinylm": tp_tiny, "tp_yi9b": yi_tp, "mesh_train": mesh_train,
              "cells_one": cells_one, "cells_mesh": cells_mesh,
              "mesh_whole": whole,
              "dryrun": dry_lines,
-             "tinylm_launches": tiny_counts, "lines": lines}, indent=1,
+             "tinylm_launches": tiny_counts, "lines": lines,
+             "phase_marks_s": marks}, indent=1,
             default=str))
+    print("phase marks, s since the build began: " + json.dumps(marks))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

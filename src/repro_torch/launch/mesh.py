@@ -37,6 +37,7 @@ import itertools
 import math
 import os
 import queue
+import signal
 import socket
 import time
 import traceback
@@ -50,6 +51,9 @@ import torch.distributed as dist
 from repro_torch.kernels import backend as backend_lib
 
 BACKENDS = ("nccl", "gloo")
+
+#: the collectives' timeout of a run without a time limit
+GROUP_TIMEOUT_S = 600.0
 
 #: the kernel modules whose launch counters ``run_ranks`` sends back
 _COUNTED = ("paged_attn", "expert_stat", "paged_gather", "griffin_ffn",
@@ -322,8 +326,9 @@ def _free_port() -> int:
 
 
 def _rank_main(fn, rank: int, n: int, axis: str, backend: str, device,
-               port: int, args: Sequence, q, timeout_s: float,
+               port: int, args: Sequence, q, timeout_s: Optional[float],
                shape=None, axes=None) -> None:
+    timeout_s = GROUP_TIMEOUT_S if timeout_s is None else timeout_s
     try:
         init = f"tcp://localhost:{port}"
         if shape is None:
@@ -347,7 +352,8 @@ def _rank_main(fn, rank: int, n: int, axis: str, backend: str, device,
 
 def run_ranks(fn: Callable, n: int, *, backend: str, device=None,
               axis: str = "model", args: Sequence = (),
-              timeout_s: float = 600.0, shape: Optional[Sequence[int]] = None,
+              timeout_s: Optional[float] = 600.0,
+              shape: Optional[Sequence[int]] = None,
               axes: Optional[Sequence[str]] = None
               ) -> Tuple[List[Any], Dict[str, int]]:
     """Run ``fn(mesh, *args)`` in ``n`` spawned processes, one per rank of
@@ -360,7 +366,12 @@ def run_ranks(fn: Callable, n: int, *, backend: str, device=None,
     ``(results by rank, kernel launch counts summed over the ranks)``.
     Raises ``RuntimeError`` with the child's traceback if any rank fails,
     exits without a result or outlives ``timeout_s``; the other ranks,
-    which would block in their next collective, are terminated."""
+    which would block in their next collective, are terminated.
+    ``timeout_s=None`` sets no limit on the run (a server that runs until
+    it is stopped; call it from the main thread): a SIGINT to this
+    process is passed on to rank 0, and the run goes on until the ranks
+    return; a collective of the world group still fails after
+    ``GROUP_TIMEOUT_S``."""
     if shape is not None:
         shape, axes = tuple(shape), tuple(axes or ("data", "model"))
         if math.prod(shape) != n:
@@ -378,7 +389,11 @@ def run_ranks(fn: Callable, n: int, *, backend: str, device=None,
     results: Dict[int, Any] = {}
     errors: Dict[int, str] = {}
     counts: Dict[str, int] = {}
-    deadline = time.monotonic() + timeout_s
+    deadline = math.inf if timeout_s is None else time.monotonic() + timeout_s
+    prev = None
+    if timeout_s is None:  # a server: Ctrl-C stops it through rank 0
+        prev = signal.signal(signal.SIGINT,
+                             lambda *_: os.kill(procs[0].pid, signal.SIGINT))
 
     def take(item) -> None:
         r, ok, payload, c = item
@@ -405,6 +420,8 @@ def run_ranks(fn: Callable, n: int, *, backend: str, device=None,
                             errors[r] = (f"exited with code "
                                          f"{procs[r].exitcode} and no report")
     finally:
+        if prev is not None:
+            signal.signal(signal.SIGINT, prev)
         for p in procs:
             p.join(timeout=30 if not errors else 1)
             if p.is_alive():

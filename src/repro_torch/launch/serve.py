@@ -24,8 +24,12 @@ Flags, defaults, checks and summary lines are the reference's, except:
   ``nccl`` (the default on the card: one card per rank) or ``gloo`` (the
   only backend on ``--device cpu``; on the card it lets N ranks share
   one card).  Rank 0 prints the summary lines; ``main`` checks that
-  every rank's streams are equal and returns rank 0's.  ``--mesh`` with
-  ``--http`` is refused (ROADMAP, Queue A item 4).
+  every rank's streams are equal and returns rank 0's.  With ``--http``
+  rank 0 serves the frontend and relays each tick's submissions, cancels
+  and step to the other ranks (``serving/relay.py``); the run has no time
+  limit, Ctrl-C (a SIGINT to the launcher or to every process) stops
+  every rank, and ``main`` checks that their streams, aborts and free
+  pages are equal.
 
 The slot fallback refuses ``--spec-k``, the observability flags and
 ``--http``, as the reference does.  Without a checkpoint (``--ckpt-dir``,
@@ -41,6 +45,7 @@ import argparse
 import asyncio
 import contextlib
 import io
+import signal
 import sys
 import time
 from pathlib import Path
@@ -61,14 +66,11 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import decoder
 from repro_torch.obs.export import write_trace
 from repro_torch.obs.trace import Tracer
+from repro_torch.serving import relay
 from repro_torch.serving.engine import ContinuousBatcher
 from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.server import PagedServer
 from repro_torch.serving.slo import SLO_CLASSES
-
-_NO_MESH_HTTP = ("--mesh with --http: the frontend's admissions are not "
-                 "broadcast to the ranks yet (ROADMAP, Queue A item 4)")
-
 
 def parse_mesh(spec: str):
     """``model=N`` -> (axis, N)."""
@@ -249,7 +251,7 @@ def main(argv: Optional[Sequence[str]] = None
         return _serve(ap, args)
     axis, n = args.mesh
     if args.http is not None:
-        ap.error(_NO_MESH_HTTP)
+        _http_addr(ap, args.http)  # before any rank starts
     cfg = get_config(args.arch, smoke=args.arch not in ("tinylm", "tinylm-tp"))
     if not decoder.supports_paged(cfg):
         ap.error(f"--mesh requires the paged serving path; "
@@ -259,24 +261,48 @@ def main(argv: Optional[Sequence[str]] = None
     if device.type == "cpu" and tp_backend != "gloo":
         ap.error("--mesh on --device cpu runs on --tp-backend gloo only")
     print(f"[mesh] {axis}={n}: {n} ranks on {tp_backend} ({device.type})")
+    http = args.http is not None
+    # an --http server runs until it is stopped: no time limit, and a
+    # SIGINT to this process goes to rank 0, which stops every rank
     results, _ = run_ranks(_serve_rank, n, backend=tp_backend,
-                           device=args.device, axis=axis, args=(argv,))
-    for r, streams in enumerate(results[1:], 1):
-        if streams != results[0]:
-            raise RuntimeError(f"--mesh {axis}={n}: rank {r}'s streams "
+                           device=args.device, axis=axis, args=(argv,),
+                           timeout_s=None if http else 600.0)
+    what = "streams, aborts or free pages" if http else "streams"
+    for r, res in enumerate(results[1:], 1):
+        if res != results[0]:
+            raise RuntimeError(f"--mesh {axis}={n}: rank {r}'s {what} "
                                f"differ from rank 0's")
-    return results[0]
+    return None if http else results[0]
 
 
-def _serve_rank(mesh, argv: List[str]) -> Optional[Dict[int, List[int]]]:
+def _serve_rank(mesh, argv: List[str]):
     """One rank of ``--mesh``: the launcher's run on this rank's shard;
-    only rank 0 prints."""
+    only rank 0 prints.  Under ``--http`` the other ranks ignore SIGINT
+    (Ctrl-C reaches every process): rank 0's stop message ends them."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if mesh.rank == 0:
         return _serve(ap, args, mesh)
+    if args.http is not None:
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
     with contextlib.redirect_stdout(io.StringIO()):
         return _serve(ap, args, mesh)
+
+
+def _http_addr(ap, spec: str):
+    """``HOST:PORT`` -> (host, port), or the parser's error."""
+    try:
+        host, port = spec.rsplit(":", 1)
+        return host, int(port)
+    except ValueError:
+        ap.error(f"--http wants HOST:PORT, got {spec!r}")
+
+
+async def _serve_until_stopped(fe, host: str, port: int) -> None:
+    """``fe.serve_http`` until a SIGINT, which stops the frontend after
+    its tick (however many arrive)."""
+    asyncio.get_running_loop().add_signal_handler(signal.SIGINT, fe.stop)
+    await fe.serve_http(host, port)
 
 
 def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
@@ -319,11 +345,7 @@ def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
         if not paged:
             ap.error(f"--http requires the paged serving path; "
                      f"{cfg.name} falls back to the slot batcher")
-        try:
-            http_host, http_port = args.http.rsplit(":", 1)
-            http_port = int(http_port)
-        except ValueError:
-            ap.error(f"--http wants HOST:PORT, got {args.http!r}")
+        http_host, http_port = _http_addr(ap, args.http)
     if args.flocking_telemetry and gcfg is None:
         ap.error("--flocking-telemetry requires GRIFFIN "
                  "(drop --no-griffin)")
@@ -353,7 +375,11 @@ def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
     )
     del params
     if args.http is not None:
-        fe = ServingFrontend(srv, default_slo=args.slo_class)
+        if mesh is not None and mesh.rank > 0:  # replay rank 0's ticks
+            return relay.follow(srv, relay.ControlChannel())
+        leader = None if mesh is None \
+            else relay.MeshLeader(srv, relay.ControlChannel())
+        fe = ServingFrontend(leader or srv, default_slo=args.slo_class)
         print(f"[{mode}] http: serving on {http_host}:{http_port} "
               f"(default SLO class: {args.slo_class})")
         print(f"  POST http://{http_host}:{http_port}/v1/generate  "
@@ -362,9 +388,14 @@ def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
         print(f"  GET  http://{http_host}:{http_port}/metrics   "
               f"(Prometheus)   /healthz (liveness)")
         try:
-            asyncio.run(fe.serve_http(http_host, http_port))
+            asyncio.run(_serve_until_stopped(fe, http_host, http_port))
         except KeyboardInterrupt:
             pass
+        # a late Ctrl-C must not cut the followers' stop message short
+        prev = signal.signal(signal.SIGINT, signal.SIG_IGN)
+        if leader is not None:
+            leader.stop()
+        signal.signal(signal.SIGINT, prev)
         m = srv.metrics.summary()
         s = fe.summary()
         print(f"[{mode}] http: accepted={s['accepted']:.0f} "
@@ -372,7 +403,7 @@ def _serve(ap, args, mesh=None) -> Optional[Dict[int, List[int]]]:
               f"slo_met_rate={s['slo_met_rate']:.2f} "
               f"ttft_p99={s['ttft_p99_s']:.3f}s "
               f"steps={m['steps']:.0f}")
-        return None
+        return None if mesh is None else relay.outcome(srv)
 
     for rid, (prompt, gen) in enumerate(reqs):
         srv.submit(prompt, max_new=gen, rid=rid)

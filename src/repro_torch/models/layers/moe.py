@@ -31,7 +31,17 @@ its experts:
   tokens stay on their data rank and are replicated over ``model``;
   each rank dispatches to its local experts only
   (``_dispatch_combine_local``, capacity from its data row's token
-  count) and the combine is one sum over ``model``;
+  count) and the combine is one sum over ``model``.  The reference
+  splits each global chunk over the data ranks; cutting each row's own
+  stream in pieces of ``chunk / n_data`` gives the same blocks of the
+  global stream at the same capacity, computed on other ranks;
+* **no expert parallelism** (experts whole, or their hidden width split
+  over ``model``): the single device's dispatch of each *global* chunk,
+  which the reference leaves to GSPMD.  An assignment's fate depends
+  only on the assignments before it in its chunk, so the data rows
+  all-gather their per-chunk expert counts (``_global_chunks``) and
+  each row dispatches its own tokens at the global chunk's capacity,
+  offset by the chunk's assignments on the rows before it;
 * **2-D EP** (``_moe_grouped_ep2d``, ``cfg.moe_group_limit > 0`` and
   ``experts`` over ``(data, model)``): each data row routes its tokens
   within its own ``E / n_data`` experts, so no token leaves its row and
@@ -143,17 +153,22 @@ def _dispatch_combine(params, x: torch.Tensor, gate: torch.Tensor,
 
 def _dispatch_combine_local(params_loc, x: torch.Tensor, gate: torch.Tensor,
                             idx: torch.Tensor, cfg, e0: int, e_loc: int,
-                            cap_experts: int = 0) -> torch.Tensor:
+                            cap_experts: int = 0, n_tokens: int = 0,
+                            before: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Capacity-buffered compute of the LOCAL expert slice [e0, e0+e_loc)
     (all experts: ``_dispatch_combine``).
 
     Assignments to other experts are dropped here (their own rank
     computes them); every gather and scatter indexes local data only.
     ``cap_experts``: expert-pool size for the capacity formula (the
-    routing pool may be smaller than num_experts under group limits)."""
+    routing pool may be smaller than num_experts under group limits).
+    ``n_tokens``: the token count of the capacity formula (default:
+    ``x``'s); ``before`` [E]: each expert's assignments that precede
+    ``x``'s in its group (on other ranks), which take its slots first."""
     T, D = x.shape
     k = cfg.experts_per_token
-    C = _capacity(T, cfg, cap_experts)
+    C = _capacity(n_tokens or T, cfg, cap_experts)
     dev = x.device
 
     flat_e = idx.reshape(-1)  # [T*k]
@@ -165,7 +180,9 @@ def _dispatch_combine_local(params_loc, x: torch.Tensor, gate: torch.Tensor,
     starts = torch.searchsorted(sorted_e, torch.arange(e_loc, device=dev),
                                 right=False)
     pos_in_e = torch.arange(T * k, device=dev) - starts[sorted_e.clamp(0, e_loc - 1)]
-    keep = (sorted_e < e_loc) & (pos_in_e < C)
+    # the slots the group's earlier assignments took
+    taken = 0 if before is None else before[e0: e0 + e_loc][sorted_e.clamp(0, e_loc - 1)]
+    keep = (sorted_e < e_loc) & (pos_in_e + taken < C)
     dest = torch.where(keep, sorted_e * C + pos_in_e,
                        torch.full_like(pos_in_e, e_loc * C))  # dropped -> slot e_loc*C
     src_token = order // k
@@ -222,6 +239,37 @@ def _moe_routed_ep(params, xt, gate, idx, cfg, mesh, n_model):
     return _dispatch_combine_local(
         _expert_params(params), shlib.block_in(xt), shlib.block_in(gate),
         idx, cfg, e0=mesh.coord("model") * e_loc, e_loc=e_loc)
+
+
+def _global_chunks(idx: torch.Tensor, chunk: int, cfg, mesh, rules):
+    """The single device's chunks of the global token stream, as they
+    fall on this data row: ``[(a, b, n, before)]``, this row's tokens
+    ``[a, b)`` of one global chunk of ``n`` tokens, and ``before`` [E]
+    the chunk's assignments to each expert on the data rows before this
+    one (None off a data-split mesh).  Row ``r`` of ``n_rows`` holds the
+    global tokens ``[r T_loc, (r + 1) T_loc)``, each row's counts per
+    (chunk, expert) come from one all-gather of ``[chunks, E]`` ints."""
+    T_loc = idx.shape[0]
+    owners = shlib.batch_axes(mesh, rules) if mesh is not None else ()
+    n_rows = mesh.extent(owners) if owners else 1
+    if n_rows == 1:
+        return [(i, i + chunk, chunk, None) for i in range(0, T_loc, chunk)]
+    E = cfg.num_experts
+    lo = mesh.coord(owners) * T_loc
+    n_chunks = T_loc * n_rows // chunk
+    chunk_of = (lo + torch.arange(T_loc, device=idx.device)) // chunk
+    hist = torch.zeros(n_chunks * E, dtype=torch.int64, device=idx.device)
+    hist.scatter_add_(0, (chunk_of[:, None] * E + idx).reshape(-1),
+                      torch.ones(idx.numel(), dtype=torch.int64,
+                                 device=idx.device))
+    rows = shlib.gather_dim(hist[None], 0, owners)  # [n_rows, chunks * E]
+    before = rows[: mesh.coord(owners)].sum(0).reshape(n_chunks, E)
+    out = []
+    for c in range(n_chunks):
+        a, b = max(lo, c * chunk), min(lo + T_loc, (c + 1) * chunk)
+        if a < b:
+            out.append((a - lo, b - lo, chunk, before[c]))
+    return out
 
 
 def _ep2d_info(cfg):
@@ -413,26 +461,32 @@ def _routed(params: Dict, x: torch.Tensor, cfg, chunk_tokens: int = 16_384,
 
     T = B * S
     ep = _ep_shard_info(cfg)
-    # chunks of the global token stream, each split over the data ranks
+    # chunks of the global token stream
     n_rows = mesh.extent(shlib.batch_axes(mesh, rules)) if mesh is not None else 1
     chunk = min(chunk_tokens, T * n_rows)
     if (T * n_rows) % chunk != 0:
         chunk = T * n_rows  # smoke shapes: do it in one piece
-    chunk //= n_rows
     partial = ep is not None or (mesh is not None and _mlp_split(params, cfg))
     if ep is not None:
-        def piece(xc, gc, ic):
+        # the reference splits each global chunk over the data rows, each
+        # slice with its own capacity: the blocks of chunk / n_rows tokens
+        # this row's own stream is cut in
+        w = chunk // n_rows
+        segs = [(i, i + w, w, None) for i in range(0, T, w)]
+
+        def piece(xc, gc, ic, n, before):
             return _moe_routed_ep(params, xc, gc, ic, cfg, *ep)
-    elif partial:
-        def piece(xc, gc, ic):
-            return _dispatch_combine(params, shlib.block_in(xc),
-                                     shlib.block_in(gc), ic, cfg)
     else:
-        def piece(xc, gc, ic):
-            return _dispatch_combine(params, xc, gc, ic, cfg)
-    y = torch.cat([piece(xt[i : i + chunk], gate[i : i + chunk],
-                         idx[i : i + chunk])
-                   for i in range(0, T, chunk)]).reshape(B, S, D)
+        segs = _global_chunks(idx, chunk, cfg, mesh, rules)
+
+        def piece(xc, gc, ic, n, before):
+            if partial:
+                xc, gc = shlib.block_in(xc), shlib.block_in(gc)
+            return _dispatch_combine_local(params, xc, gc, ic, cfg, 0,
+                                           cfg.num_experts, n_tokens=n,
+                                           before=before)
+    y = torch.cat([piece(xt[a:b], gate[a:b], idx[a:b], n, before)
+                   for a, b, n, before in segs]).reshape(B, S, D)
     if mesh is not None:
         y = shlib.block_out(y, partial)
     return y, aux

@@ -60,6 +60,11 @@ HTTP/1.1 — the container has no aiohttp, and the parser is ~40 lines):
 
 Handlers read/write only ``asyncio.StreamReader``/``StreamWriter``, so
 tests drive them over in-memory pipes — no sockets in tier-1.
+
+On a tensor-parallel mesh the frontend runs on rank 0 over a
+``serving.relay.MeshLeader``, which relays each tick's engine calls to
+the other ranks.  Unlike the reference, ``serve_http`` returns after
+``stop()`` and fails with a tick's exception.
 """
 from __future__ import annotations
 
@@ -490,17 +495,23 @@ class ServingFrontend:
     # -- HTTP/SSE surface ---------------------------------------------------
     async def serve_http(self, host: str = "127.0.0.1",
                          port: int = 8100) -> None:
-        """Bind and serve until cancelled; runs the tick loop alongside
-        the acceptor.  Production entry point (``launch/serve.py
-        --http``) — tests drive ``handle_connection`` directly."""
+        """Bind and serve until cancelled or ``stop()``ped; runs the tick
+        loop alongside the acceptor, and a tick that fails ends the
+        serving with its exception.  Production entry point
+        (``launch/serve.py --http``) — tests drive ``handle_connection``
+        directly."""
         server = await asyncio.start_server(self.handle_connection,
                                             host, port)
         runner = asyncio.ensure_future(self.run())
+        acceptor = asyncio.ensure_future(server.serve_forever())
         try:
             async with server:
-                await server.serve_forever()
+                await asyncio.wait({runner, acceptor},
+                                   return_when=asyncio.FIRST_COMPLETED)
         finally:
             self.stop()
+            acceptor.cancel()
+            await asyncio.gather(acceptor, return_exceptions=True)
             await runner
 
     async def handle_connection(self, reader: asyncio.StreamReader,

@@ -682,7 +682,8 @@ def test_seq_parallel_prefill_matches_one_device(runs):
 def test_sp_rules_resolve_as_the_reference():
     """``seq`` on ``model`` splits a divisible length and leaves decode's
     one token whole; the serving launcher's ``--mesh`` with ``--http``
-    stays refused."""
+    is served (``tests/test_torch_mesh_frontend.py``), its address
+    checked before any rank starts."""
     from repro_torch.launch import serve as tserve
 
     m = tmesh.TrainMesh(dims=(2, 2), rank=3)
@@ -692,5 +693,5 @@ def test_sp_rules_resolve_as_the_reference():
         assert not tshl.sp_wanted(32)
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "tinylm-tp", "--device", "cpu", "--mesh", "model=2",
-                     "--http", "127.0.0.1:0"])
+                     "--http", "127.0.0.1"])
     assert math.prod(m.dims) == 4

@@ -151,6 +151,11 @@ def _cfg(tag: str, get=tget):
         return get("moonshot-v1-16b-a3b", smoke=True)
     if tag == "moe2d":
         return get("moonshot-v1-16b-a3b", smoke=True).replace(moe_group_limit=1)
+    if tag == "moe-drop":  # capacity that drops assignments
+        return get("moonshot-v1-16b-a3b", smoke=True).replace(capacity_factor=0.5)
+    if tag == "moe-drop7":  # experts not divisible by ``model``: mlp split
+        return get("moonshot-v1-16b-a3b", smoke=True).replace(
+            capacity_factor=0.5, num_experts=7)
     raise KeyError(tag)
 
 
@@ -445,10 +450,20 @@ def _job_families(mesh):
         return _family_losses(mesh)
 
 
-def _job_moe(mesh, tag, rules_kw, params_np, x_np, ct_np):
+def _old_row_grouping(idx, chunk, cfg, mesh, rules):
+    """The mutant of ``moe._global_chunks``: each data row's own stream in
+    pieces of ``chunk / n_rows``, each with its own capacity."""
+    n_rows = mesh.extent(tshl.batch_axes(mesh, rules))
+    w = chunk // n_rows
+    return [(i, i + w, w, None) for i in range(0, idx.shape[0], w)]
+
+
+def _job_moe(mesh, tag, rules_kw, params_np, x_np, ct_np, chunk=16_384,
+             mutant=False):
     """The MoE block on this rank's rows: y, aux, d(sum(y*ct) +
     0.01 aux)/d(x, params), parameter gradients summed over the data
-    axis where the leaf is replicated over it."""
+    axis where the leaf is replicated over it; with ``mutant``, also y
+    with the old per-row grouping of the dispatch without EP."""
     from repro_torch.distributed.tp import block_of, block_slices
 
     cfg = _cfg(tag)
@@ -470,15 +485,23 @@ def _job_moe(mesh, tag, rules_kw, params_np, x_np, ct_np):
     x = torch.from_numpy(x_np[rows]).requires_grad_(True)
     ct = torch.from_numpy(ct_np[rows])
     with tshl.axis_rules(mesh, rules):
-        y, aux, _ = tmoe.moe_forward(tree, x, cfg)
+        y, aux, _ = tmoe.moe_forward(tree, x, cfg, chunk_tokens=chunk)
         loss = (y * ct).sum() + 0.01 * aux
         gs = torch.autograd.grad(loss, [x] + [local[k] for k in keys])
+        y_mut = None
+        if mutant:
+            good, tmoe._global_chunks = tmoe._global_chunks, _old_row_grouping
+            try:
+                y_mut = tmoe.moe_forward(tree, x, cfg, chunk_tokens=chunk)[0]
+            finally:
+                tmoe._global_chunks = good
+            y_mut = y_mut.detach().numpy()
     gp = {}
     for k, g in zip(keys, gs[1:]):
         if "data" not in str(specs[k]) and nd > 1:
             g = tshl.all_reduce_(g.contiguous(), mesh.group("data"))
         gp[k] = g.numpy()
-    return {"y": y.detach().numpy(), "aux": float(aux.detach()),
+    return {"y": y.detach().numpy(), "aux": float(aux.detach()), "y_mut": y_mut,
             "gx": gs[0].numpy(), "gp": gp, "rows": rows,
             "slices": {k: block_slices(specs[k], full[k].shape, mesh) for k in keys}}
 
@@ -616,7 +639,7 @@ def _moe_ref(cfg, p, x, ct, nd, ep2d=False):
     return np.asarray(y), float(aux), jax.tree.map(np.asarray, gp), np.asarray(gx)
 
 
-_EP2D_PROG = r'''
+_MESH_MOE_PROG = r'''
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ["JAX_PLATFORMS"] = "cpu"
@@ -625,28 +648,47 @@ from repro.distributed import sharding as shlib
 from repro.models.layers import moe
 from repro.configs.registry import get_config
 d = np.load(sys.argv[1], allow_pickle=True)
-cfg = get_config("moonshot-v1-16b-a3b", smoke=True).replace(moe_group_limit=1)
-mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
-rules = shlib.make_rules(phase="train", expert_2d=True)
-params = d["params"].item()
-def f(p, x):
-    with shlib.axis_rules(mesh, rules):
-        return moe.moe_forward(p, x, cfg)[:2]
-y, aux = jax.jit(f)(jax.tree.map(jax.numpy.asarray, params), d["x"])
-np.savez(sys.argv[2], y=np.asarray(y), aux=np.asarray(aux))
+out = {}
+for name, s in d["setups"].item().items():
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True).replace(**s["cfg"])
+    mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(s["shape"]), s["axes"])
+    rules = shlib.make_rules(phase="train", **s["rules"])
+    def f(p, x):
+        with shlib.axis_rules(mesh, rules):
+            y, aux, _ = moe.moe_forward(p, x, cfg, chunk_tokens=s["chunk"])
+        return jax.numpy.sum(y * s["ct"]) + 0.01 * aux, (y, aux)
+    (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(jax.tree.map(jax.numpy.asarray, s["params"]),
+                                          s["x"])
+    out[name] = np.array(dict(y=np.asarray(y), aux=float(aux), gx=np.asarray(gx),
+                              gp=jax.tree.map(np.asarray, gp)), dtype=object)
+np.savez(sys.argv[2], **out)
 '''
 
 
-def _ep2d_on_jax_mesh(tmp_path, params, x):
-    """The reference's ``moe_forward`` under ``axis_rules`` on a (2, 2)
-    host mesh, in a subprocess with 4 CPU devices."""
-    inp, out = tmp_path / "ep2d_in.npz", tmp_path / "ep2d_out.npz"
-    np.savez(inp, params=np.array(params, dtype=object), x=x)
+def _moe_on_jax_mesh(tmp_path, setups):
+    """The reference's ``moe_forward`` under ``axis_rules`` on host meshes
+    of 4 CPU devices, for each of ``setups`` (``{name: {cfg, shape,
+    axes, rules, chunk, params, x, ct}}``), in one subprocess."""
+    inp, out = tmp_path / "moe_in.npz", tmp_path / "moe_out.npz"
+    np.savez(inp, setups=np.array(setups, dtype=object))
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
-    return subprocess.Popen([sys.executable, "-c", _EP2D_PROG, str(inp), str(out)],
+    return subprocess.Popen([sys.executable, "-c", _MESH_MOE_PROG, str(inp), str(out)],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True), out
+
+
+def _n_dropped(cfg, params_np, x, width, n_cap):
+    """Assignments beyond their expert's capacity when the token stream of
+    ``x`` is dispatched in groups of ``width`` tokens at the capacity of
+    ``n_cap`` tokens (the port's router: the reference's)."""
+    xt = torch.from_numpy(x.reshape(-1, x.shape[-1]))
+    idx = tmoe._route(_tree_torch(params_np), xt, cfg, want_aux=False)[1].numpy()
+    C = tmoe._capacity(n_cap, cfg)
+    groups = idx.reshape(-1, width * cfg.experts_per_token)
+    counts = np.stack([np.bincount(g, minlength=cfg.num_experts) for g in groups])
+    return int(np.maximum(counts - C, 0).sum())
 
 
 def _check_grads(res, jg_port, what):
@@ -708,6 +750,32 @@ def test_sharded_training_matches_the_reference(tmp_path):
     ct = rng.normal(size=(4, 8, 64)).astype(np.float32)
     jobs["ep"] = ("_job_moe", ("moe", {}, mp, x, ct))
     jobs["ep2d"] = ("_job_moe", ("moe2d", {"expert_2d": True}, mp, x, ct))
+    # the global stream in several chunks (of 64 or 128 of its 256 tokens)
+    # with assignments dropped: routed EP at (2, 2); the dispatch without
+    # EP with the experts' hidden width over ``model`` (7 experts) at
+    # (2, 2), and on the data-parallel (4,) mesh with chunks across rows
+    xd = rng.normal(size=(4, 64, 64)).astype(np.float32)
+    ctd = rng.normal(size=(4, 64, 64)).astype(np.float32)
+    pd = {tag: _tree_np(tparam.init_params(tmoe.moe_specs(_cfg(tag)), 1,
+                                           "float32", "cpu"))
+          for tag in ("moe-drop", "moe-drop7")}
+    jobs["ep-chunks"] = ("_job_moe", ("moe-drop", {}, pd["moe-drop"], xd, ctd, 64))
+    jobs["partial-chunks"] = ("_job_moe", ("moe-drop7", {}, pd["moe-drop7"], xd,
+                                           ctd, 64, True))
+    dp_jobs = {"c": ("_job_compression", (20,)),
+               "dp-chunks": ("_job_moe", ("moe-drop", {}, pd["moe-drop"], xd, ctd,
+                                          128, True))}
+    chunked = {"ep-chunks": ("moe-drop", (2, 2), ("data", "model"), 64),
+               "partial-chunks": ("moe-drop7", (2, 2), ("data", "model"), 64),
+               "dp-chunks": ("moe-drop", (4,), ("data",), 128)}
+    overrides = {"moe-drop": dict(capacity_factor=0.5),
+                 "moe-drop7": dict(capacity_factor=0.5, num_experts=7)}
+    setups = {"ep2d": dict(cfg=dict(moe_group_limit=1), shape=(2, 2),
+                           axes=("data", "model"), rules=dict(expert_2d=True),
+                           chunk=16_384, params=mp, x=x, ct=ct)}
+    for name, (tag, shape, axes, chunk) in chunked.items():
+        setups[name] = dict(cfg=overrides[tag], shape=shape, axes=axes, rules={},
+                            chunk=chunk, params=pd[tag], x=xd, ct=ctd)
     # the elastic run's first half
     etok = rng.integers(0, 256, (8, 32)).astype(np.int64)
     ck = str(tmp_path / "ckpt")
@@ -715,10 +783,10 @@ def test_sharded_training_matches_the_reference(tmp_path):
 
     # the (2, 2) and (4,) meshes, the reference's 2-D EP on a JAX mesh and
     # the single-device references run at the same time
-    proc, ep2d_out = _ep2d_on_jax_mesh(tmp_path, mp, x)
+    proc, mesh_out = _moe_on_jax_mesh(tmp_path, setups)
     with ThreadPoolExecutor(2) as ex:
         f22 = ex.submit(_spawn, (2, 2), ("data", "model"), jobs)
-        f4 = ex.submit(_spawn, (4,), ("data",), {"c": ("_job_compression", (20,))})
+        f4 = ex.submit(_spawn, (4,), ("data",), dp_jobs)
         refs, one_rank = {}, {}
         for tag in ("yi", "tiny"):
             cfg, tcfg, _, jp = _init(tag)
@@ -785,10 +853,23 @@ def test_sharded_training_matches_the_reference(tmp_path):
         _check_moe([r[job] for r in res], *moe_refs[ep2d])
     _, err = proc.communicate(timeout=120)
     assert proc.returncode == 0, err[-3000:]
-    jm = np.load(ep2d_out)
+    jm = {k: v.item() for k, v in np.load(mesh_out, allow_pickle=True).items()}
     for r in res:
         o = r["ep2d"]
-        np.testing.assert_allclose(o["y"], jm["y"][o["rows"]], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(o["y"], jm["ep2d"]["y"][o["rows"]], rtol=1e-5,
+                                   atol=1e-6)
+    # several global chunks, assignments dropped: routed EP's blocks of
+    # chunk / n_data tokens, the dispatch without EP's global chunks
+    for name, (tag, shape, _, chunk) in chunked.items():
+        cfg, ref, n_data = _cfg(tag), jm[name], shape[0]
+        width = chunk // n_data if name == "ep-chunks" else chunk
+        assert _n_dropped(cfg, pd[tag], xd, width, width) > 0, name
+        outs = [r[name] for r in (comp if name == "dp-chunks" else res)]
+        _check_moe(outs, ref["y"], ref["aux"], ref["gp"], ref["gx"])
+        if name != "ep-chunks":  # the old per-row grouping misses y
+            for o in outs:
+                assert not np.allclose(o["y_mut"], ref["y"][o["rows"]],
+                                       rtol=1e-5, atol=1e-6), name
 
     # elastic, the second half: (1, 2) after losing data row 1; and routed
     # EP at data 1; then the port's one rank from the same checkpoint
