@@ -4928,6 +4928,13 @@ DRYRUN_JOBS = 3
 DRYRUN_CORES = 2
 #: seconds 16a waits, after phase 17, for the dry-runs still stepping
 DRYRUN_TIMEOUT_S = 420
+#: what every ``ok`` record of 16a holds beside the analytic roofline: the
+#: step counted on ``meta`` (``collectives.count_ops``)
+DRYRUN_FIELDS = (("counted", "flops_per_chip"), ("counted", "bytes_accessed_per_chip"),
+                 ("flops_counted_over_analytic",),
+                 ("memory", "argument_size_in_bytes"), ("memory", "output_size_in_bytes"),
+                 ("memory", "alias_size_in_bytes"), ("memory", "temp_size_in_bytes"),
+                 ("memory", "peak_bytes"), ("memory", "fits_card"))
 
 #: 16b / 16c: Yi-9B, bf16, GRIFFIN 0.5, random weights from seed 0;
 #: (shape name, seq, batch): prefill cut from 32 x 32,768 (the eager
@@ -5085,9 +5092,15 @@ def phase_dryrun(procs, out: Path, t_start: float):
             counts[st] += 1
             if st == "skipped":
                 continue
-            ro = r["roofline"]
+            missing = [".".join(k) for k in DRYRUN_FIELDS
+                       if k[-1] not in (r[k[0]] if len(k) > 1 else r)]
+            check(not missing, f"16a: {f.stem} lacks {missing}")
+            ro, mem = r["roofline"], r["memory"]
             lines.append(
-                f"[ok] {f.stem}: bytes/rank {r['memory']['input_bytes_per_device']:.4e}"
+                f"[ok] {f.stem}: bytes/rank {mem['input_bytes_per_device']:.4e}"
+                f" counted/analytic flops {r['flops_counted_over_analytic']:.4f}"
+                f" predicted peak {mem['peak_bytes'] / 1e9:.3f} GB"
+                f" (fits {mem['fits_card']})"
                 f" dominant {ro['dominant']} bound {ro['bound_s']:.4e} s"
                 f" (compute {ro['compute_s']:.3e} memory {ro['memory_s']:.3e}"
                 f" collective {ro['collective_s']:.3e}) coll "
@@ -5157,19 +5170,69 @@ def wall_ms(torch, fn, reps: int, cuda: bool = True):
     return statistics.median(ts), ts
 
 
-def busy_peak(torch, fn, cuda: bool):
-    """Device busy ms of one call of ``fn`` (``torch.profiler``) and the
-    peak GB allocated during another (0 off the card)."""
+def busy_peak(torch, fn, cuda: bool, clear=None):
+    """Device busy ms of one call of ``fn`` (``torch.profiler``), the peak
+    GB allocated during another and the GB allocated just before it (0
+    off the card).  ``clear`` drops what the earlier calls left (their
+    outputs) before that, so that the peak over what was allocated
+    before is the call's own."""
     if not cuda:
         fn()
-        return 0.0, 0.0
+        return 0.0, 0.0, 0.0
     busy = sum(e.time_range.elapsed_us() / 1e3
                for e in fenced_device_events(torch, fn, 8))
+    if clear is not None:
+        clear()
     free(torch)
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
     fn()
     torch.cuda.synchronize()
-    return busy, torch.cuda.max_memory_allocated() / 1e9
+    return busy, torch.cuda.max_memory_allocated() / 1e9, resident
+
+
+#: 16b: the peak the dry-run's count predicts (arguments + temp, on
+#: ``meta``) within this share of ``max_memory_allocated``, and its temp
+#: within this share of the call's own (the peak over what was allocated
+#: before it) ...
+CELL_PEAK_TOL = 0.10
+#: ... plus this many GB: cuBLAS's and cuBLASLt's workspaces (32 MiB each
+#: on Hopper), which the caching allocator holds from a first product on
+CELL_TEMP_FLOOR_GB = 0.064
+
+
+def counted_on_card(cell, args, meta, cuda: bool):
+    """16b: the cell's real call counted (its forward, after the timed
+    and measured calls): on the card its FLOPs are the ``meta`` count's
+    less what the kernels' plain versions did there (the kernels run
+    instead), off it the ``meta`` count's.  Returns (count, seconds)."""
+    from repro_torch.analysis import collectives
+
+    t0 = time.perf_counter()
+    count = collectives.count_ops(cell.fn, *args)
+    plain = sum(v["flops"] for v in meta.cost["plain_versions"].values()) \
+        if cuda else 0
+    check(count.cost["flops"] == meta.cost["flops"] - plain,
+          f"16b {cell.name}: the card's call counted {count.cost['flops']} "
+          f"FLOPs, meta {meta.cost['flops']} less {plain} in "
+          f"{sorted(meta.cost['plain_versions'])}")
+    return count, time.perf_counter() - t0
+
+
+def check_peak(name: str, res: dict, cuda: bool) -> None:
+    """16b: the predicted peak within ``CELL_PEAK_TOL`` of the card's, and
+    the predicted temp within ``CELL_PEAK_TOL`` of the call's own plus
+    ``CELL_TEMP_FLOOR_GB`` (the arguments, known before the count, are
+    most of a decode cell's peak)."""
+    if cuda:
+        gap = abs(res["predicted_peak_gb"] - res["peak_gb"]) / res["peak_gb"]
+        check(gap <= CELL_PEAK_TOL,
+              f"16b {name}: predicted peak {res['predicted_peak_gb']} GB vs "
+              f"{res['peak_gb']} GB allocated ({res['resident_gb']} GB before)")
+        pred, got = res["predicted_temp_gb"], res["temp_gb"]
+        check(abs(pred - got) <= CELL_PEAK_TOL * pred + CELL_TEMP_FLOOR_GB,
+              f"16b {name}: predicted temp {pred} GB vs {got} GB allocated "
+              f"over the {res['resident_gb']} GB before the call")
 
 
 @contextlib.contextmanager
@@ -5204,17 +5267,27 @@ def cell_mutant(name: str):
 
 
 def cell_numbers(torch, cfg, shape, sp: float, ms: float, busy_ms: float,
-                 peak_gb: float, input_gb: float):
+                 peak_gb: float, input_gb: float, count, resident_gb: float):
     """The analytic bound of a cell on one card and the measured wall
-    beside it."""
+    beside it; the step counted on ``meta`` (``count``): its FLOPs and
+    its predicted peak (arguments + temp) beside the measured peak and
+    what was allocated on the card before the call (``resident_gb``)."""
     from repro_torch.analysis import analytic, roofline
 
     c = analytic.cell_cost(cfg, shape, griffin_sparsity=sp)
     mf = roofline.model_flops(cfg, shape)
     r = roofline.from_costs(c.flops, c.hbm_bytes, 0.0, model_flops_total=mf,
                             chips=1, dtype=cfg.dtype)
+    pred = count.memory["peak_bytes"] / 1e9
     return dict(wall_ms=round(ms, 3), busy_ms=round(busy_ms, 3),
                 busy_share=round(busy_ms / ms, 4), peak_gb=round(peak_gb, 3),
+                predicted_peak_gb=round(pred, 3),
+                predicted_over_peak=round(pred / peak_gb, 4) if peak_gb else None,
+                resident_gb=round(resident_gb, 3),
+                temp_gb=round(peak_gb - resident_gb, 3),
+                predicted_temp_gb=round(count.memory["temp_size_in_bytes"] / 1e9, 3),
+                counted_flops=count.cost["flops"],
+                flops_counted_over_analytic=count.cost["flops"] / c.flops,
                 dryrun_input_gb=round(input_gb, 3),
                 analytic_flops=c.flops, analytic_bytes=c.hbm_bytes,
                 bound_ms=round(r.bound_s * 1e3, 3), bound_by=r.dominant,
@@ -5228,11 +5301,14 @@ def cell_numbers(torch, cfg, shape, sp: float, ms: float, busy_ms: float,
 def phase_cells_one(torch, np, dev, smoke: bool = False):
     """16b: Yi-9B's prefill and decode cells at (1, 1) on the card, built
     by ``cells.build_cell`` and ``materialize``: walls, busy share, peak
-    memory beside the dry-run's input bytes, the analytic bound and the
+    memory beside the dry-run's input bytes and the peak its count on
+    ``meta`` predicts (``CELL_PEAK_TOL``), the analytic bound and the
     model-FLOPs share; logits and selection == ``GenerationEngine``'s on
-    the same weights, cache and inputs."""
+    the same weights, cache and inputs; the real call counted once
+    (``counted_on_card``)."""
     from repro_torch.core import griffin as griffin_lib
     from repro_torch.launch import cells
+    from repro_torch.launch.dryrun import step_cell
     from repro_torch.launch.mesh import TrainMesh
     from repro_torch.models import decoder
     from repro_torch.serving.engine import GenerationEngine
@@ -5241,14 +5317,16 @@ def phase_cells_one(torch, np, dev, smoke: bool = False):
     cuda = dev.type == "cuda"
     mesh = TrainMesh(dims=(1, 1), device=dev)
     res, ref = {}, {}
-    t0 = time.perf_counter()
     cell = cells.build_cell(cfg, pre, mesh, pp)
+    meta, _, res["prefill_meta_count_s"] = step_cell(cell)  # before materialize
+    t0 = time.perf_counter()
     in_gb = cells.input_bytes(cell) / 1e9
     params, inputs = cells.materialize(cell, dev, seed=0)
     res["materialize_s"] = round(time.perf_counter() - t0, 2)
     out = {}
 
     def prefill():
+        out.clear()  # a call's peak holds no earlier call's outputs
         out.update(cell.fn(params, inputs))
 
     # the path's launches: one run of each cell, counted alone
@@ -5256,9 +5334,14 @@ def phase_cells_one(torch, np, dev, smoke: bool = False):
     prefill()
     counts = launches()
     ms, _ = wall_ms(torch, prefill, CELL_REPS, cuda)
-    out.clear()
-    busy, peak = busy_peak(torch, prefill, cuda)
-    res["prefill"] = cell_numbers(torch, cfg, pre, 0.0, ms, busy, peak, in_gb)
+    busy, peak, resident = busy_peak(torch, prefill, cuda, out.clear)
+    res["prefill"] = cell_numbers(torch, cfg, pre, 0.0, ms, busy, peak, in_gb,
+                                  meta, resident)
+    check_peak("prefill", res["prefill"], cuda)
+    count, res["prefill_card_count_s"] = counted_on_card(cell, (params, inputs), meta,
+                                                         cuda)
+    res["prefill"]["card_counted_peak_gb"] = round(count.memory["peak_bytes"] / 1e9, 3)
+    res["prefill"]["plain_versions"] = sorted(meta.cost["plain_versions"])
     # the engine on the same weights and prompts
     eng = GenerationEngine(cfg, params, pp.griffin, q_chunk=pp.q_chunk, device=dev)
     lg, aux = eng.prefill(inputs["tokens"])
@@ -5287,12 +5370,14 @@ def phase_cells_one(torch, np, dev, smoke: bool = False):
     # decode on the prefill's compacted FF over a random 32,768-token cache
     dcell = cells.build_cell(cfg, dec, mesh, dp)
     in_gb = cells.input_bytes(dcell) / 1e9
+    meta, _, res["decode_meta_count_s"] = step_cell(dcell)
     _, cache, _, token, pos = cells.materialize(dcell, dev, seed=0, params=params,
                                                 pruned=pruned)
     scale_cache(cache)
     dout = {}
 
     def decode():
+        dout.clear()
         dout["logits"], _ = dcell.fn(params, cache, pruned, token, pos)
 
     reset_launches()
@@ -5300,10 +5385,13 @@ def phase_cells_one(torch, np, dev, smoke: bool = False):
     for name, n in launches().items():
         counts[name] = counts.get(name, 0) + n
     ms, _ = wall_ms(torch, decode, CELL_REPS, cuda)
-    dout.clear()
-    busy, peak = busy_peak(torch, decode, cuda)
+    busy, peak, resident = busy_peak(torch, decode, cuda, dout.clear)
     res["decode"] = cell_numbers(torch, cfg, dec, dp.griffin.sparsity, ms, busy,
-                                 peak, in_gb)
+                                 peak, in_gb, meta, resident)
+    check_peak("decode", res["decode"], cuda)
+    count, res["decode_card_count_s"] = counted_on_card(
+        dcell, (params, cache, pruned, token, pos), meta, cuda)
+    res["decode"]["card_counted_peak_gb"] = round(count.memory["peak_bytes"] / 1e9, 3)
     lg, _ = eng.decode(cache, pruned, token, pos)
     scale = float(lg.abs().max())
     gap = float((dout["logits"] - lg).abs().max())

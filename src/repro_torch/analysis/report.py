@@ -1,7 +1,9 @@
 """The params, dry-run and roofline tables from the port's dry-run
 artifacts and the analytic cost model (port of
 ``repro/analysis/report.py``), on the H100's datasheet rates
-(``analysis.roofline``): analytic terms, not measurements.
+(``analysis.roofline``): analytic terms and what the dry-run counted on
+``meta`` (its peak, its FLOPs in "MODEL_FLOPS/counted", the reference's
+"MODEL_FLOPS/HLO"), not measurements.
 
   PYTHONPATH=src python -m repro_torch.analysis.report [--art artifacts/dryrun_torch]
 """
@@ -41,34 +43,40 @@ def load(art_dir: Path, arch: str, shape: str, pods: int, tag: str = ""):
 
 def dryrun_table(art_dir: Path) -> str:
     rows = [
-        "| arch | shape | pods=1 | pods=2 | bytes/rank (inputs) | step on meta (s) |",
-        "|---|---|---|---|---|---|",
+        "| arch | shape | pods=1 | pods=2 | bytes/rank (inputs) "
+        "| peak (args + temp) | step on meta (s) |",
+        "|---|---|---|---|---|---|---|",
     ]
     for arch in ASSIGNED_ARCHS:
         cfg = get_config(arch)
         for sname, shape in SHAPES.items():
             ok, reason = cell_supported(cfg, shape)
             if not ok:
-                rows.append(f"| {arch} | {sname} | skip | skip | — | {reason} |")
+                rows.append(f"| {arch} | {sname} | skip | skip | — | — | {reason} |")
                 continue
             r1 = load(art_dir, arch, sname, 1)
             r2 = load(art_dir, arch, sname, 2)
             s1 = (r1 or {}).get("status", "—")
             s2 = (r2 or {}).get("status", "—")
-            b = ((r1 or {}).get("memory", {}) or {}).get("input_bytes_per_device")
+            mem = (r1 or {}).get("memory", {}) or {}
             rows.append(f"| {arch} | {sname} | {s1} | {s2} | "
-                        f"{_fmt(b, ' GB', 1e-9)} | {_fmt((r1 or {}).get('step_s'))} |")
+                        f"{_fmt(mem.get('input_bytes_per_device'), ' GB', 1e-9)} | "
+                        f"{_fmt(mem.get('peak_bytes'), ' GB', 1e-9)} | "
+                        f"{_fmt((r1 or {}).get('step_s'))} |")
     return "\n".join(rows)
 
 
 def roofline_table(art_dir: Path) -> str:
     """Single-pod roofline, as each record's ``roofline`` holds it: the
     analytic FLOPs and bytes on the card's rates, and the collectives the
-    dry-run recorded (NVLink inside a node, the network across nodes)."""
+    dry-run recorded (NVLink inside a node, the network across nodes);
+    beside the model's FLOPs over the analytic ones, over the FLOPs the
+    dry-run counted."""
     rows = [
         "| arch | shape | compute (s) | memory (s) | collective (s) | dominant "
-        "| MODEL_FLOPS/analytic | roofline frac | one-line lever |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "| MODEL_FLOPS/analytic | MODEL_FLOPS/counted | roofline frac "
+        "| one-line lever |",
+        "|---|---|---|---|---|---|---|---|---|---|",
     ]
     for arch in ASSIGNED_ARCHS:
         cfg = get_config(arch)
@@ -77,16 +85,18 @@ def roofline_table(art_dir: Path) -> str:
                 continue
             rec = load(art_dir, arch, sname, 1)
             if rec is None or rec.get("status") != "ok":
-                rows.append(f"| {arch} | {sname} | (no artifact) |" + " |" * 6)
+                rows.append(f"| {arch} | {sname} | (no artifact) |" + " |" * 7)
                 continue
             r = rec["roofline"]
             dom = r["dominant"]
             terms = " | ".join(_fmt(r[k], digits=4) for k in (
                 "compute_s", "memory_s", "collective_s"))
+            counted = rec.get("counted", {}).get("flops_per_chip")
             rows.append(
                 f"| {arch} | {sname} | {terms} | {dom} | "
-                f"{_fmt(r['useful_ratio'])} | {_fmt(r['roofline_fraction'])} | "
-                f"{LEVERS[dom]} |"
+                f"{_fmt(r['useful_ratio'])} | "
+                f"{_fmt(r['model_flops_per_chip'] / counted if counted else None)} | "
+                f"{_fmt(r['roofline_fraction'])} | {LEVERS[dom]} |"
             )
     return "\n".join(rows)
 

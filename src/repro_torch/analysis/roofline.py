@@ -28,6 +28,8 @@ from typing import Dict, Optional
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 #: HBM3 bandwidth per card, bytes/s (datasheet)
 HBM_BW = 3.35e12
+#: HBM3 capacity per card, bytes (datasheet: 80 GB)
+HBM_CAPACITY = 80e9
 #: NVLink 4 bandwidth per card and direction, bytes/s (datasheet: 900 GB/s
 #: both ways), between the cards of one node
 NVLINK_BW = 450e9

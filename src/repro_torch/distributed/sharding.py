@@ -312,6 +312,35 @@ def gather(xs: Sequence[torch.Tensor], dims: Sequence[int],
     return _Gather.apply(mesh, axis, tuple(dims), *xs)
 
 
+class _GatherKeep(torch.autograd.Function):
+    """All-gather forward; backward this rank's block of the gradient,
+    unsummed (every rank computed the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, d, axis):
+        mesh, _ = _group(axis)
+        ctx.d, ctx.w = d, x.shape[d]
+        ctx.r = mesh.coord(_axes(axis))
+        return _Gather.apply(mesh, axis, (d,), x)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.d, ctx.r * ctx.w, ctx.w).contiguous(), None, None
+
+
+def gather_leaf(t: torch.Tensor, d: int, axis="model") -> torch.Tensor:
+    """A leaf's block gathered whole along ``d`` over ``axis`` for a
+    computation every rank of ``axis`` runs whole (GSPMD's replicated
+    compute of a split leaf).  Its gradient is this rank's block of the
+    whole gradient: taken as it is where every rank computed it alike,
+    summed over the ranks under ``seq_parallel`` (``gather``), where each
+    computed the part of its own block of the sequence."""
+    if sp_active():
+        return gather([t], [d], axis)[0]
+    mesh, group = _group(axis)
+    return t if group is None else _GatherKeep.apply(t, d, axis)
+
+
 def all_sum(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum over ``axis`` of a tensor outside autograd (metrics, counts);
     the identity for no axes or one rank."""

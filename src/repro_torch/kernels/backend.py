@@ -8,14 +8,18 @@
   version (``kernels/ref.py``), as does a ``meta`` tensor (the
   dry-run's explicit request for shapes), anything else raises.  There is no
   fallback from the kernel to the plain version.
+* ``plain`` — the context a wrapper runs its plain version in, so that
+  ``analysis.collectives.count_ops`` can name the kernels it counted
+  through their plain versions and charge their ops to them.
 * ``lib`` — the ``ctypes`` handle of ``build/libgriffin_kernels.so``,
   built on first use (``kernels/build.py``).  Every C entry point
   returns ``cudaGetLastError()`` and ``check`` raises on non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -58,6 +62,9 @@ _SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 
+#: the wrappers whose plain versions are running, innermost last
+PLAIN: List[str] = []
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``.  Raises when CUDA is asked for (explicitly or
@@ -83,6 +90,17 @@ def is_cuda(t: torch.Tensor, what: str) -> bool:
     if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: tensor on unsupported device {t.device}")
+
+
+@contextlib.contextmanager
+def plain(what: str):
+    """The body of wrapper ``what``'s plain version (a CPU or ``meta``
+    tensor): named in ``PLAIN`` while it runs."""
+    PLAIN.append(what)
+    try:
+        yield
+    finally:
+        PLAIN.pop()
 
 
 def lib() -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """Public kernel wrappers (port of ``repro/kernels/ops.py``).
 
 Each dispatches on the device of its tensors: a CUDA tensor launches the
-hand-written kernel (or raises), a CPU tensor runs the plain version in
-``kernels/ref.py``.  There is no fallback from one to the other.
+hand-written kernel (or raises), a CPU (or ``meta``) tensor runs the
+plain version in ``kernels/ref.py``, inside ``backend.plain``.  There is
+no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ def griffin_ffn_decode(x, wg, w1, w2, block_ids, *, block_size: int = 128,
     if backend.is_cuda(x, "griffin_ffn_decode"):
         return _griffin_ffn(x, wg, w1, w2, block_ids, block_size=block_size,
                             activation=activation)
-    return ref.griffin_ffn_ref(x, wg, w1, w2, block_ids, block_size,
-                               activation=activation)
+    with backend.plain("griffin_ffn_decode"):
+        return ref.griffin_ffn_ref(x, wg, w1, w2, block_ids, block_size,
+                                   activation=activation)
 
 
 def glu_ffn_forward(x, wg, w1, w2, *, activation: str = "swiglu"):
@@ -35,14 +37,16 @@ def glu_ffn_forward(x, wg, w1, w2, *, activation: str = "swiglu"):
     fp32 (see ``kernels/glu_ffn.py``)."""
     if backend.is_cuda(x, "glu_ffn_forward"):
         return _glu_ffn(x, wg, w1, w2, activation=activation)
-    return ref.glu_ffn_ref(x, wg, w1, w2, activation=activation)
+    with backend.plain("glu_ffn_forward"):
+        return ref.glu_ffn_ref(x, wg, w1, w2, activation=activation)
 
 
 def griffin_stat(z: torch.Tensor) -> torch.Tensor:
     """Eq. 6 statistic. z: [S, F] -> [F] or [B, S, F] -> [B, F], fp32."""
     if backend.is_cuda(z, "griffin_stat"):
         return _expert_stat(z.contiguous())
-    return ref.expert_stat_ref(z)
+    with backend.plain("griffin_stat"):
+        return ref.expert_stat_ref(z)
 
 
 def griffin_row_sq(z: torch.Tensor) -> torch.Tensor:
@@ -50,7 +54,8 @@ def griffin_row_sq(z: torch.Tensor) -> torch.Tensor:
     step 1 of the statistic under tensor parallelism."""
     if backend.is_cuda(z, "griffin_row_sq"):
         return _stat_row_sq(z.contiguous())
-    return ref.expert_stat_row_sq_ref(z)
+    with backend.plain("griffin_row_sq"):
+        return ref.expert_stat_row_sq_ref(z)
 
 
 def griffin_stat_from_norm(z: torch.Tensor, row_sq: torch.Tensor) -> torch.Tensor:
@@ -59,7 +64,8 @@ def griffin_stat_from_norm(z: torch.Tensor, row_sq: torch.Tensor) -> torch.Tenso
     -> [F] / [B, F] fp32."""
     if backend.is_cuda(z, "griffin_stat_from_norm"):
         return _stat_from_norm(z.contiguous(), row_sq.contiguous())
-    return ref.expert_stat_from_norm_ref(z, row_sq)
+    with backend.plain("griffin_stat_from_norm"):
+        return ref.expert_stat_from_norm_ref(z, row_sq)
 
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -69,8 +75,9 @@ def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor
     if backend.is_cuda(pool, "paged_gather"):
         return _paged_gather(pool.contiguous(),
                              block_tables.to(torch.int32).contiguous())
-    bt = block_tables.clamp(min=0).to(torch.int32).contiguous()
-    return ref.paged_gather_ref(pool, bt)
+    with backend.plain("paged_gather"):
+        bt = block_tables.clamp(min=0).to(torch.int32).contiguous()
+        return ref.paged_gather_ref(pool, bt)
 
 
 def paged_kv_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -96,5 +103,6 @@ def paged_attention(q, k_new, v_new, pool_k, pool_v, block_tables, pos,
     if backend.is_cuda(q, "paged_attention"):
         return _paged_attn(q, k_new, v_new, pool_k, pool_v, block_tables,
                            pos, write_mask, window=window, **kw)
-    return ref.paged_attn_ref(q, k_new, v_new, pool_k, pool_v, block_tables,
-                              pos, write_mask, window=window, **kw)
+    with backend.plain("paged_attention"):
+        return ref.paged_attn_ref(q, k_new, v_new, pool_k, pool_v, block_tables,
+                                  pos, write_mask, window=window, **kw)

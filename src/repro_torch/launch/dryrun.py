@@ -10,11 +10,17 @@ over a ``launch.mesh.dry_train_mesh``, whose groups record every
 collective instead of running it.  A train cell's step includes all its
 microbatches and the optimizer update.
 
-The roofline's FLOPs and HBM bytes are ``analysis.analytic``'s (the
-port has no ``cost_analysis``; XLA's temp and code sizes have no
-counterpart and are left out), its wire bytes the collectives the step
-recorded (``analysis.collectives``), all on the card's datasheet rates
-(``analysis.roofline``).
+The roofline's FLOPs and HBM bytes are ``analysis.analytic``'s, its
+wire bytes the collectives the step recorded (``analysis.collectives``),
+all on the card's datasheet rates (``analysis.roofline``): the lower
+bound a measured step is divided by.  The same step is counted
+(``collectives.count_ops``, the counterpart of the reference's
+``cost_analysis()`` and ``memory_analysis()``): ``counted`` holds its
+FLOPs, elementwise FLOPs and eager operand bytes (traffic, not a bound),
+``flops_counted_over_analytic`` sets its FLOPs against the analytic
+ones, and ``memory`` its argument, output, alias and temp bytes and the
+peak (arguments + temp) against the card's HBM (``fits_card``).  XLA's
+generated code size has no counterpart.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape decode_32k
@@ -44,6 +50,10 @@ from repro_torch.launch.mesh import dry_train_mesh
 from repro_torch.launch.policies import CellPolicy, policy_for
 
 
+#: the record's two sources: the roofline's FLOPs and bytes, and the count
+COST_SOURCE = "roofline: analytic; counted: aten dispatch of one rank's step"
+
+
 def production_shape(pods: int):
     """``(shape, axes)`` of the reference's production mesh."""
     return ((2, 16, 16), ("pod", "data", "model")) if pods == 2 else \
@@ -66,15 +76,16 @@ def cell_config(arch: str, *, moe_group_limit: int = 0, kv_int8: bool = False,
 
 def step_cell(cell: cells_lib.Cell, args=None):
     """Step ``cell.fn`` once (on ``args``, default the cell's ``meta``
-    ones) and return ``(ops, records, seconds)``: ``count_ops`` of the
-    step, the collectives it issued and its host wall."""
+    ones) and return ``(count, records, seconds)``: ``count_ops`` of the
+    step, the collectives it issued and its host wall (the count's
+    included)."""
     shlib.reset_records()
     t0 = time.perf_counter()
-    ops = coll_lib.count_ops(cell.fn, *(cell.args if args is None else args))
+    count = coll_lib.count_ops(cell.fn, *(cell.args if args is None else args))
     dt = time.perf_counter() - t0
     records = list(shlib.RECORDS)
     shlib.reset_records()
-    return ops, records, dt
+    return count, records, dt
 
 
 def run_cell(arch: str, shape_name: str, *, pods: int = 1, use_griffin: bool = True,
@@ -118,7 +129,7 @@ def run_cell(arch: str, shape_name: str, *, pods: int = 1, use_griffin: bool = T
     try:
         mesh = dry_train_mesh(dims, axes, rank)
         cell = cells_lib.build_cell(cfg, shape, mesh, pol)
-        ops, records, step_s = step_cell(cell)
+        count, records, step_s = step_cell(cell)
     except Exception as e:  # a failing cell is a bug or a named refusal
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])
@@ -133,19 +144,27 @@ def run_cell(arch: str, shape_name: str, *, pods: int = 1, use_griffin: bool = T
                          coll["bytes_total"], model_flops_total=mf, chips=chips,
                          network_bytes_per_chip=coll["bytes_network"],
                          dtype=cfg.dtype)
+    c = count.cost
+    mem = dict(count.memory, input_bytes_per_device=cells_lib.input_bytes(cell))
+    mem["fits_card"] = mem["peak_bytes"] <= rl.HBM_CAPACITY
     rec.update(
         status="ok",
         chips=chips,
         step_s=round(step_s, 3),
-        cost_source="analytic",
+        cost_source=COST_SOURCE,
         flops_per_chip=cost.flops / chips,
         hbm_bytes_per_chip=cost.hbm_bytes / chips,
+        counted={"flops_per_chip": c["flops"],
+                 "elementwise_flops_per_chip": c["elementwise_flops"],
+                 "bytes_accessed_per_chip": c["bytes_accessed"],
+                 "by_op": c["by_op"], "plain_versions": c["plain_versions"]},
+        flops_counted_over_analytic=c["flops"] / (cost.flops / chips),
         collectives=coll,
         collective_summary=coll_lib.summary(records),
-        memory={"input_bytes_per_device": cells_lib.input_bytes(cell)},
+        memory=mem,
         model_flops_total=mf,
         roofline=roof.as_dict(),
-        ops=ops,
+        ops=count.ops,
         notes=cell.notes,
     )
     return rec
@@ -226,6 +245,9 @@ def _report(todo, recs, args, out_dir: Path) -> int:
         if status == "ok":
             r = rec["roofline"]
             extra = (f" bytes/rank={rec['memory']['input_bytes_per_device']:.4e}"
+                     f" peak={rec['memory']['peak_bytes']:.4e}"
+                     f" flops_counted/analytic="
+                     f"{rec['flops_counted_over_analytic']:.4f}"
                      f" dominant={r['dominant']} bound={r['bound_s']:.4e}s"
                      f" coll={rec['collectives']['bytes_total']:.4e}B"
                      f" step={rec['step_s']}s")

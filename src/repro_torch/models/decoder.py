@@ -56,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -277,38 +277,46 @@ def _mesh_plan(cfg) -> Optional[Dict]:
     return _plan(cfg, mesh.axes, mesh.dims, tuple(sorted(rules.items())))
 
 
+def _blocked(t, g) -> bool:
+    return g is not None and t.shape[g[0]] != g[1]
+
+
+def _collect(t, g, out: List) -> List:
+    """``out`` with ``(leaf, gather dim)`` of every leaf of ``t`` that
+    holds only its block (``_gather``)."""
+    if g is None:
+        return out
+    if isinstance(t, (dict, list)):
+        for k in (t if isinstance(t, dict) else range(len(t))):
+            _collect(t[k], g[k], out)
+    elif _blocked(t, g):
+        out.append((t, g[0]))
+    return out
+
+
+def _rebuild(t, g, full: Iterator) -> Any:
+    """``t`` with each leaf that holds only its block taken from ``full``."""
+    if g is None:
+        return t
+    if isinstance(t, dict):
+        return {k: _rebuild(v, g[k], full) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_rebuild(v, g[i], full) for i, v in enumerate(t)]
+    return next(full) if _blocked(t, g) else t
+
+
 def _gather(tree: Any, gdims: Any) -> Any:
     """``tree`` with every leaf that has a gather dim, and holds only its
     block of it, gathered over ``data`` (one collective per dtype;
-    ``sharding.gather``); a None in ``gdims`` leaves its subtree as is."""
-    def blocked(t, g):
-        return g is not None and t.shape[g[0]] != g[1]
-
-    def collect(t, g, out):
-        if g is None:
-            return out
-        if isinstance(t, (dict, list)):
-            for k in (t if isinstance(t, dict) else range(len(t))):
-                collect(t[k], g[k], out)
-        elif blocked(t, g):
-            out.append((t, g[0]))
-        return out
-
-    todo = collect(tree, gdims, [])
+    ``sharding.gather``); a None in ``gdims`` leaves its subtree as is.
+    The walks are module functions: a recursive closure is a reference
+    cycle, which would hold a layer's gathered leaves until Python's
+    cyclic collector ran."""
+    todo = _collect(tree, gdims, [])
     if not todo:
         return tree
     full = iter(shlib.gather([t for t, _ in todo], [d for _, d in todo], "data"))
-
-    def rebuild(t, g):
-        if g is None:
-            return t
-        if isinstance(t, dict):
-            return {k: rebuild(v, g[k]) for k, v in t.items()}
-        if isinstance(t, list):
-            return [rebuild(v, g[i]) for i, v in enumerate(t)]
-        return next(full) if blocked(t, g) else t
-
-    return rebuild(tree, gdims)
+    return _rebuild(tree, gdims, full)
 
 
 def _gather_top(params: Dict, cfg) -> Dict:

@@ -23,7 +23,10 @@ those columns only (with the gathered ``conv_w``) and the SSD over its
 heads, takes the gated norm's mean square over the whole ``d_in`` (one
 all-reduce of the partial sums of squares) and hands the row-split
 ``w_out``'s partial sums to ``sharding.block_out``.  The cache holds its
-heads' states and its block of the conv tail's columns.
+heads' states and its block of the conv tail's columns.  Where the heads
+do not divide over ``model`` (their spec drops it) but another leaf
+does, that leaf is gathered whole (``sharding.gather_leaf``) and every
+rank runs the mixer whole, as GSPMD runs that layout.
 """
 from __future__ import annotations
 
@@ -173,15 +176,17 @@ class _Local:
         h_loc = params["a_log"].shape[0]
         self.split = shlib.model_split(h_loc, H)
         self.n, self.r = 1, 0
+        # (dimension, whole size) of the leaves split with the heads
+        full = {"w_in": (1, 2 * d_in + 2 * G * N + H), "conv_w": (1, conv_dim),
+                "conv_b": (0, conv_dim), "norm": (0, d_in), "w_out": (0, d_in)}
+        #: the leaves a whole mixer gathers (heads whole, the leaf split)
+        self.gathered = {} if self.split else {
+            k: v for k, v in full.items() if params[k].shape[v[0]] != v[1]}
         if self.split:
             mesh, _ = shlib.active_rules()
             self.n, self.r = mesh.extent("model"), mesh.coord("model")
-            width = 2 * d_in + 2 * G * N + H
-            want = {"w_in": (params["w_in"].shape[1], width),
-                    "conv_w": (params["conv_w"].shape[1], conv_dim),
-                    "norm": (params["norm"].shape[0], d_in),
-                    "w_out": (params["w_out"].shape[0], d_in)}
-            bad = {k: v for k, v in want.items() if v[0] * self.n != v[1]}
+            bad = {k: v for k, v in full.items()
+                   if params[k].shape[v[0]] * self.n != v[1]}
             hpg = H // G
             if bad or (G > 1 and h_loc % hpg):
                 raise NotImplementedError(
@@ -201,6 +206,13 @@ class _Local:
         x = torch.arange(self.h0 * P, (self.h0 + self.H) * P)
         gb = torch.arange(self.g0 * N, (self.g0 + self.G) * N)
         return torch.cat([x, d_in + gb, d_in + G * N + gb]).to(device)
+
+    def params(self, params: Dict) -> Dict:
+        """``params`` with the ``gathered`` leaves whole."""
+        if not self.gathered:
+            return params
+        return dict(params, **{k: shlib.gather_leaf(params[k], d)
+                               for k, (d, _) in self.gathered.items()})
 
     def whole(self, t: torch.Tensor, d: int, full: int) -> torch.Tensor:
         """``t``'s dimension ``d`` gathered over ``model`` where it holds a
@@ -266,6 +278,7 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg, init_state=None
     B, S, D = x.shape
     d_in, H, P, G, N, conv_dim = _dims(cfg)
     loc = _Local(params, cfg)
+    params = loc.params(params)
     z, xbc, dt, pre = _heads_proj(params, x, cfg, loc)
     tail = conv_tail(pre, cfg.conv_width)
     cw, cb = _conv_params(params, cfg, loc)
@@ -306,6 +319,7 @@ def ssm_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
     B = x.shape[0]
     d_in, H, P, G, N, conv_dim = _dims(cfg)
     loc = _Local(params, cfg)
+    params = loc.params(params)
     z, _, dt, xbc_new = _heads_proj(params, x, cfg, loc)  # [B,1,conv_dim]
 
     # conv window: cache["conv"] holds the previous W-1 inputs (split:
@@ -341,6 +355,7 @@ def ssm_decode(params: Dict, cache: Dict, x: torch.Tensor, cfg
     out = _gated_out(params, y, z, x, loc)
     cache["state"].copy_(state)
     w = cache["conv"].shape[2]
-    cache["conv"].copy_(win[:, 1:, loc.r * w:(loc.r + 1) * w]
-                        if loc.split else win[:, 1:])
+    if w != conv_dim:  # this rank's block of the tail's columns
+        win = win.narrow(2, shlib.active_rules()[0].coord("model") * w, w)
+    cache["conv"].copy_(win[:, 1:])
     return out, cache

@@ -19,6 +19,7 @@ split over, and each rank updates its own blocks.
 """
 from __future__ import annotations
 
+import functools
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -49,31 +50,33 @@ def abstract_train_state(cfg, optimizer: Optimizer) -> Dict:
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
+def _walk(t: Any, leaves: List[torch.Tensor]) -> Any:
+    """``t``'s skeleton: each tensor appended to ``leaves``, its index in
+    its place."""
+    if isinstance(t, dict):
+        return {k: _walk(v, leaves) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_walk(v, leaves) for v in t]
+    leaves.append(t)
+    return len(leaves) - 1
+
+
+def _fill(skeleton: Any, vals: List[torch.Tensor]) -> Any:
+    """The tree of ``skeleton`` with ``vals[i]`` in the place of index i."""
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, vals) for k, v in skeleton.items()}
+    if isinstance(skeleton, list):
+        return [_fill(v, vals) for v in skeleton]
+    return vals[skeleton]
+
+
 def _flatten(tree: Any) -> Tuple[List[torch.Tensor], Callable]:
     """Tensors of a dict/list tree in order, and a function that builds
-    the same tree from a list of new leaves."""
+    the same tree from a list of new leaves.  The walks are module
+    functions: a recursive closure is a reference cycle, which would hold
+    the leaves (gradients too) until Python's cyclic collector ran."""
     leaves: List[torch.Tensor] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        leaves.append(t)
-        return len(leaves) - 1
-
-    skeleton = walk(tree)
-
-    def rebuild(vals):
-        def fill(s):
-            if isinstance(s, dict):
-                return {k: fill(v) for k, v in s.items()}
-            if isinstance(s, list):
-                return [fill(v) for v in s]
-            return vals[s]
-        return fill(skeleton)
-
-    return leaves, rebuild
+    return leaves, functools.partial(_fill, _walk(tree, leaves))
 
 
 def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict, cfg

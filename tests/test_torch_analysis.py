@@ -116,7 +116,7 @@ def test_count_ops_counts_a_decode_steps_matmuls():
     params = tdec.init_params(cfg, 0, "cpu")
     cache = tdec.init_cache(cfg, 2, 16, "cpu")
     tok = torch.zeros((2, 1), dtype=torch.int64)
-    ops = tcoll.count_ops(tdec.decode_step, params, cfg, cache, tok, 3)
+    ops = tcoll.count_ops(tdec.decode_step, params, cfg, cache, tok, 3).ops
     # per layer q, k, v, scores, context, out-projection, w_g, w_1, w_2;
     # the tied head
     assert ops["dot"] == 9 * cfg.num_layers + 1

@@ -452,7 +452,7 @@ def test_dryrun_cli_in_process(tmp_path, capsys):
         assert rc == 0 and "[ok" in out, out
         rec = json.loads((tmp_path / "smollm-360m_decode_32k_p2.json").read_text())
         assert rec["status"] == "ok" and rec["chips"] == 512
-        assert rec["griffin"] and rec["cost_source"] == "analytic"
+        assert rec["griffin"] and rec["cost_source"] == tdry.COST_SOURCE
         assert rec["memory"]["input_bytes_per_device"] > 0
         assert rec["ops"]["dot"] > 0 and rec["ops"]["custom-call"] == 0
         # each 16-rank model group spans two nodes of 8: all network bytes

@@ -16,7 +16,14 @@ gloo ranks), held against the JAX package.
   config's leaves are drawn in slices (no spawn).
 * The SSM and RG-LRU mixers split over ``model`` at (1, 2): Mamba2's and
   RecurrentGemma's smoke configs, prefill and three decode steps against
-  the reference's forward and decode (``TOL``).
+  the reference's forward and decode (``TOL``).  A Mamba2 variant whose
+  3 heads do not divide over ``model`` while its conv, norm and
+  out-projection do (``ODD_SSM``): those leaves are gathered and each
+  rank runs the mixer whole: its logits, and a train step's loss and
+  gradient blocks (with and without sequence parallelism), against the
+  reference's forward, decode and single-device step (the gradients
+  also against the port's one rank); Mamba2's smoke cells (8 heads, 160
+  conv columns) step on the dry mesh at (1, 16) and (16, 16).
 * An int8 cache split over ``head_dim``: a block's codes and scales equal
   the reference's ``quantize_kv`` of the whole head, and a decode step
   of tinylm at (1, 2) under the decode fallback writes the one-device
@@ -64,6 +71,11 @@ GRAD_REL = 1e-5
 #: to ``GRAD_REL`` of that share (a key bias's gradient is zero: softmax
 #: ignores what it adds to every score of a query)
 ZERO_GRAD = 1e-3
+#: a rank's gradient against the reference's single-device gradient where
+#: the leaves are small enough that ``GRAD_REL`` of their own largest |g|
+#: is float32 rounding (``ODD_SSM``'s 3-element ``dt_bias``): the one
+#: device's tolerance (``test_torch_train_step.GRAD_TOL``)
+JAX_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 LR = 1e-2
 MOE_CHUNKS = (64, 16_384)
 #: gradients of DeepSeek-V3's smoke step with their ownership broken, each
@@ -71,6 +83,11 @@ MOE_CHUNKS = (64, 16_384)
 GRAD_MUTANTS = (("train2d", {"expert_2d": True}, "no_gather_sum"),
                 ("sp_ds", {"expert_2d": True, "seq_parallel": True}, "no_grad_scale"))
 RECURRENT = ("mamba2-1.3b", "recurrentgemma-9b")
+#: Mamba2's smoke config at d_model 48, head_dim 32: 3 heads (whole at
+#: (1, 2)), conv_dim 128 and d_in 96 (split), w_in's 227 columns (whole)
+ODD_SSM = "mamba2-odd-heads"
+#: ``ODD_SSM``'s train steps at (1, 2): rules of each
+ODD_TRAIN = {"odd_train": {}, "odd_train_sp": {"seq_parallel": True}}
 REC_PROMPT, REC_STEPS = 12, 3
 
 
@@ -83,6 +100,8 @@ def _cfg(tag: str, get=tget):
             vocab_size=256, dtype="float32")
     if tag == "tiny8":
         return get("tinylm").replace(kv_cache_int8=True)
+    if tag == ODD_SSM:
+        return get("mamba2-1.3b", smoke=True).replace(d_model=48, ssm_head_dim=32)
     return get(tag, smoke=True)
 
 
@@ -485,10 +504,14 @@ def runs():
                                                     kw, 1, mutant))
     jobs22["sp_prefill"] = ("_job_sp_prefill", ())
     jobs22["sp_families"] = ("_job_sp_families", ())
-    rec_p = {a: tdec.init_params(_cfg(a), 0, "cpu") for a in RECURRENT}
+    rec_p = {a: tdec.init_params(_cfg(a), 0, "cpu") for a in RECURRENT + (ODD_SSM,)}
     rec_t = rng.integers(0, 256, (2, REC_PROMPT + REC_STEPS)).astype(np.int64)
     k_np = rng.normal(size=(2, 1, 3, 32)).astype(np.float32)
-    jobs12 = {a: ("_job_recurrent", (a, _tree_np(rec_p[a]), rec_t)) for a in RECURRENT}
+    jobs12 = {a: ("_job_recurrent", (a, _tree_np(rec_p[a]), rec_t))
+              for a in RECURRENT + (ODD_SSM,)}
+    for name, kw in ODD_TRAIN.items():
+        jobs12[name] = ("_job_train", (ODD_SSM, _tree_np(rec_p[ODD_SSM]), tokens,
+                                       kw, 1))
     jobs12["int8"] = ("_job_int8", (k_np,))
     with ThreadPoolExecutor(2) as ex:
         f22 = ex.submit(_spawn, (2, 2), jobs22)
@@ -496,12 +519,16 @@ def runs():
         ref = {"moe": {c: _jax_moe(moe_p, x, ct, c) for c in MOE_CHUNKS},
                "train2d": _jax_losses("ds", inits["ds"], tokens, 1),
                "sp_yi": _jax_losses("yi", inits["yi"], tokens, 2),
-               "rec": {a: _jax_recurrent(a, rec_p[a], rec_t) for a in RECURRENT}}
+               "rec": {a: _jax_recurrent(a, rec_p[a], rec_t)
+                       for a in RECURRENT + (ODD_SSM,)},
+               "odd_train": _jax_losses(ODD_SSM, rec_p[ODD_SSM], tokens, 1),
+               "odd_one": _job_recurrent(tmesh.TrainMesh(), ODD_SSM,
+                                         _tree_np(rec_p[ODD_SSM]), rec_t)}
         res22, res12 = f22.result(), f12.result()
     torch.set_num_threads(n)
     ref["sp_ds"] = ref["train2d"]
     return dict(res22=res22, res12=res12, ref=ref, moe_p=moe_p, x=x,
-                k=k_np, rec_p=rec_p, inits=inits)
+                k=k_np, rec_p=rec_p, inits=inits, tokens=tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +637,65 @@ def test_recurrent_mixers_split_over_model_match_the_reference(runs, arch):
         # each rank holds half of every mixer leaf, as the reference's rules
         # split them (conv_b / norm / the heads' vectors included)
         assert o["mixer_bytes"] * 2 == whole, arch
+
+
+def test_whole_ssm_mixer_with_split_leaves_matches_one_rank(runs):
+    """``ODD_SSM`` at (1, 2): the heads whole, conv / norm / w_out split
+    and gathered, the mixer run whole on each rank: the logits against
+    the reference's forward and decode, the bytes against one rank's."""
+    last, dec = runs["ref"]["rec"][ODD_SSM]
+    one = runs["ref"]["odd_one"]
+    cfg = _cfg(ODD_SSM)
+    assert cfg.ssm_nheads % 2 and (cfg.d_inner_ssm + 2 * cfg.ssm_state) % 2 == 0
+    for r, o in enumerate(runs["res12"]):
+        o = o[ODD_SSM]
+        V = o["last"].shape[-1]
+        cols = slice(r * V, (r + 1) * V)
+        np.testing.assert_allclose(o["last"], last[:, cols], **TOL)
+        for t, lg in enumerate(o["dec"]):
+            np.testing.assert_allclose(lg, dec[t][:, cols], **TOL, err_msg=str(t))
+        # a rank holds half of the split leaves (and of its conv tail)
+        assert o["mixer_bytes"] < one["mixer_bytes"]
+        assert o["cache_bytes"] < one["cache_bytes"]
+
+
+@pytest.mark.parametrize("dims", [(1, 16), (16, 16)])
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
+def test_ssm_smoke_cells_with_whole_heads_and_split_leaves_step(dims, shape):
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun import step_cell
+
+    cfg = _cfg("mamba2-1.3b")
+    assert cfg.ssm_nheads % dims[1] and (cfg.d_inner_ssm + 2 * cfg.ssm_state) % dims[1] == 0
+    pol = tpol.policy_for(cfg, SHAPES[shape])
+    cell = tcells.build_cell(cfg, SHAPES[shape],
+                             tmesh.dry_train_mesh(dims, ("data", "model"), 0), pol)
+    count, records, _ = step_cell(cell)
+    assert count.ops["dot"] > 0
+    # the split leaves are gathered over model
+    assert any(r["kind"] == "all-gather" and len(r["ranks"]) == dims[1]
+               for r in records)
+
+
+@pytest.mark.parametrize("job", sorted(ODD_TRAIN))
+def test_whole_ssm_mixer_with_split_leaves_trains_as_one_rank(runs, job):
+    """The loss and the gradient blocks (the gathered leaves': each
+    rank's block of the whole gradient, every rank computed it whole;
+    under sequence parallelism the sum of the ranks' parts) against the
+    reference's single-device step (``JAX_GRAD_TOL``), and within
+    ``GRAD_REL`` of the port's one rank."""
+    want = runs["ref"]["odd_train"]
+    cfg = _cfg(ODD_SSM)
+    params = runs["rec_p"][ODD_SSM]
+    one = _one_rank_grads(cfg, params, {"tokens": torch.from_numpy(runs["tokens"])})
+    for o in runs["res12"]:
+        o = o[job]
+        np.testing.assert_allclose(o["losses"], want["losses"], **LOSS_TOL)
+        assert sorted(o["grads"]) == sorted(want["grads"])
+        for k, w in want["grads"].items():
+            np.testing.assert_allclose(o["grads"][k], w[o["slices"][k]], **JAX_GRAD_TOL,
+                                       err_msg=k)
+        assert _grad_misses(o, one) == []
 
 
 def test_int8_cache_split_over_head_dim(runs):
